@@ -1,0 +1,186 @@
+"""Truncated GPT-2 backbone with LoRA on c_attn (HF GPT-2 numerics).
+
+inputs_embeds + wpe -> ``llm_layers`` blocks -> ln_f; LayerNorm eps 1e-5,
+tanh-GELU MLP, attention scale 1/sqrt(head_dim), causal mask, dropout 0.1.
+Parameter names follow HF/peft under the reference's ``llm_backbone.model``.
+
+Paths, as in the JAX package:
+
+* LayerNorm is the lean form (fp32 statistics from E[x^2] - mu^2, affine in
+  the compute dtype), the JAX package's default;
+* attention over T <= ``UNROLL_MAX_SEQ`` tokens is the unrolled form, or the
+  short-attention kernel with ``fused_attn=True``; longer sequences take the
+  einsum form;
+* ``use_fused_mlp=True`` sends ln_2 -> MLP -> residual of an eval call to the
+  fused kernel, whose LayerNorm is two-pass (as ``ops/fused_mlp.py`` is).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tec_mollm_tpu_torch.config import ModelConfig
+from tec_mollm_tpu_torch.models.lora import LoRADense
+from tec_mollm_tpu_torch.ops.fused_mlp import fused_ln_mlp
+from tec_mollm_tpu_torch.ops.short_attention import short_causal_attention
+
+# Sequences up to this length use the unrolled attention (or the kernel).
+UNROLL_MAX_SEQ = 8
+
+
+def lean_layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5):
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.square().mean(dim=-1, keepdim=True) - mean.square()
+    norm = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    return norm * w.to(x.dtype) + b.to(x.dtype)
+
+
+def unrolled_causal_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, dropout: float = 0.0
+) -> torch.Tensor:
+    """Causal softmax attention over (M, T, D) with the (query, key) pairs
+    unrolled: q*k in the compute dtype, scores and softmax in fp32, the
+    weighted sum in the compute dtype. ``dropout`` applies to the weights."""
+    m, t, d = q.shape
+    hd = d // heads
+    scale = 1.0 / math.sqrt(hd)
+
+    def split(a: torch.Tensor) -> torch.Tensor:  # (M, D) -> (M, H, Dh)
+        return a.reshape(m, heads, hd)
+
+    ks = [split(k[:, s]) for s in range(t)]
+    vs = [split(v[:, s]) for s in range(t)]
+    outs = []
+    for tq in range(t):
+        qt = split(q[:, tq])
+        scores = [(qt * ks[s]).float().sum(dim=-1) * scale for s in range(tq + 1)]
+        mx = scores[0]
+        for s_val in scores[1:]:
+            mx = torch.maximum(mx, s_val)
+        exps = [torch.exp(s_val - mx) for s_val in scores]
+        denom = sum(exps)
+        alphas = [F.dropout(e / denom, dropout, dropout > 0.0) for e in exps]
+        out_t = alphas[0].to(v.dtype)[:, :, None] * vs[0]
+        for s in range(1, tq + 1):
+            out_t = out_t + alphas[s].to(v.dtype)[:, :, None] * vs[s]
+        outs.append(out_t.reshape(m, d))
+    return torch.stack(outs, dim=1)
+
+
+def _einsum_causal_attention(q, k, v, heads: int, dropout: float) -> torch.Tensor:
+    """fp32 scores and softmax, probabilities cast back for the PV product."""
+    b, t, d = q.shape
+    hd = d // heads
+    q4, k4, v4 = (a.reshape(b, t, heads, hd) for a in (q, k, v))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q4.float(), k4.float()) / math.sqrt(hd)
+    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    scores = scores.masked_fill(~causal, torch.finfo(torch.float32).min)
+    probs = F.dropout(torch.softmax(scores, dim=-1).to(q.dtype), dropout, dropout > 0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v4).reshape(b, t, d)
+
+
+class GPT2Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, fused_attn: bool = False):
+        super().__init__()
+        d = cfg.d_llm
+        self.heads = cfg.llm_heads
+        self.dropout = cfg.llm_dropout
+        self.fused_attn = fused_attn
+        self.c_attn = LoRADense(d, 3 * d, cfg.lora_r, cfg.lora_alpha, cfg.lora_dropout)
+        self.c_proj = LoRADense(d, d)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t, d = x.shape[1], x.shape[2]
+        q, k, v = self.c_attn(x).split(d, dim=-1)
+        p = self.dropout if self.training else 0.0
+        if self.fused_attn and t <= UNROLL_MAX_SEQ:
+            out = short_causal_attention(q, k, v, self.heads, dropout_rate=p)
+        elif t <= UNROLL_MAX_SEQ:
+            out = unrolled_causal_attention(q, k, v, self.heads, p)
+        else:
+            out = _einsum_causal_attention(q, k, v, self.heads, p)
+        return F.dropout(self.c_proj(out), self.dropout, self.training)
+
+
+class GPT2MLP(nn.Module):
+    def __init__(self, d: int, ratio: int):
+        super().__init__()
+        self.c_fc = LoRADense(d, ratio * d)
+        self.c_proj = LoRADense(ratio * d, d)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return self.c_proj(F.gelu(self.c_fc(h), approximate="tanh"))
+
+
+class GPT2Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, fused_attn: bool = False, use_fused_mlp: bool = False):
+        super().__init__()
+        d = cfg.d_llm
+        self.use_fused_mlp = use_fused_mlp
+        self.dropout = cfg.llm_dropout
+        self.ln_1 = nn.LayerNorm(d, eps=1e-5)
+        self.attn = GPT2Attention(cfg, fused_attn)
+        self.ln_2 = nn.LayerNorm(d, eps=1e-5)
+        self.mlp = GPT2MLP(d, cfg.llm_mlp_ratio)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(lean_layernorm(x, self.ln_1.weight, self.ln_1.bias, self.ln_1.eps))
+        if self.use_fused_mlp and not self.training:
+            d = x.shape[-1]
+            fc, proj = self.mlp.c_fc, self.mlp.c_proj
+            out = fused_ln_mlp(
+                x.reshape(-1, d), self.ln_2.weight, self.ln_2.bias,
+                fc.weight, fc.bias, proj.weight, proj.bias, self.ln_2.eps,
+            )
+            return out.reshape(x.shape)
+        h = lean_layernorm(x, self.ln_2.weight, self.ln_2.bias, self.ln_2.eps)
+        return x + F.dropout(self.mlp(h), self.dropout, self.training)
+
+
+class GPT2Backbone(nn.Module):
+    """inputs_embeds (B, T, d_llm) -> last hidden state (B, T, d_llm)."""
+
+    def __init__(self, cfg: ModelConfig, fused_attn: bool = False, use_fused_mlp: bool = False):
+        super().__init__()
+        self.dropout = cfg.llm_dropout
+        self.wpe = nn.Embedding(cfg.llm_max_positions, cfg.d_llm)
+        self.h = nn.ModuleList(
+            GPT2Block(cfg, fused_attn, use_fused_mlp)
+            for _ in range(cfg.llm_layers)
+        )
+        self.ln_f = nn.LayerNorm(cfg.d_llm, eps=1e-5)
+
+    def reset_parameters(self, g: torch.Generator) -> None:
+        nn.init.normal_(self.wpe.weight, 0.0, 0.02, generator=g)
+        for block in self.h:
+            for ln in (block.ln_1, block.ln_2):
+                nn.init.ones_(ln.weight)
+                nn.init.zeros_(ln.bias)
+            for dense in (block.attn.c_attn, block.attn.c_proj, block.mlp.c_fc, block.mlp.c_proj):
+                dense.reset_parameters(g)
+        nn.init.ones_(self.ln_f.weight)
+        nn.init.zeros_(self.ln_f.bias)
+
+    def forward(self, inputs_embeds: torch.Tensor) -> torch.Tensor:
+        t = inputs_embeds.shape[1]
+        dt = inputs_embeds.dtype
+        x = F.dropout(inputs_embeds + self.wpe.weight[:t].to(dt)[None], self.dropout, self.training)
+        for block in self.h:
+            x = block(x)
+        return lean_layernorm(x, self.ln_f.weight, self.ln_f.bias, self.ln_f.eps)
+
+
+class LLMBackbone(nn.Module):
+    """Holder that gives the backbone the reference's ``llm_backbone.model`` prefix."""
+
+    def __init__(self, cfg: ModelConfig, **kwargs):
+        super().__init__()
+        self.model = GPT2Backbone(cfg, **kwargs)
+
+    def forward(self, inputs_embeds: torch.Tensor) -> torch.Tensor:
+        return self.model(inputs_embeds)

@@ -1,0 +1,23 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
+
+``_build`` compiles ``csrc/*.cu`` on first use and keeps the launch counts.
+"""
+
+from tec_mollm_tpu_torch.ops._build import launch_counts, reset_counts
+from tec_mollm_tpu_torch.ops.fused_mlp import fused_ln_mlp, fused_ln_mlp_reference
+from tec_mollm_tpu_torch.ops.gat_stencil import gat_stencil_attention, gat_stencil_reference
+from tec_mollm_tpu_torch.ops.short_attention import (
+    short_causal_attention,
+    short_causal_attention_reference,
+)
+
+__all__ = [
+    "fused_ln_mlp",
+    "fused_ln_mlp_reference",
+    "gat_stencil_attention",
+    "gat_stencil_reference",
+    "launch_counts",
+    "reset_counts",
+    "short_causal_attention",
+    "short_causal_attention_reference",
+]
