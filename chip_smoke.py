@@ -7,16 +7,28 @@ Phases (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: compile the kernels from csrc/ (one nvcc per source, in parallel);
   3. kernels: each kernel against its plain PyTorch version on the card, at the
-     shapes the flagship eval batch gives it, with its error, its time (median of
-     CUDA-event timed launches), the plain version's time, a library call's time
-     where one computes the same function, and its bound on this card;
+     shapes the flagship batch of 8 gives it, with its error, its time (median
+     of CUDA-event timed launches), the plain version's time, a library call's
+     time where one computes the same function, and its bound on this card.
+     The short attention runs with dropout p = 0.1 (the training call) and 0;
+     its keep mask is read back through the kernel's output and must equal the
+     plain hash bit for bit, keep 0.9 +- 0.001 of the draws and change with the
+     seed. Its backward is checked in fp32 and bf16 at p = 0 and 0.1;
   4. serve: a synthetic processed dir at the 41x71 grid, ForecastService on the
      flagship Config() with seeded random weights at max_batch=8 in bf16,
      forecast requests over HTTP on localhost (some concurrent, so the batcher
      coalesces), first on the default path and then with fused_attn and
      use_fused_mlp; launch counts are zeroed before and read after each run;
      forecasts are checked for shape and finiteness, against an fp32 forward of
-     the plain path, and the two paths against each other.
+     the plain path, and the two paths against each other;
+  5. train: the port's bench train step (tec_mollm_tpu_torch/bench.py) on
+     Config() at B = 8 x accumulation 1, bf16 with bf16 frozen weights,
+     fused_attn=True and every dropout at 0.1: 2 warm-up and 10 timed steps,
+     train windows/s, step ms, one step's profile, launch counts (both
+     attention kernels 3 a step). Loss and gradient norm must be finite, the
+     frozen tensors bit-identical and every trainable tensor changed. Then,
+     with every dropout at 0, one step's gradients through the kernels in bf16
+     against an fp32 step on the plain path, within GRAD_TOL.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON. Details also go to chiprun_out/chip_smoke.json.
 """
@@ -24,6 +36,7 @@ per-kernel JSON. Details also go to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -49,10 +62,22 @@ TOL = {"bf16": (1e-2, 1e-2), "fp32": (1e-5, 1e-5)}
 # forward, and the fused kernels against the default path (two-pass vs lean LN,
 # fp32 vs bf16 q*k products)
 SERVE_TOL_SCALED = 0.1
+# attention dropout of the training path (ModelConfig.llm_dropout) and the seed
+# of the kernel checks; the kept share of ~1.7 M draws must lie within
+# KEPT_TOL of 1 - p (about 4 standard deviations)
+DROPOUT, DROPOUT_SEED, KEPT_TOL = 0.1, 12345, 1e-3
 # the flagship eval batch (the service's max_batch, and the kernels' batch),
 # CUDA-event timed launches per kernel, timesteps of the synthetic test split,
 # forecast requests and the threads that send the concurrent ones
 BATCH, REPS, STEPS, REQUESTS, THREADS = 8, 20, 150, 16, 6
+# train phase: warm-up and timed steps of the flagship train step, and the
+# windows of the gradient check
+TRAIN_WARMUP, TRAIN_STEPS, GRAD_BATCH = 2, 10, 2
+# gradient check: the largest per-tensor max|kernel bf16 - plain fp32| /
+# max|plain fp32| over the trainable tensors. bf16 alone moves the worst tensor
+# by a few percent (the bf16 plain path, printed beside it); a wrong attention
+# backward moves lora_A/lora_B and everything below the blocks by order 1.
+GRAD_TOL = 0.1
 # target scaler of the synthetic processed dir: TECU = scaled * SCALE + MEAN
 TARGET_MEAN, TARGET_SCALE = 25.0, 12.0
 
@@ -100,6 +125,53 @@ def bound(bytes_moved: float, flops: float, flop_rate: float) -> tuple[float, st
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dropout_mask_check(rows: int, t: int, d: int, heads: int, failures: list) -> dict:
+    """The forward kernel's own keep mask, read back through its output: with
+    q = k = 0 every causal weight is 1/(tq+1), and v[m, s, h, j] = [j == s]
+    puts weight s of head h in output lane h*Dh + s. The mask must be the plain
+    hash's bit for bit, keep 1 - p of the draws, and change with the seed."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+    from tec_mollm_tpu_torch.ops.short_attention import dropout_bits, dropout_threshold
+
+    dev = torch.device("cuda")
+    hd = d // heads
+    zeros = torch.zeros(rows, t, d, device=dev)
+    v = torch.zeros(rows, t, heads, hd, device=dev)
+    idx = torch.arange(t, device=dev)
+    v[:, idx, :, idx] = 1.0
+    v = v.reshape(rows, t, d)
+    causal = torch.ones(t, t, dtype=torch.bool, device=dev).tril()
+    unscale = (idx + 1.0)[None, :, None, None] * (1.0 - DROPOUT)
+
+    def kernel_mask(seed: int) -> torch.Tensor:  # (M, H, Tq, Ts)
+        out = ops.short_attention_forward(zeros, zeros, v, heads, DROPOUT, seed)
+        return (out.reshape(rows, t, heads, hd)[..., :t] * unscale > 0.5).permute(0, 2, 1, 3) & causal
+
+    mask, other = kernel_mask(DROPOUT_SEED), kernel_mask(DROPOUT_SEED + 1)
+    plain = (dropout_bits(DROPOUT_SEED, rows, heads, t, dev) >= dropout_threshold(DROPOUT)) & causal
+    draws = rows * heads * int(causal.sum())
+    kept = float(mask.sum()) / draws
+    out = {
+        "dropout_draws": draws, "kept_fraction": kept, "kept_tol": KEPT_TOL,
+        "mask_equals_plain_hash": bool(torch.equal(mask, plain)),
+        "mask_share_changed_by_next_seed": float((mask != other).sum()) / draws,
+    }
+    log(
+        f"dropout p={DROPOUT}: kernel kept {kept:.6f} of {draws} draws (want {1 - DROPOUT} +- {KEPT_TOL}); "
+        f"mask equals the plain hash: {out['mask_equals_plain_hash']}; seed+1 changes "
+        f"{out['mask_share_changed_by_next_seed']:.4f} of it"
+    )
+    if abs(kept - (1.0 - DROPOUT)) > KEPT_TOL:
+        failures.append("short_attention kept fraction")
+    if not out["mask_equals_plain_hash"]:
+        failures.append("short_attention mask differs from the plain hash")
+    if out["mask_share_changed_by_next_seed"] < 0.1:
+        failures.append("short_attention mask does not change with the seed")
+    return out
 
 
 def check_kernels(args, graph, results: dict) -> list[dict]:
@@ -159,30 +231,71 @@ def check_kernels(args, graph, results: dict) -> list[dict]:
 
     # --- 2. short causal attention at (B*N, T, D), q/k/v views of the c_attn output ---
     t = cfg.num_patches
+    hd = d // heads
     qkv = rand(rows, t, 3 * d)
     q, k, v = qkv.split(d, dim=-1)
-    got = ops.short_causal_attention(q, k, v, heads)
-    want = ops.short_causal_attention_reference(q, k, v, heads)
-    torch.cuda.synchronize()
-    max_abs, max_rel, ok = compare(got, want, "bf16")
-    if not ok:
-        failures.append("short_attention bf16")
-    hd = d // heads
-    q4, k4, v4 = (a.reshape(rows, t, heads, hd).transpose(1, 2) for a in (q, k, v))
-    entries.append({
+    attn = {
         "name": "short_attention", "source": "tec_mollm_tpu_torch/csrc/short_attention.cu",
         "replaces": "tec_mollm_tpu/ops/short_attention.py:253",
-        "shape": f"q,k,v ({rows},{t},{d}) bf16, {heads} heads",
-        "max_abs_err": max_abs, "max_rel_err_bf16": max_rel, "tol_bf16": TOL["bf16"],
-        "ms": time_ms(lambda: ops.short_causal_attention(q, k, v, heads), REPS),
-        "plain_ms": time_ms(lambda: ops.short_causal_attention_reference(q, k, v, heads), REPS),
-        "library_ms": time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True), REPS
-        ),
+        "shape": f"q,k,v ({rows},{t},{d}) bf16, {heads} heads, dropout {DROPOUT}",
         "bytes": 4 * rows * t * d * 2,
         "flops": rows * heads * (t * (t + 1) // 2) * hd * 4,
         "flop_rate": PEAK_FLOPS["fp32"],
-    })
+    }
+    for rate, tag in ((0.0, "p0"), (DROPOUT, "bf16")):  # tag "bf16": the training call, p = 0.1
+        got = ops.short_attention_forward(q, k, v, heads, rate, DROPOUT_SEED)
+        want = ops.short_causal_attention_reference(q, k, v, heads, rate, DROPOUT_SEED)
+        torch.cuda.synchronize()
+        attn[f"max_abs_err_{tag}"], attn[f"max_rel_err_{tag}"], ok = compare(got, want, "bf16")
+        attn[f"tol_{tag}"] = TOL["bf16"]
+        if not ok:
+            failures.append(f"short_attention bf16 p={rate}")
+    attn["max_abs_err"] = attn["max_abs_err_bf16"]
+    attn.update(dropout_mask_check(rows, t, d, heads, failures))
+    q4, k4, v4 = (a.reshape(rows, t, heads, hd).transpose(1, 2) for a in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    attn["ms_p0"] = time_ms(lambda: ops.short_attention_forward(q, k, v, heads), REPS)
+    attn["ms"] = time_ms(lambda: ops.short_attention_forward(q, k, v, heads, DROPOUT, DROPOUT_SEED), REPS)
+    attn["plain_ms"] = time_ms(
+        lambda: ops.short_causal_attention_reference(q, k, v, heads, DROPOUT, DROPOUT_SEED), REPS
+    )
+    attn["library_ms"] = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True, dropout_p=DROPOUT), REPS)
+    entries.append(attn)
+
+    # --- 2b. its backward: q, k, v, g -> (B*N, T, 3D) = [dq | dk | dv] ---
+    bwd = {
+        "name": "short_attention_bwd", "source": "tec_mollm_tpu_torch/csrc/short_attention.cu",
+        "replaces": "tec_mollm_tpu/ops/short_attention.py:279",
+        "shape": f"q,k,v,g ({rows},{t},{d}) -> dqkv ({rows},{t},{3 * d}), {heads} heads, dropout {DROPOUT}",
+        "bytes": 7 * rows * t * d * 2,
+        # per causal (query, key) pair and head: q.k, g.v, and the dv, dq, dk
+        # multiply-adds, 2 * Dh each
+        "flops": rows * heads * (t * (t + 1) // 2) * hd * 10,
+        "flop_rate": PEAK_FLOPS["fp32"],
+    }
+    g = rand(rows, t, d)
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        qkv_d, g_d = qkv.to(dt), g.to(dt)
+        qd, kd, vd = qkv_d.split(d, dim=-1)
+        for rate in (0.0, DROPOUT):
+            tag = name if rate else f"{name}_p0"
+            got = ops.short_attention_backward(qd, kd, vd, g_d, heads, rate, DROPOUT_SEED)
+            want = ops.short_causal_attention_backward_reference(qd, kd, vd, g_d, heads, rate, DROPOUT_SEED)
+            torch.cuda.synchronize()
+            bwd[f"max_abs_err_{tag}"], bwd[f"max_rel_err_{tag}"], ok = compare(got, want, name)
+            bwd[f"tol_{tag}"] = TOL[name]
+            if not ok:
+                failures.append(f"short_attention_bwd {name} p={rate}")
+    bwd["max_abs_err"] = bwd["max_abs_err_bf16"]
+    bwd["ms"] = time_ms(lambda: ops.short_attention_backward(q, k, v, g, heads, DROPOUT, DROPOUT_SEED), REPS)
+    bwd["plain_ms"] = time_ms(
+        lambda: ops.short_causal_attention_backward_reference(q, k, v, g, heads, DROPOUT, DROPOUT_SEED), REPS
+    )
+    q4, k4, v4 = (a.detach().requires_grad_() for a in (q4, k4, v4))
+    g4 = g.reshape(rows, t, heads, hd).transpose(1, 2)
+    lib_out = sdpa(q4, k4, v4, is_causal=True, dropout_p=DROPOUT)
+    bwd["library_ms"] = time_ms(lambda: torch.autograd.grad(lib_out, (q4, k4, v4), g4, retain_graph=True), REPS)
+    entries.append(bwd)
 
     # --- 3. fused LN -> MLP -> residual at (B*N*T, d) ---
     dh = cfg.llm_mlp_ratio * d
@@ -231,7 +344,7 @@ def check_kernels(args, graph, results: dict) -> list[dict]:
             "%s max_abs %.3e max_rel %.3e (tol atol %g rtol %g)" % (
                 name, e[f"max_abs_err_{name}" if f"max_abs_err_{name}" in e else "max_abs_err"],
                 e[f"max_rel_err_{name}"], *e[f"tol_{name}"])
-            for name in ("fp32", "bf16", "branch") if f"max_rel_err_{name}" in e
+            for name in [key[len("max_rel_err_"):] for key in e if key.startswith("max_rel_err_")]
         )
         log(
             f"kernel {e['name']}: {e['shape']}: {errs}; kernel {e['ms']:.4f} ms, "
@@ -265,10 +378,10 @@ def ptxas_summary(log_text: str) -> list[str]:
     return out
 
 
-def profile_forward(service, batch: dict, n: int, top: int = 12) -> dict:
-    """torch.profiler over one padded forward: device time by kernel, the
-    device's busy share of the forward's wall time (kernels and copies run on
-    one stream, so their times add without overlap)."""
+def profile_call(fn, top: int = 12) -> dict:
+    """torch.profiler over one call of ``fn``: device time by kernel, and the
+    device's busy share of the call's wall time (kernels and copies run on one
+    stream, so their times add without overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -276,7 +389,7 @@ def profile_forward(service, batch: dict, n: int, top: int = 12) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        service._run_padded(batch, n)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -287,7 +400,7 @@ def profile_forward(service, batch: dict, n: int, top: int = 12) -> dict:
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
     if device_ms == 0:
-        raise RuntimeError("the profiler recorded no device time for a forward on the card")
+        raise RuntimeError("the profiler recorded no device time for a call on the card")
     return {
         "wall_ms": wall_ms, "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms if wall_ms else None,
@@ -382,7 +495,7 @@ def serve_phase(args, graph, data_dir: str, results: dict) -> dict:
                 t0 = time.perf_counter()
                 service._run_padded(full, BATCH)
                 fwd.append(time.perf_counter() - t0)
-            prof = profile_forward(service, full, BATCH)
+            prof = profile_call(lambda: service._run_padded(full, BATCH))
         finally:
             service.close()
         for idx, f in forecasts.items():
@@ -453,6 +566,141 @@ def serve_phase(args, graph, data_dir: str, results: dict) -> dict:
     return paths
 
 
+def grad_check(args, cfg) -> dict:
+    """One step's gradients with every dropout at 0, at GRAD_BATCH windows:
+    through the kernels in bf16 (frozen weights in bf16), against an fp32 step
+    on the plain path. The bf16 plain path against the same fp32 step is the
+    yardstick of what bf16 alone costs. lora_B is redrawn (it starts at zero,
+    which would zero lora_A's gradient)."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+    from tec_mollm_tpu_torch.data.dataset import SlidingWindowDataset
+    from tec_mollm_tpu_torch.data.synthetic import synthetic_processed_split
+    from tec_mollm_tpu_torch.graph import build_graph, grid_coordinates
+    from tec_mollm_tpu_torch.models import TECMoLLM, graph_inputs
+    from tec_mollm_tpu_torch.training import create_train_state, make_sum_loss_fn
+
+    dev = torch.device("cuda")
+    m = dataclasses.replace(
+        cfg.model, gat_dropout=0.0, lora_dropout=0.0, llm_dropout=0.0, head_dropout=0.0, post_llm_dropout=0.0
+    )
+    cfg = dataclasses.replace(cfg, model=m, train=dataclasses.replace(cfg.train, batch_size=GRAD_BATCH, accumulation_steps=1))
+    shifts, valid = graph_inputs(build_graph(*grid_coordinates(m.grid_h, m.grid_w)), dev)
+    base = TECMoLLM(m, shifts, seed=args.seed).state_dict()
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    for name in base:
+        if name.endswith("lora_B.weight"):
+            base[name] = torch.randn(base[name].shape, generator=gen) * 0.02
+    split = synthetic_processed_split(GRAD_BATCH + 1, cfg.train.L_in, cfg.train.L_out, m.num_nodes, seed=args.seed)
+    ds = SlidingWindowDataset(split, cfg.train.L_in, cfg.train.L_out)
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in ds.gather_batch(np.arange(GRAD_BATCH)).items()}
+
+    def gradients(dtype, fused: bool):
+        model = TECMoLLM(m, shifts, dtype=dtype, fused_attn=fused).to(dev)
+        model.load_state_dict(base)
+        state, _ = create_train_state(model, cfg, frozen_dtype=torch.bfloat16 if dtype == torch.bfloat16 else None)
+        model.train()
+        wsum, count = make_sum_loss_fn(model, cfg)(batch, valid)
+        loss = wsum / count
+        loss.backward()
+        return {n: p.grad.float() for n, p in state.trainable().items()}, float(loss.detach())
+
+    ops.reset_counts()
+    kernel, loss_kernel = gradients(torch.bfloat16, True)
+    counts = ops.launch_counts()
+    ref, loss_ref = gradients(torch.float32, False)
+    plain16, loss_plain16 = gradients(torch.bfloat16, False)
+
+    def worst(a: dict, b: dict) -> tuple[float, str]:
+        return max((float((a[n] - b[n]).abs().max() / (b[n].abs().max() + 1e-12)), n) for n in b)
+
+    (rel_kernel, name_kernel), (rel_plain16, name_plain16) = worst(kernel, ref), worst(plain16, ref)
+    rel_same_dtype = worst(kernel, plain16)[0]
+    out = {
+        "batch": GRAD_BATCH, "tensors": len(ref), "launches": counts,
+        "loss_kernel_bf16": loss_kernel, "loss_plain_fp32": loss_ref, "loss_plain_bf16": loss_plain16,
+        "max_rel_diff_kernel_bf16_vs_plain_fp32": rel_kernel, "worst_tensor_kernel": name_kernel,
+        "max_rel_diff_plain_bf16_vs_plain_fp32": rel_plain16, "worst_tensor_plain_bf16": name_plain16,
+        "max_rel_diff_kernel_bf16_vs_plain_bf16": rel_same_dtype,
+        "tol": GRAD_TOL,
+    }
+    log(
+        f"grad check (dropout 0, B={GRAD_BATCH}, {len(ref)} trainable tensors): loss kernel bf16 {loss_kernel:.6f}, "
+        f"plain fp32 {loss_ref:.6f}, plain bf16 {loss_plain16:.6f}; largest per-tensor relative difference "
+        f"from fp32: kernels bf16 {rel_kernel:.4e} ({name_kernel}), plain bf16 {rel_plain16:.4e} "
+        f"({name_plain16}); kernels against the plain path, both bf16: {rel_same_dtype:.4e}; tol {GRAD_TOL}; "
+        f"launches {counts}"
+    )
+    if counts.get("short_attention_bwd", 0) != m.llm_layers:
+        raise RuntimeError(f"grad check: the backward kernel ran {counts} times, not once a block")
+    if not rel_kernel <= GRAD_TOL:
+        raise RuntimeError(f"grad check: kernel-path gradients differ by {rel_kernel:.4e} > {GRAD_TOL}")
+    return out
+
+
+def train_phase(args) -> dict:
+    """The port's bench train step at flagship width: Config() at B = 8 x
+    accumulation 1, bf16 with the frozen weights in bf16, fused_attn=True,
+    every dropout at its default 0.1."""
+    import torch
+
+    from tec_mollm_tpu_torch import bench, ops
+
+    cfg = bench.bench_config("default")
+    run = bench.setup(cfg, torch.device("cuda"), fused_attn=True, seed=args.seed)
+    frozen0 = {n: p.clone() for n, p in run.state.frozen().items()}
+    trainable0 = {n: p.clone() for n, p in run.state.trainable().items()}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    metrics = [run.step() for _ in range(TRAIN_WARMUP)]
+    run.sync()
+    t0 = time.perf_counter()
+    metrics += [run.step() for _ in range(TRAIN_STEPS)]
+    run.sync()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_call(run.step, top=25)
+    steps = TRAIN_WARMUP + TRAIN_STEPS + 1
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    frozen_same = all(torch.equal(p, frozen0[n]) for n, p in run.state.frozen().items())
+    unchanged = [n for n, p in run.state.trainable().items() if torch.equal(p, trainable0[n])]
+    out = {
+        "batch": run.windows_per_step, "accumulation": cfg.train.accumulation_steps, "steps_timed": TRAIN_STEPS,
+        "warmup": TRAIN_WARMUP, "step_ms": wall / TRAIN_STEPS * 1e3,
+        "windows_per_s": run.windows_per_step * TRAIN_STEPS / wall, "peak_memory_gb": peak_gb,
+        "launches": counts, "launches_per_step": {k: v / (TRAIN_WARMUP + TRAIN_STEPS) for k, v in counts.items()},
+        "losses": losses, "grad_norms": norms, "frozen_tensors": len(frozen0), "trainable_tensors": len(trainable0),
+        "frozen_bit_identical": frozen_same, "trainable_unchanged": unchanged, "profile": prof,
+    }
+    log(
+        f"train: Config() B={run.windows_per_step} x accum {cfg.train.accumulation_steps}, bf16 (frozen bf16), "
+        f"fused_attn, dropout 0.1: {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up: step {out['step_ms']:.2f} ms, "
+        f"{out['windows_per_s']:.2f} train windows/s; peak memory {peak_gb:.2f} GB; launches {counts}"
+    )
+    log(f"train: losses {[round(x, 5) for x in losses]}; grad norms {[round(x, 4) for x in norms]}")
+    log(
+        f"profile[train step]: wall {prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms "
+        f"(busy {prof['device_busy_share']:.2%})"
+    )
+    for row in prof["top"][:10]:
+        log(f"  {row['ms']:8.3f} ms x{row['calls']:<4d} {row['name']}")
+    log(f"train: {steps} steps; frozen tensors ({len(frozen0)}) bit-identical: {frozen_same}; "
+        f"trainable tensors unchanged: {len(unchanged)} of {len(trainable0)}")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise RuntimeError("train: a loss or gradient norm is not finite")
+    if not frozen_same or unchanged:
+        raise RuntimeError(f"train: frozen tensors moved ({not frozen_same}) or trainable ones did not ({unchanged})")
+    n = TRAIN_WARMUP + TRAIN_STEPS
+    for name in ("short_attention", "short_attention_bwd"):
+        if counts.get(name, 0) != cfg.model.llm_layers * n:
+            raise RuntimeError(f"train: {name} launched {counts.get(name, 0)} times in {n} steps")
+    out["grad_check"] = grad_check(args, cfg)
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--seed", type=int, default=0)
@@ -496,10 +744,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="tec_smoke_") as data_dir:
         paths = serve_phase(args, graph, data_dir, results)
     results["serve"] = paths
+    train = train_phase(args)
+    results["train"] = train
+    runs = [p["launches"] for p in paths.values()] + [train["launches"]]
     for e in entries:
-        # launches over both serve runs, each counted from zero
-        e["launches"] = sum(p["launches"].get(e["name"], 0) for p in paths.values())
+        # launches over the main-path runs (both serve cells and the train
+        # steps), each counted from zero
+        e["launches"] = sum(r.get(e["name"], 0) for r in runs)
         e["launches_per_forward_fused"] = paths["fused"]["launches"].get(e["name"], 0) / paths["fused"]["forwards"]
+        e["launches_per_train_step"] = train["launches_per_step"].get(e["name"], 0)
+    missing = [e["name"] for e in entries if e["launches"] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on a main path: {missing}")
     results["card"] = card
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

@@ -99,7 +99,10 @@ class GPT2Attention(nn.Module):
         q, k, v = self.c_attn(x).split(d, dim=-1)
         p = self.dropout if self.training else 0.0
         if self.fused_attn and t <= UNROLL_MAX_SEQ:
-            out = short_causal_attention(q, k, v, self.heads, dropout_rate=p)
+            # a fresh seed per call from the default generator, as the JAX model
+            # draws one from its dropout rng; the train step seeds that generator
+            seed = int(torch.randint(0, 2**31 - 1, ())) if p > 0.0 else 0
+            out = short_causal_attention(q, k, v, self.heads, dropout_rate=p, seed=seed)
         elif t <= UNROLL_MAX_SEQ:
             out = unrolled_causal_attention(q, k, v, self.heads, p)
         else:

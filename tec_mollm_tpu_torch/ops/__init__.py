@@ -7,7 +7,10 @@ from tec_mollm_tpu_torch.ops._build import launch_counts, reset_counts
 from tec_mollm_tpu_torch.ops.fused_mlp import fused_ln_mlp, fused_ln_mlp_reference
 from tec_mollm_tpu_torch.ops.gat_stencil import gat_stencil_attention, gat_stencil_reference
 from tec_mollm_tpu_torch.ops.short_attention import (
+    short_attention_backward,
+    short_attention_forward,
     short_causal_attention,
+    short_causal_attention_backward_reference,
     short_causal_attention_reference,
 )
 
@@ -18,6 +21,9 @@ __all__ = [
     "gat_stencil_reference",
     "launch_counts",
     "reset_counts",
+    "short_attention_backward",
+    "short_attention_forward",
     "short_causal_attention",
+    "short_causal_attention_backward_reference",
     "short_causal_attention_reference",
 ]

@@ -140,6 +140,15 @@ def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
     return fn
 
 
+def refuse_grad(name: str, hint: str, *tensors) -> None:
+    """A launch fills its outputs outside autograd: raise when grad mode is on
+    and an input requires grad, so that no output silently lacks a gradient."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward: {hint}")
+
+
 def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")

@@ -14,6 +14,11 @@ The kernel (``csrc/fused_mlp.cu``) is a hand-written bf16 tensor-core GEMM
 bf16 scratch, then GEMM2 + bias + residual. It takes bf16 only. Its bound on
 this card is operations: 4 * rows * d * dh FLOP over 989 TFLOP/s, about
 0.67 ms for the flagship eval batch (rows = 8*2944*3, d = 768, dh = 3072).
+
+``fused_ln_mlp`` is a ``torch.autograd.Function``. Its backward recomputes the
+plain version under autograd, as the JAX ``_fused_bwd`` differentiates
+``reference_ln_mlp`` (``tec_mollm_tpu/ops/fused_mlp.py:108-113``); the TPU
+package has no backward kernel for it either.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ def fused_ln_mlp_reference(
     return (xf + h).to(dt)
 
 
-def fused_ln_mlp(
+def fused_ln_mlp_forward(
     x: torch.Tensor,
     ln_w: torch.Tensor,
     ln_b: torch.Tensor,
@@ -61,10 +66,9 @@ def fused_ln_mlp(
     b2: torch.Tensor,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    """x + MLP(LN(x)) over (rows, d); a CPU tensor takes the plain version, a
-    CUDA tensor launches the kernel or raises."""
-    if x.device.type == "cpu":
-        return fused_ln_mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    """Launch the kernel on CUDA tensors, with no gradient path (``fused_ln_mlp``
+    is the differentiable call)."""
+    _build.refuse_grad(NAME, "use fused_ln_mlp", x, ln_w, ln_b, w1, b1, w2, b2)
     rows, d = x.shape
     dh = w1.shape[1]
     if x.dtype != torch.bfloat16:
@@ -77,10 +81,10 @@ def fused_ln_mlp(
         raise ValueError(f"kernel takes d, dh multiples of 128 and d <= 1536, got {d}, {dh}")
 
     def f32(t: torch.Tensor) -> torch.Tensor:
-        return t.detach().to(device=x.device, dtype=torch.float32).contiguous()
+        return t.to(device=x.device, dtype=torch.float32).contiguous()
 
     def b16(t: torch.Tensor) -> torch.Tensor:
-        return t.detach().to(device=x.device, dtype=torch.bfloat16).contiguous()
+        return t.to(device=x.device, dtype=torch.bfloat16).contiguous()
 
     ln_w, ln_b, b1, b2 = f32(ln_w), f32(ln_b), f32(b1), f32(b2)
     w1, w2 = b16(w1), b16(w2)
@@ -99,3 +103,41 @@ def fused_ln_mlp(
     _build.check(NAME, err)
     _build.count_launch(NAME)
     return out
+
+
+class _FusedLNMLP(torch.autograd.Function):
+    """Forward through the kernel (or, on the CPU, the plain version); backward
+    by recomputing the plain version under autograd, as the JAX ``_fused_bwd``
+    differentiates ``reference_ln_mlp``."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps):
+        ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return fused_ln_mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+        return fused_ln_mlp_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = fused_ln_mlp_reference(*inputs, ctx.eps)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+
+
+def fused_ln_mlp(
+    x: torch.Tensor,
+    ln_w: torch.Tensor,
+    ln_b: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """x + MLP(LN(x)) over (rows, d); differentiable. A CPU tensor takes the
+    plain version, a CUDA tensor launches the kernel or raises."""
+    return _FusedLNMLP.apply(x, ln_w, ln_b, w1, b1, w2, b2, float(eps))

@@ -75,7 +75,13 @@ def gat_stencil_attention(
     negative_slope: float = 0.2,
 ) -> torch.Tensor:
     """Forward stencil attention; (M, H*C, N) in xl's dtype. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises."""
+    the plain version; a CUDA tensor launches the kernel or raises. Like the
+    Pallas kernel it has no backward: a call that would need one raises, on
+    every device."""
+    _build.refuse_grad(
+        "gat_stencil_attention", "call it under torch.no_grad() (the model trains through "
+        "GATv2Stencil's plain path)", xl, xr, att,
+    )
     if xl.device.type == "cpu":
         return gat_stencil_reference(xl, xr, valid, att, shifts, negative_slope)
     m, hc, n = xl.shape

@@ -18,6 +18,7 @@ from tec_mollm_tpu.ops.fused_mlp import fused_ln_mlp_interpret
 from tec_mollm_tpu.ops.gat_stencil import gat_stencil_attention as jax_gat_stencil
 from tec_mollm_tpu.ops.short_attention import fused_short_causal_attention
 from tec_mollm_tpu_torch import ops
+from tec_mollm_tpu_torch.ops.short_attention import dropout_bits, dropout_threshold
 
 
 @pytest.fixture(scope="module")
@@ -84,6 +85,24 @@ class TestGATStencil:
             atol=1e-2, rtol=1e-2,
         )
 
+    def test_refuses_a_call_that_needs_a_gradient(self, padded_stencil):
+        """No backward, as in the Pallas kernel: grad mode plus an input that
+        requires grad raises, on the CPU as on the card; no_grad runs."""
+        shifts, valid, _ = padded_stencil
+        xl, xr, att = (torch.from_numpy(a) for a in _gat_inputs(3, 2, valid.shape[1]))
+        v = torch.from_numpy(valid)
+        for leaf in ("xl", "att"):
+            args = {"xl": xl, "xr": xr, "att": att}
+            args[leaf] = args[leaf].clone().requires_grad_()
+            with pytest.raises(RuntimeError, match="no backward"):
+                ops.gat_stencil_attention(args["xl"], args["xr"], v, args["att"], shifts)
+            with torch.no_grad():
+                out = ops.gat_stencil_attention(args["xl"], args["xr"], v, args["att"], shifts)
+            assert not out.requires_grad
+        meta = torch.empty(2, 22, valid.shape[1], device="meta", requires_grad=True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.gat_stencil_attention(meta, meta, v.to("meta"), att, shifts)
+
     def test_device_tensor_never_falls_back(self, padded_stencil):
         """A tensor off the CPU goes to the kernel or raises: shapes the kernel
         does not take raise before any build, and without a CUDA toolchain the
@@ -130,9 +149,11 @@ class TestShortAttention:
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
     def test_dropout_is_refused(self):
+        """Attention dropout is supported in [0, 1); a rate outside is refused."""
         q = torch.zeros(2, 3, 64)
-        with pytest.raises(NotImplementedError):
-            ops.short_causal_attention(q, q, q, 2, dropout_rate=0.1)
+        for rate in (-0.1, 1.0):
+            with pytest.raises(ValueError, match="dropout_rate"):
+                ops.short_causal_attention(q, q, q, 2, dropout_rate=rate)
 
     def test_device_checks(self):
         q = torch.empty(4, 9, 64, device="meta")
@@ -141,6 +162,147 @@ class TestShortAttention:
         q = torch.empty(4, 3, 64, device="meta")
         with pytest.raises(ValueError, match="strides"):
             ops.short_causal_attention(q, q, torch.empty(4, 3, 128, device="meta")[..., :64], 2)
+
+
+class TestShortAttentionBackward:
+    """The plain backward against the Pallas ``_bwd_kernel`` (interpret mode)
+    and the autograd function against autograd through the plain forward. All
+    fp32; tolerances cover fp32 sums in another order."""
+
+    @pytest.mark.parametrize("t", [1, 3, 8])
+    def test_plain_backward_matches_pallas_vjp(self, t):
+        heads, m, d = 4, 40, 64
+        q, k, v = _qkv(10 + t, m, t, d)
+        g = np.random.default_rng(t).normal(size=(m, t, d)).astype(np.float32)
+        with jax.disable_jit():
+            _, vjp = jax.vjp(
+                lambda q, k, v: fused_short_causal_attention(q, k, v, heads=heads, interpret=True),
+                *(jnp.asarray(a) for a in (q, k, v)),
+            )
+            want = np.concatenate([np.asarray(a) for a in vjp(jnp.asarray(g))], axis=-1)
+        got = ops.short_causal_attention_backward_reference(
+            *(torch.from_numpy(a) for a in (q, k, v, g)), heads
+        ).numpy()
+        assert got.shape == (m, t, 3 * d)
+        np.testing.assert_allclose(got, want, atol=2e-6, rtol=1e-5)
+
+    @pytest.mark.parametrize("rate", [0.0, 0.1])
+    def test_function_gradients_match_autograd_through_the_plain_forward(self, rate):
+        """q, k, v as views of one (M, T, 3D) projection, as the model gives
+        them: the function's gradient reaches it as one tensor."""
+        heads, m, t, d = 4, 24, 3, 64
+        rng = np.random.default_rng(3)
+        base = rng.normal(0, 0.7, size=(m, t, 3 * d)).astype(np.float32)
+        g = torch.from_numpy(rng.normal(size=(m, t, d)).astype(np.float32))
+        qkv = torch.from_numpy(base).requires_grad_()
+        out = ops.short_causal_attention(*qkv.split(d, dim=-1), heads, dropout_rate=rate, seed=11)
+        out.backward(g)
+        ref_qkv = torch.from_numpy(base).requires_grad_()
+        ref = ops.short_causal_attention_reference(*ref_qkv.split(d, dim=-1), heads, dropout_rate=rate, seed=11)
+        ref.backward(g)
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+        torch.testing.assert_close(qkv.grad, ref_qkv.grad, rtol=1e-5, atol=1e-6)
+        # separate tensors (no common projection) take the same path
+        q, k, v = (torch.from_numpy(np.ascontiguousarray(a)).requires_grad_() for a in np.split(base, 3, axis=-1))
+        ops.short_causal_attention(q, k, v, heads, dropout_rate=rate, seed=11).backward(g)
+        torch.testing.assert_close(torch.cat([q.grad, k.grad, v.grad], dim=-1), ref_qkv.grad, rtol=1e-5, atol=1e-6)
+
+
+    @pytest.mark.parametrize("mode", ["grad", "no_grad", "inference"])
+    def test_thirds_of_one_projection_are_not_copied(self, mode):
+        """The function takes q, k, v as the thirds of the (M, T, 3D) c_attn
+        output without concatenating them, in every autograd mode."""
+        from tec_mollm_tpu_torch.ops.short_attention import _packed
+
+        x = torch.randn(6, 3, 4 * 64)
+        ctx = {"grad": torch.enable_grad, "no_grad": torch.no_grad, "inference": torch.inference_mode}[mode]
+        w = torch.randn(4 * 64, 3 * 64, requires_grad=True)
+        with ctx():
+            qkv = x @ w
+            q, k, v = qkv.split(64, dim=-1)
+            packed = _packed(q, k, v)
+            assert packed.data_ptr() == qkv.data_ptr() and packed.shape == qkv.shape
+            torch.testing.assert_close(packed, qkv, rtol=0, atol=0)
+            if mode == "grad":
+                assert packed is qkv
+        sep = [a.clone() for a in (q, k, v)]
+        assert _packed(*sep).data_ptr() not in {a.data_ptr() for a in sep}  # not views: concatenated
+
+
+class TestShortAttentionDropout:
+    @staticmethod
+    def _qkv(m=16, t=3, d=32, seed=21):
+        return [torch.from_numpy(a) for a in _qkv(seed, m, t, d)]
+
+    def test_forward_and_backward_share_the_mask(self):
+        """Finite differences of the seeded forward against the backward, which
+        regenerates the mask (the tolerances of the Pallas kernel's own check,
+        tests/test_ops.py): the mask of another seed misses by far more."""
+        heads = 2
+        q, k, v = self._qkv()
+        rng = np.random.default_rng(99)
+        cot = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+
+        def loss(q, k, v):
+            return (ops.short_causal_attention(q, k, v, heads, dropout_rate=0.25, seed=3) * cot).sum()
+
+        params = [a.clone().requires_grad_() for a in (q, k, v)]
+        grads = torch.autograd.grad(loss(*params), params)
+        dirs = [torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)) for _ in range(3)]
+        eps = 1e-2
+        plus = loss(*(a + eps * da for a, da in zip((q, k, v), dirs)))
+        minus = loss(*(a - eps * da for a, da in zip((q, k, v), dirs)))
+        fd = float((plus - minus) / (2 * eps))
+        analytic = float(sum((gi * di).sum() for gi, di in zip(grads, dirs)))
+        assert analytic == pytest.approx(fd, rel=2e-2, abs=1e-3)
+        # the same check through the plain backward with the other seed fails
+        other = ops.short_causal_attention_backward_reference(q, k, v, cot, heads, 0.25, seed=4)
+        wrong = float(sum((gi * di).sum() for gi, di in zip(other.split(q.shape[-1], dim=-1), dirs)))
+        assert abs(wrong - fd) > 0.1 * abs(fd)
+
+    def test_seeds_differ_and_repeat(self):
+        q, k, v = self._qkv()
+        a = ops.short_causal_attention(q, k, v, 2, dropout_rate=0.3, seed=7)
+        b = ops.short_causal_attention(q, k, v, 2, dropout_rate=0.3, seed=7)
+        c = ops.short_causal_attention(q, k, v, 2, dropout_rate=0.3, seed=8)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert not torch.allclose(a, c)
+        assert not torch.equal(dropout_bits(7, 4, 2, 3), dropout_bits(8, 4, 2, 3))
+
+    @pytest.mark.parametrize("rate", [0.1, 0.5])
+    def test_kept_fraction(self, rate):
+        """Over 2^20 draws the kept share is 1 - p within 5 standard deviations."""
+        bits = dropout_bits(123, 4096, 16, 4)
+        kept = float((bits >= dropout_threshold(rate)).double().mean())
+        assert abs(kept - (1 - rate)) < 5 * np.sqrt(rate * (1 - rate) / bits.numel())
+        assert 0 <= int(bits.min()) and int(bits.max()) < 2**32
+
+    def test_rate_zero_is_the_identity(self):
+        q, k, v = self._qkv()
+        want = ops.short_causal_attention_reference(q, k, v, 2)
+        for seed in (0, 5, 2**31 - 2):
+            torch.testing.assert_close(ops.short_causal_attention(q, k, v, 2, 0.0, seed), want, rtol=0, atol=0)
+            g = ops.short_causal_attention_backward_reference(q, k, v, q, 2, 0.0, seed)
+            torch.testing.assert_close(g, ops.short_causal_attention_backward_reference(q, k, v, q, 2), rtol=0, atol=0)
+
+    def test_hash_matches_uint32_arithmetic(self):
+        """The int64 tensor hash is the kernel's uint32 hash: checked against
+        numpy's wrapping uint32 arithmetic, index by index."""
+        def mix(x):
+            x = x.copy()
+            with np.errstate(over="ignore"):
+                x ^= x >> np.uint32(16)
+                x *= np.uint32(0x7FEB352D)
+                x ^= x >> np.uint32(15)
+                x *= np.uint32(0x846CA68B)
+                x ^= x >> np.uint32(16)
+            return x
+
+        seed, m, h, t = 2**31 - 5, 7, 3, 5
+        key = mix(np.array([seed ^ 0x9E3779B9], np.uint32))[0]
+        idx = np.arange(m * h * t * t, dtype=np.uint32)
+        want = mix(mix(idx ^ key))  # the high word of every index is 0
+        np.testing.assert_array_equal(dropout_bits(seed, m, h, t).numpy().ravel(), want.astype(np.int64))
 
 
 class TestFusedMLP:
@@ -176,6 +338,20 @@ class TestFusedMLP:
         assert got.dtype == torch.bfloat16
         np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2, rtol=1e-2)
 
+    def test_gradients_match_pallas_vjp(self):
+        """The autograd function's backward (recompute through the plain
+        version) against jax.vjp of the Pallas kernel's custom VJP."""
+        args = self._inputs(5, 96, 64)
+        g = np.random.default_rng(6).normal(size=(96, 64)).astype(np.float32)
+        _, vjp = jax.vjp(fused_ln_mlp_interpret, *(jnp.asarray(a) for a in args))
+        want = vjp(jnp.asarray(g))
+        targs = [torch.from_numpy(a).requires_grad_() for a in args]
+        out = ops.fused_ln_mlp(*targs)
+        assert out.grad_fn is not None
+        out.backward(torch.from_numpy(g))
+        for a, w in zip(targs, want):
+            np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), atol=2e-5, rtol=1e-4)
+
     def test_device_checks(self):
         x = torch.empty(8, 64, device="meta")
         w1, w2 = torch.empty(64, 256), torch.empty(256, 64)
@@ -184,6 +360,26 @@ class TestFusedMLP:
             ops.fused_ln_mlp(x, v, v, w1, torch.empty(256), w2, v)
         with pytest.raises(ValueError, match="multiples of 128"):
             ops.fused_ln_mlp(x.bfloat16(), v, v, w1, torch.empty(256), w2, v)
+
+
+@pytest.mark.parametrize("launcher", ["short_attention_forward", "short_attention_backward", "fused_ln_mlp_forward"])
+def test_raw_launchers_refuse_a_call_that_needs_a_gradient(launcher):
+    """The launchers fill their outputs outside autograd, so with grad mode on
+    and an input that requires grad they raise before any device work; the
+    differentiable calls are the autograd functions."""
+    from tec_mollm_tpu_torch.ops.fused_mlp import fused_ln_mlp_forward
+
+    q = torch.empty(4, 3, 64, device="meta", requires_grad=True)
+    x = torch.empty(8, 128, device="meta", dtype=torch.bfloat16, requires_grad=True)
+    w = torch.empty(128, 128, device="meta")
+    v = torch.empty(128, device="meta")
+    call = {
+        "short_attention_forward": lambda: ops.short_attention_forward(q, q, q, 2),
+        "short_attention_backward": lambda: ops.short_attention_backward(q, q, q, q, 2),
+        "fused_ln_mlp_forward": lambda: fused_ln_mlp_forward(x, v, v, w, v, w, v),
+    }[launcher]
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
 
 
 def test_launch_counts_start_empty_and_reset():
