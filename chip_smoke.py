@@ -13,7 +13,10 @@ Phases (any failure exits non-zero):
      The short attention runs with dropout p = 0.1 (the training call) and 0;
      its keep mask is read back through the kernel's output and must equal the
      plain hash bit for bit, keep 0.9 +- 0.001 of the draws and change with the
-     seed. Its backward is checked in fp32 and bf16 at p = 0 and 0.1;
+     seed. Its backward is checked in fp32 and bf16 at p = 0 and 0.1. Flash
+     attention runs at the byte LM's (64, 129, 12, 64) causal on views of a
+     c_attn output in fp32 and bf16, at T = 300 non-causal and at T = 1024
+     causal (B = 8), with SDPA as the library call;
   4. serve: a synthetic processed dir at the 41x71 grid, ForecastService on the
      flagship Config() with seeded random weights at max_batch=8 in bf16,
      forecast requests over HTTP on localhost (some concurrent, so the batcher
@@ -28,7 +31,20 @@ Phases (any failure exits non-zero):
      attention kernels 3 a step). Loss and gradient norm must be finite, the
      frozen tensors bit-identical and every trainable tensor changed. Then,
      with every dropout at 0, one step's gradients through the kernels in bf16
-     against an fp32 step on the plain path, within GRAD_TOL.
+     against an fp32 step on the plain path, within GRAD_TOL;
+  6. pretrain: the surrogate GPT-2 pretraining (tec_mollm_tpu_torch/pretrain.py)
+     at its full width and batch: ByteLM on pretrain_model_config(ModelConfig())
+     (d 768, 3 blocks, 12 heads, no LoRA), bf16 compute, B = 64 x seq_len 128
+     (T = 129 through the flash kernel), the corpus gathered from the repository,
+     llm_dropout 0.1: 2 warm-up and 20 timed steps, step ms, bytes/s, peak
+     memory, losses and the val loss before and after; flash_attention must
+     run once per block and forward. The first loss must lie within 20% of
+     ln 256 and the last below it. With every dropout at 0, one step's
+     gradients through the kernel in bf16 against an fp32 step on the plain
+     path, within GRAD_TOL. Then the backbone is exported as an HF checkpoint,
+     loaded through hf_import into the flagship TECMoLLM (LoRA r 32): its
+     backbone tensors must equal the exported ones bit for bit, lora_B stay 0,
+     and one eval forecast on the card be finite.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON. Details also go to chiprun_out/chip_smoke.json.
 """
@@ -78,6 +94,16 @@ TRAIN_WARMUP, TRAIN_STEPS, GRAD_BATCH = 2, 10, 2
 # by a few percent (the bf16 plain path, printed beside it); a wrong attention
 # backward moves lora_A/lora_B and everything below the blocks by order 1.
 GRAD_TOL = 0.1
+# flash attention checks: (batch, T, causal) by label; "path" is the byte LM's
+# pretraining batch (64 rows of seq_len 128 + 1 tokens); "t300" makes the JAX
+# wrapper pad T to 512 and mask keys >= t_valid; "t1024" is the shape of
+# scripts/bench_flash_attention.py
+FLASH_CASES = {"path": (64, 129, True), "t300": (8, 300, False), "t1024": (8, 1024, True)}
+# pretrain phase: the pretraining script's batch and length, warm-up and timed
+# steps, its peak rate reached after PRETRAIN_LR_WARMUP updates (the script
+# warms up over 100 of 3000), and the rows of its gradient check
+PRETRAIN_BATCH, PRETRAIN_SEQ, PRETRAIN_WARMUP, PRETRAIN_STEPS = 64, 128, 2, 20
+PRETRAIN_LR, PRETRAIN_LR_WARMUP, PRETRAIN_GRAD_ROWS = 3e-4, 5, 8
 # target scaler of the synthetic processed dir: TECU = scaled * SCALE + MEAN
 TARGET_MEAN, TARGET_SCALE = 25.0, 12.0
 
@@ -336,6 +362,8 @@ def check_kernels(args, graph, results: dict) -> list[dict]:
         "flop_rate": PEAK_FLOPS["bf16_tensor"],
     })
 
+    entries.append(check_flash(cfg, rand, failures))
+
     for e in entries:
         e["bound_ms"], e["bound_by"] = bound(e["bytes"], e["flops"], e.pop("flop_rate"))
         e["route"] = "cuda"
@@ -354,6 +382,58 @@ def check_kernels(args, graph, results: dict) -> list[dict]:
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return entries
+
+
+def check_flash(cfg, rand, failures: list) -> dict:
+    """Flash attention against its plain version at FLASH_CASES, on q, k, v
+    that are (B, T, H, Dh) views of one (B, T, 3D) c_attn output, as the model
+    hands them over. The entry's times are the path shape's; the other shapes
+    go under their labels with their own bounds."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    d, heads = cfg.d_llm, cfg.llm_heads
+    hd = d // heads
+    entry = {
+        "name": "flash_attention", "source": "tec_mollm_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "tec_mollm_tpu/ops/flash_attention.py:114",
+    }
+    for label, (b, t, causal) in FLASH_CASES.items():
+        for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = (a.reshape(b, t, heads, hd) for a in rand(b, t, 3 * d, dtype=dt).split(d, dim=-1))
+            got = ops.flash_attention_forward(q, k, v, causal)
+            want = ops.flash_attention_reference(q, k, v, causal)
+            torch.cuda.synchronize()
+            tag = name if label == "path" else f"{label}_{name}"
+            entry[f"max_abs_err_{tag}"], entry[f"max_rel_err_{tag}"], ok = compare(got, want, name)
+            entry[f"tol_{tag}"] = TOL[name]
+            if not ok:
+                failures.append(f"flash_attention {label} {name}")
+        q4, k4, v4 = (a.transpose(1, 2) for a in (q, k, v))  # the bf16 views, (B, H, T, Dh)
+        pairs = t * (t + 1) // 2 if causal else t * t
+        case = {
+            "shape": f"q,k,v ({b},{t},{heads},{hd}) bf16 views of ({b},{t},{3 * d}), causal {causal}",
+            "ms": time_ms(lambda: ops.flash_attention_forward(q, k, v, causal), REPS),
+            "plain_ms": time_ms(lambda: ops.flash_attention_reference(q, k, v, causal), REPS),
+            "library_ms": time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal), REPS),
+            # q, k, v read and the output written once; q.k and p.v, 2 * Dh each
+            "bytes": 4 * b * t * d * 2,
+            "flops": b * heads * pairs * hd * 4,
+        }
+        if label == "path":
+            entry.update(case, flop_rate=PEAK_FLOPS["bf16_tensor"])
+        else:
+            case["bound_ms"], case["bound_by"] = bound(case["bytes"], case["flops"], PEAK_FLOPS["bf16_tensor"])
+            entry[label] = case
+            log(
+                f"kernel flash_attention[{label}]: {case['shape']}: kernel {case['ms']:.4f} ms, plain "
+                f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+                f"({case['bound_by']})"
+            )
+    entry["max_abs_err"] = entry["max_abs_err_bf16"]
+    return entry
 
 
 def ptxas_summary(log_text: str) -> list[str]:
@@ -378,12 +458,26 @@ def ptxas_summary(log_text: str) -> list[str]:
     return out
 
 
+def device_rows(events) -> list[tuple[float, int, str]]:
+    """(device ms, calls, name) of the kernels and copies among profiler
+    averages, largest first. A host op's device time repeats its kernels'
+    times, and so does a user annotation on the device's timeline (such as
+    ``Optimizer.step#AdamW.step``, which spans the optimizer's kernels)."""
+    from torch.autograd import DeviceType
+
+    rows = [
+        (float(e.self_device_time_total) / 1e3, e.count, e.key)
+        for e in events
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+    ]
+    return sorted(rows, reverse=True)
+
+
 def profile_call(fn, top: int = 12) -> dict:
     """torch.profiler over one call of ``fn``: device time by kernel, and the
     device's busy share of the call's wall time (kernels and copies run on one
     stream, so their times add without overlap)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -392,12 +486,7 @@ def profile_call(fn, top: int = 12) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue  # a host op's device time repeats its kernels' times
-        rows.append((float(e.self_device_time_total) / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = device_rows(prof.key_averages())
     device_ms = sum(r[0] for r in rows)
     if device_ms == 0:
         raise RuntimeError("the profiler recorded no device time for a call on the card")
@@ -701,6 +790,178 @@ def train_phase(args) -> dict:
     return out
 
 
+def pretrain_grad_check(args, cfg, tokens) -> dict:
+    """One pretraining step's gradients with every dropout at 0: ByteLM through
+    the flash kernel in bf16 against an fp32 step on the plain (einsum) path,
+    with the bf16 plain path as the yardstick of what bf16 alone costs."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+    from tec_mollm_tpu_torch.models import ByteLM, next_byte_loss
+
+    cfg = dataclasses.replace(cfg, llm_dropout=0.0)
+    base = ByteLM(cfg, seed=args.seed + 1).state_dict()
+
+    def gradients(dtype, flash: bool):
+        model = ByteLM(cfg, dtype=dtype, use_flash=flash).to("cuda")
+        model.load_state_dict(base)
+        model.train()
+        loss = next_byte_loss(model(tokens), tokens)
+        loss.backward()
+        return {n: p.grad.float() for n, p in model.named_parameters()}, float(loss.detach())
+
+    ops.reset_counts()
+    kernel, loss_kernel = gradients(torch.bfloat16, True)
+    counts = ops.launch_counts()
+    ref, loss_ref = gradients(torch.float32, False)
+    plain16, loss_plain16 = gradients(torch.bfloat16, False)
+
+    def worst(a: dict, b: dict) -> tuple[float, str]:
+        return max((float((a[n] - b[n]).abs().max() / (b[n].abs().max() + 1e-12)), n) for n in b)
+
+    (rel_kernel, name_kernel), (rel_plain16, name_plain16) = worst(kernel, ref), worst(plain16, ref)
+    out = {
+        "rows": int(tokens.shape[0]), "tensors": len(ref), "launches": counts,
+        "loss_kernel_bf16": loss_kernel, "loss_plain_fp32": loss_ref, "loss_plain_bf16": loss_plain16,
+        "max_rel_diff_kernel_bf16_vs_plain_fp32": rel_kernel, "worst_tensor_kernel": name_kernel,
+        "max_rel_diff_plain_bf16_vs_plain_fp32": rel_plain16, "worst_tensor_plain_bf16": name_plain16,
+        "max_rel_diff_kernel_bf16_vs_plain_bf16": worst(kernel, plain16)[0], "tol": GRAD_TOL,
+    }
+    log(
+        f"pretrain grad check (dropout 0, {out['rows']} rows, {len(ref)} tensors): loss kernel bf16 "
+        f"{loss_kernel:.6f}, plain fp32 {loss_ref:.6f}, plain bf16 {loss_plain16:.6f}; largest per-tensor "
+        f"relative difference from fp32: kernel bf16 {rel_kernel:.4e} ({name_kernel}), plain bf16 "
+        f"{rel_plain16:.4e} ({name_plain16}); kernel against plain, both bf16: "
+        f"{out['max_rel_diff_kernel_bf16_vs_plain_bf16']:.4e}; tol {GRAD_TOL}; launches {counts}"
+    )
+    if counts.get("flash_attention", 0) != cfg.llm_layers:
+        raise RuntimeError(f"pretrain grad check: flash_attention ran {counts}, not once a block")
+    if not rel_kernel <= GRAD_TOL:
+        raise RuntimeError(f"pretrain grad check: kernel-path gradients differ by {rel_kernel:.4e} > {GRAD_TOL}")
+    return out
+
+
+def hf_roundtrip(args, graph, lm) -> dict:
+    """Export the byte LM's backbone as an HF checkpoint, load it through
+    hf_import into the flagship TECMoLLM (LoRA r 32) and run one eval forecast."""
+    import torch
+
+    from tec_mollm_tpu_torch.config import Config
+    from tec_mollm_tpu_torch.data.dataset import SlidingWindowDataset
+    from tec_mollm_tpu_torch.data.synthetic import synthetic_processed_split
+    from tec_mollm_tpu_torch.models import TECMoLLM, graph_inputs
+    from tec_mollm_tpu_torch.models.hf_export import backbone_state_dict_to_hf, save_hf_checkpoint
+    from tec_mollm_tpu_torch.models.hf_import import load_gpt2_into_model, load_torch_checkpoint
+
+    sd = backbone_state_dict_to_hf(lm.backbone, wte=lm.wte)
+    with tempfile.TemporaryDirectory(prefix="tec_hf_") as out:
+        save_hf_checkpoint(sd, out, meta={"surrogate": "byte-lm"})
+        files = sorted(os.listdir(out))
+        loaded = load_torch_checkpoint(out)
+    cfg = Config().resolved()
+    shifts, valid = graph_inputs(graph, "cuda")
+    model = TECMoLLM(cfg.model, shifts, dtype=torch.bfloat16, seed=args.seed).to("cuda")
+    load_gpt2_into_model(model, loaded)
+    backbone = dict(model.llm_backbone.model.named_parameters())
+    differ = [n for n, p in backbone.items() if ".lora_" not in n and not torch.equal(p.detach().cpu(), sd[n])]
+    lora_b_zero = all(not p.any() for n, p in backbone.items() if n.endswith("lora_B.weight"))
+    split = synthetic_processed_split(3, cfg.train.L_in, cfg.train.L_out, cfg.model.num_nodes, seed=args.seed)
+    batch = SlidingWindowDataset(split, cfg.train.L_in, cfg.train.L_out).gather_batch(np.arange(2))
+    with torch.inference_mode():
+        preds = model.eval()(
+            torch.from_numpy(batch["x"]).cuda(), torch.from_numpy(batch["time_features"]).cuda(), valid
+        )
+    out = {
+        "files": files, "tensors": len(sd), "backbone_tensors_differing": differ,
+        "lora_r": cfg.model.lora_r, "lora_B_zero": lora_b_zero,
+        "forecast_shape": list(preds.shape), "forecast_finite": bool(torch.isfinite(preds).all()),
+    }
+    log(
+        f"hf export -> import: {files}, {len(sd)} tensors; flagship TECMoLLM (LoRA r {cfg.model.lora_r}) "
+        f"backbone tensors differing from the export: {differ}; lora_B all zero: {lora_b_zero}; "
+        f"eval forecast {list(preds.shape)} finite: {out['forecast_finite']}"
+    )
+    if differ or not lora_b_zero or not out["forecast_finite"]:
+        raise RuntimeError(f"hf round trip failed: {out}")
+    return out
+
+
+def pretrain_phase(args, graph) -> dict:
+    """The surrogate GPT-2 pretraining at the script's full width and batch,
+    through the flash kernel (see the module docstring, phase 6)."""
+    import math
+
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+    from tec_mollm_tpu_torch.config import ModelConfig
+    from tec_mollm_tpu_torch.models import ByteLM, pretrain_model_config
+    from tec_mollm_tpu_torch.models.byte_lm import byte_batches, gather_text_corpus
+    from tec_mollm_tpu_torch.training import create_pretrain_state, make_pretrain_step, val_loss, warmup_cosine_decay
+
+    corpus = gather_text_corpus([os.path.dirname(os.path.abspath(__file__))])
+    batches, val_batch = byte_batches(corpus, PRETRAIN_BATCH, PRETRAIN_SEQ, seed=args.seed)
+    cfg = pretrain_model_config(ModelConfig())
+    model = ByteLM(cfg, dtype=torch.bfloat16, use_flash=True, seed=args.seed).to("cuda")
+    state = create_pretrain_state(model, seed=args.seed)
+    n = PRETRAIN_WARMUP + PRETRAIN_STEPS
+    step = make_pretrain_step(warmup_cosine_decay(0.0, PRETRAIN_LR, PRETRAIN_LR_WARMUP, n, PRETRAIN_LR * 0.01))
+    data = [torch.from_numpy(next(batches)).cuda() for _ in range(n)]
+    val_tokens = torch.from_numpy(val_batch).cuda()
+
+    ops.reset_counts()
+    val_before = float(val_loss(model, val_tokens))
+    val_counts = ops.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    metrics = [step(state, t) for t in data[:PRETRAIN_WARMUP]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics += [step(state, t) for t in data[PRETRAIN_WARMUP:]]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    val_after = float(val_loss(model, val_tokens))
+    prof = profile_call(lambda: step(state, data[-1]), top=25)
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    out = {
+        "corpus_mb": len(corpus) / 1e6, "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+        "batch": PRETRAIN_BATCH, "seq_len": PRETRAIN_SEQ, "warmup": PRETRAIN_WARMUP, "steps_timed": PRETRAIN_STEPS,
+        "step_ms": wall / PRETRAIN_STEPS * 1e3,
+        "predicted_bytes_per_s": PRETRAIN_BATCH * PRETRAIN_SEQ * PRETRAIN_STEPS / wall,
+        "peak_memory_gb": peak_gb, "launches": counts,
+        "launches_per_step": {k: v / n for k, v in counts.items()}, "launches_val_forward": val_counts,
+        "losses": losses, "grad_norms": norms, "val_loss_before": val_before, "val_loss_after": val_after,
+        "profile": prof,
+    }
+    log(
+        f"pretrain: ByteLM d {cfg.d_llm} x {cfg.llm_layers} blocks, {out['params_m']:.1f} M params, bf16, "
+        f"B={PRETRAIN_BATCH} x T={PRETRAIN_SEQ + 1}, use_flash, llm_dropout {cfg.llm_dropout}, corpus "
+        f"{out['corpus_mb']:.2f} MB: {PRETRAIN_STEPS} steps after {PRETRAIN_WARMUP} warm-up: step "
+        f"{out['step_ms']:.2f} ms, {out['predicted_bytes_per_s']:.0f} predicted bytes/s; peak memory "
+        f"{peak_gb:.2f} GB; launches {counts}"
+    )
+    log(f"pretrain: losses {[round(x, 4) for x in losses]}; grad norms {[round(x, 3) for x in norms]}")
+    log(f"pretrain: val loss {val_before:.4f} -> {val_after:.4f} nats/byte; val forward launches {val_counts}")
+    log(
+        f"profile[pretrain step]: wall {prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms "
+        f"(busy {prof['device_busy_share']:.2%})"
+    )
+    for row in prof["top"][:10]:
+        log(f"  {row['ms']:8.3f} ms x{row['calls']:<4d} {row['name']}")
+    if counts.get("flash_attention", 0) != cfg.llm_layers * n or val_counts.get("flash_attention", 0) != cfg.llm_layers:
+        raise RuntimeError(f"pretrain: flash_attention ran {counts} in {n} steps, {val_counts} in one val forward")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise RuntimeError("pretrain: a loss or gradient norm is not finite")
+    if abs(losses[0] - math.log(256)) > 0.2 * math.log(256) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"pretrain: first loss {losses[0]} not within 20% of ln 256, or the last not below it")
+    out["grad_check"] = pretrain_grad_check(args, cfg, data[0][:PRETRAIN_GRAD_ROWS])
+    out["hf_roundtrip"] = hf_roundtrip(args, graph, model)
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--seed", type=int, default=0)
@@ -746,13 +1007,16 @@ def main() -> int:
     results["serve"] = paths
     train = train_phase(args)
     results["train"] = train
-    runs = [p["launches"] for p in paths.values()] + [train["launches"]]
+    pretrain = pretrain_phase(args, graph)
+    results["pretrain"] = pretrain
+    runs = [p["launches"] for p in paths.values()] + [train["launches"], pretrain["launches"]]
     for e in entries:
-        # launches over the main-path runs (both serve cells and the train
-        # steps), each counted from zero
+        # launches over the main-path runs (both serve cells, the train steps
+        # and the pretrain steps), each counted from zero
         e["launches"] = sum(r.get(e["name"], 0) for r in runs)
         e["launches_per_forward_fused"] = paths["fused"]["launches"].get(e["name"], 0) / paths["fused"]["forwards"]
         e["launches_per_train_step"] = train["launches_per_step"].get(e["name"], 0)
+        e["launches_per_pretrain_step"] = pretrain["launches_per_step"].get(e["name"], 0)
     missing = [e["name"] for e in entries if e["launches"] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on a main path: {missing}")

@@ -21,31 +21,60 @@ from tec_mollm_tpu_torch.config import ModelConfig
 from tec_mollm_tpu_torch.models.embeddings import TABLES
 
 
+class _Converter:
+    """Reads "/"-joined Flax paths and collects torch names -> fp32 arrays."""
+
+    def __init__(self, flat: Mapping[str, np.ndarray]):
+        self.flat = flat
+        self.sd: dict[str, np.ndarray] = {}
+
+    def get(self, path: str) -> np.ndarray:
+        if path not in self.flat:
+            raise KeyError(f"{path} missing from the parameter tree")
+        return np.asarray(self.flat[path], dtype=np.float32)
+
+    def pair(self, dst: str, weight: np.ndarray, bias: np.ndarray) -> None:
+        self.sd[f"{dst}.weight"] = weight
+        self.sd[f"{dst}.bias"] = bias
+
+    def linear(self, dst: str, src: str) -> None:
+        self.pair(dst, self.get(f"{src}/kernel").T, self.get(f"{src}/bias"))
+
+    def conv1d(self, dst: str, src: str) -> None:
+        self.pair(dst, self.get(f"{src}/kernel").transpose(2, 1, 0), self.get(f"{src}/bias"))
+
+    def conv1d_hf(self, dst: str, src: str) -> None:  # GPT-2 Conv1D: (in, out) kept
+        self.pair(dst, self.get(f"{src}/kernel"), self.get(f"{src}/bias"))
+
+    def layernorm(self, dst: str, src: str) -> None:
+        self.pair(dst, self.get(f"{src}/scale"), self.get(f"{src}/bias"))
+
+    def gpt2(self, dst: str, src: str, cfg: ModelConfig) -> None:
+        """The GPT-2 backbone; LoRA tensors where ``cfg.lora_r > 0``."""
+        self.sd[f"{dst}.wpe.weight"] = self.get(f"{src}/wpe")
+        for i in range(cfg.llm_layers):
+            d, s = f"{dst}.h.{i}", f"{src}/h_{i}"
+            self.layernorm(f"{d}.ln_1", f"{s}/ln_1")
+            self.conv1d_hf(f"{d}.attn.c_attn", f"{s}/attn/c_attn")
+            if cfg.lora_r > 0:
+                self.sd[f"{d}.attn.c_attn.lora_A.weight"] = self.get(f"{s}/attn/c_attn/lora_A").T
+                self.sd[f"{d}.attn.c_attn.lora_B.weight"] = self.get(f"{s}/attn/c_attn/lora_B").T
+            self.conv1d_hf(f"{d}.attn.c_proj", f"{s}/attn/c_proj")
+            self.layernorm(f"{d}.ln_2", f"{s}/ln_2")
+            self.conv1d_hf(f"{d}.mlp.c_fc", f"{s}/mlp/c_fc")
+            self.conv1d_hf(f"{d}.mlp.c_proj", f"{s}/mlp/c_proj")
+        self.layernorm(f"{dst}.ln_f", f"{src}/ln_f")
+
+    def tensors(self) -> dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in self.sd.items()}
+
+
 def params_to_state_dict(
     flat: Mapping[str, np.ndarray], cfg: ModelConfig
 ) -> dict[str, torch.Tensor]:
-    def get(path: str) -> np.ndarray:
-        if path not in flat:
-            raise KeyError(f"{path} missing from the parameter tree")
-        return np.asarray(flat[path], dtype=np.float32)
-
-    sd: dict[str, np.ndarray] = {}
-
-    def linear(dst: str, src: str) -> None:
-        sd[f"{dst}.weight"] = get(f"{src}/kernel").T
-        sd[f"{dst}.bias"] = get(f"{src}/bias")
-
-    def conv1d(dst: str, src: str) -> None:
-        sd[f"{dst}.weight"] = get(f"{src}/kernel").transpose(2, 1, 0)
-        sd[f"{dst}.bias"] = get(f"{src}/bias")
-
-    def conv1d_hf(dst: str, src: str) -> None:  # GPT-2 Conv1D: (in, out) kept
-        sd[f"{dst}.weight"] = get(f"{src}/kernel")
-        sd[f"{dst}.bias"] = get(f"{src}/bias")
-
-    def layernorm(dst: str, src: str) -> None:
-        sd[f"{dst}.weight"] = get(f"{src}/scale")
-        sd[f"{dst}.bias"] = get(f"{src}/bias")
+    """The forecast model's tree -> ``TECMoLLM.state_dict()``."""
+    c = _Converter(flat)
+    sd, get, linear, conv1d, layernorm = c.sd, c.get, c.linear, c.conv1d, c.layernorm
 
     for name in TABLES:
         sd[f"spatio_temporal_embedding.{name}_embedding.weight"] = get(f"embedding/{name}/embedding")
@@ -64,20 +93,19 @@ def params_to_state_dict(
         conv1d(f"{dst}.final_conv", f"{src}/final_conv")
     linear("temporal_encoder.patcher.projection", "temporal/patcher/projection")
 
-    llm = "llm_backbone.model"
-    sd[f"{llm}.wpe.weight"] = get("llm/wpe")
-    for i in range(cfg.llm_layers):
-        dst, src = f"{llm}.h.{i}", f"llm/h_{i}"
-        layernorm(f"{dst}.ln_1", f"{src}/ln_1")
-        conv1d_hf(f"{dst}.attn.c_attn", f"{src}/attn/c_attn")
-        sd[f"{dst}.attn.c_attn.lora_A.weight"] = get(f"{src}/attn/c_attn/lora_A").T
-        sd[f"{dst}.attn.c_attn.lora_B.weight"] = get(f"{src}/attn/c_attn/lora_B").T
-        conv1d_hf(f"{dst}.attn.c_proj", f"{src}/attn/c_proj")
-        layernorm(f"{dst}.ln_2", f"{src}/ln_2")
-        conv1d_hf(f"{dst}.mlp.c_fc", f"{src}/mlp/c_fc")
-        conv1d_hf(f"{dst}.mlp.c_proj", f"{src}/mlp/c_proj")
-    layernorm(f"{llm}.ln_f", "llm/ln_f")
+    c.gpt2("llm_backbone.model", "llm", cfg)
 
     linear("prediction_head.mlp.0", "head/fc1")
     linear("prediction_head.mlp.3", "head/fc2")
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    return c.tensors()
+
+
+def byte_lm_params_to_state_dict(
+    flat: Mapping[str, np.ndarray], cfg: ModelConfig
+) -> dict[str, torch.Tensor]:
+    """The byte LM's tree (``wte``, ``backbone/...``; no LoRA at ``lora_r = 0``)
+    -> ``ByteLM.state_dict()``."""
+    c = _Converter(flat)
+    c.sd["wte"] = c.get("wte")
+    c.gpt2("backbone", "backbone", cfg)
+    return c.tensors()

@@ -7,10 +7,13 @@ Parameter names follow HF/peft under the reference's ``llm_backbone.model``.
 Paths, as in the JAX package:
 
 * LayerNorm is the lean form (fp32 statistics from E[x^2] - mu^2, affine in
-  the compute dtype), the JAX package's default;
+  the compute dtype), the JAX forecast model's default; ``lean_ln=False`` gives
+  the JAX backbone's own default, fp32 LayerNorms cast to the compute dtype
+  (the byte LM's);
 * attention over T <= ``UNROLL_MAX_SEQ`` tokens is the unrolled form, or the
   short-attention kernel with ``fused_attn=True``; longer sequences take the
-  einsum form;
+  flash-attention kernel with ``use_flash=True`` (no attention-probability
+  dropout there, as in JAX), else the einsum form;
 * ``use_fused_mlp=True`` sends ln_2 -> MLP -> residual of an eval call to the
   fused kernel, whose LayerNorm is two-pass (as ``ops/fused_mlp.py`` is).
 """
@@ -25,6 +28,7 @@ from torch import nn
 
 from tec_mollm_tpu_torch.config import ModelConfig
 from tec_mollm_tpu_torch.models.lora import LoRADense
+from tec_mollm_tpu_torch.ops.flash_attention import flash_attention
 from tec_mollm_tpu_torch.ops.fused_mlp import fused_ln_mlp
 from tec_mollm_tpu_torch.ops.short_attention import short_causal_attention
 
@@ -38,6 +42,11 @@ def lean_layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float
     var = xf.square().mean(dim=-1, keepdim=True) - mean.square()
     norm = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
     return norm * w.to(x.dtype) + b.to(x.dtype)
+
+
+def fp32_layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5):
+    """Statistics and affine in fp32, the result cast to x's dtype."""
+    return F.layer_norm(x.float(), (x.shape[-1],), w.float(), b.float(), eps).to(x.dtype)
 
 
 def unrolled_causal_attention(
@@ -85,17 +94,18 @@ def _einsum_causal_attention(q, k, v, heads: int, dropout: float) -> torch.Tenso
 
 
 class GPT2Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, fused_attn: bool = False):
+    def __init__(self, cfg: ModelConfig, fused_attn: bool = False, use_flash: bool = False):
         super().__init__()
         d = cfg.d_llm
         self.heads = cfg.llm_heads
         self.dropout = cfg.llm_dropout
         self.fused_attn = fused_attn
+        self.use_flash = use_flash
         self.c_attn = LoRADense(d, 3 * d, cfg.lora_r, cfg.lora_alpha, cfg.lora_dropout)
         self.c_proj = LoRADense(d, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        t, d = x.shape[1], x.shape[2]
+        b, t, d = x.shape
         q, k, v = self.c_attn(x).split(d, dim=-1)
         p = self.dropout if self.training else 0.0
         if self.fused_attn and t <= UNROLL_MAX_SEQ:
@@ -103,6 +113,9 @@ class GPT2Attention(nn.Module):
             # draws one from its dropout rng; the train step seeds that generator
             seed = int(torch.randint(0, 2**31 - 1, ())) if p > 0.0 else 0
             out = short_causal_attention(q, k, v, self.heads, dropout_rate=p, seed=seed)
+        elif self.use_flash and t > 1 and t > UNROLL_MAX_SEQ:
+            q4, k4, v4 = (a.reshape(b, t, self.heads, d // self.heads) for a in (q, k, v))
+            out = flash_attention(q4, k4, v4, causal=True).reshape(b, t, d)
         elif t <= UNROLL_MAX_SEQ:
             out = unrolled_causal_attention(q, k, v, self.heads, p)
         else:
@@ -121,18 +134,26 @@ class GPT2MLP(nn.Module):
 
 
 class GPT2Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, fused_attn: bool = False, use_fused_mlp: bool = False):
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        fused_attn: bool = False,
+        use_fused_mlp: bool = False,
+        use_flash: bool = False,
+        lean_ln: bool = True,
+    ):
         super().__init__()
         d = cfg.d_llm
         self.use_fused_mlp = use_fused_mlp
         self.dropout = cfg.llm_dropout
+        self.norm = lean_layernorm if lean_ln else fp32_layernorm
         self.ln_1 = nn.LayerNorm(d, eps=1e-5)
-        self.attn = GPT2Attention(cfg, fused_attn)
+        self.attn = GPT2Attention(cfg, fused_attn, use_flash)
         self.ln_2 = nn.LayerNorm(d, eps=1e-5)
         self.mlp = GPT2MLP(d, cfg.llm_mlp_ratio)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(lean_layernorm(x, self.ln_1.weight, self.ln_1.bias, self.ln_1.eps))
+        x = x + self.attn(self.norm(x, self.ln_1.weight, self.ln_1.bias, self.ln_1.eps))
         if self.use_fused_mlp and not self.training:
             d = x.shape[-1]
             fc, proj = self.mlp.c_fc, self.mlp.c_proj
@@ -141,19 +162,27 @@ class GPT2Block(nn.Module):
                 fc.weight, fc.bias, proj.weight, proj.bias, self.ln_2.eps,
             )
             return out.reshape(x.shape)
-        h = lean_layernorm(x, self.ln_2.weight, self.ln_2.bias, self.ln_2.eps)
+        h = self.norm(x, self.ln_2.weight, self.ln_2.bias, self.ln_2.eps)
         return x + F.dropout(self.mlp(h), self.dropout, self.training)
 
 
 class GPT2Backbone(nn.Module):
     """inputs_embeds (B, T, d_llm) -> last hidden state (B, T, d_llm)."""
 
-    def __init__(self, cfg: ModelConfig, fused_attn: bool = False, use_fused_mlp: bool = False):
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        fused_attn: bool = False,
+        use_fused_mlp: bool = False,
+        use_flash: bool = False,
+        lean_ln: bool = True,
+    ):
         super().__init__()
         self.dropout = cfg.llm_dropout
+        self.norm = lean_layernorm if lean_ln else fp32_layernorm
         self.wpe = nn.Embedding(cfg.llm_max_positions, cfg.d_llm)
         self.h = nn.ModuleList(
-            GPT2Block(cfg, fused_attn, use_fused_mlp)
+            GPT2Block(cfg, fused_attn, use_fused_mlp, use_flash, lean_ln)
             for _ in range(cfg.llm_layers)
         )
         self.ln_f = nn.LayerNorm(cfg.d_llm, eps=1e-5)
@@ -175,7 +204,7 @@ class GPT2Backbone(nn.Module):
         x = F.dropout(inputs_embeds + self.wpe.weight[:t].to(dt)[None], self.dropout, self.training)
         for block in self.h:
             x = block(x)
-        return lean_layernorm(x, self.ln_f.weight, self.ln_f.bias, self.ln_f.eps)
+        return self.norm(x, self.ln_f.weight, self.ln_f.bias, self.ln_f.eps)
 
 
 class LLMBackbone(nn.Module):

@@ -43,6 +43,7 @@ class TECMoLLM(nn.Module):
         dtype: torch.dtype = torch.float32,
         fused_attn: bool = False,
         use_fused_mlp: bool = False,
+        use_flash: bool = False,
         # the JAX model's `gat_pallas`: the stencil kernel on eval calls
         gat_kernel: bool = True,
         pad_nodes_to: int = 128,
@@ -57,7 +58,9 @@ class TECMoLLM(nn.Module):
         self.spatio_temporal_embedding = SpatioTemporalEmbedding(cfg)
         self.spatial_encoder = SpatialEncoder(cfg)
         self.temporal_encoder = TemporalEncoder(cfg)
-        self.llm_backbone = LLMBackbone(cfg, fused_attn=fused_attn, use_fused_mlp=use_fused_mlp)
+        self.llm_backbone = LLMBackbone(
+            cfg, fused_attn=fused_attn, use_fused_mlp=use_fused_mlp, use_flash=use_flash
+        )
         self.post_llm_dropout = nn.Dropout(cfg.post_llm_dropout)
         self.prediction_head = PredictionHead(cfg)
         self.reset_parameters(torch.Generator().manual_seed(seed))

@@ -4,6 +4,12 @@
 """
 
 from tec_mollm_tpu_torch.ops._build import launch_counts, reset_counts
+from tec_mollm_tpu_torch.ops.flash_attention import (
+    FLASH_MIN_SEQ,
+    flash_attention,
+    flash_attention_forward,
+    flash_attention_reference,
+)
 from tec_mollm_tpu_torch.ops.fused_mlp import fused_ln_mlp, fused_ln_mlp_reference
 from tec_mollm_tpu_torch.ops.gat_stencil import gat_stencil_attention, gat_stencil_reference
 from tec_mollm_tpu_torch.ops.short_attention import (
@@ -15,6 +21,10 @@ from tec_mollm_tpu_torch.ops.short_attention import (
 )
 
 __all__ = [
+    "FLASH_MIN_SEQ",
+    "flash_attention",
+    "flash_attention_forward",
+    "flash_attention_reference",
     "fused_ln_mlp",
     "fused_ln_mlp_reference",
     "gat_stencil_attention",

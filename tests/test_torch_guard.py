@@ -55,3 +55,28 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
         )
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_profile_rows_count_kernels_once():
+    """The busy share sums device rows only: host ops and user annotations on
+    the device timeline (which span kernels already counted) are left out."""
+    import importlib.util
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    def event(key, ms, device, annotation=False):
+        return SimpleNamespace(key=key, self_device_time_total=ms * 1e3, count=1,
+                               device_type=device, is_user_annotation=annotation)
+
+    rows = smoke.device_rows([
+        event("aten::mm", 2.0, DeviceType.CPU),
+        event("Optimizer.step#AdamW.step", 1.4, DeviceType.CUDA, annotation=True),
+        event("multi_tensor_apply_kernel", 1.0, DeviceType.CUDA),
+        event("flash_attention_kernel", 1.5, DeviceType.CUDA),
+    ])
+    assert rows == [(1.5, 1, "flash_attention_kernel"), (1.0, 1, "multi_tensor_apply_kernel")]
