@@ -7,16 +7,21 @@ Phases (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: compile the kernels from csrc/ (one nvcc per source, in parallel);
   3. kernels: each kernel against its plain PyTorch version on the card, at the
-     shapes the flagship batch of 8 gives it, with its error, its time (median
-     of CUDA-event timed launches), the plain version's time, a library call's
-     time where one computes the same function, and its bound on this card.
-     The short attention runs with dropout p = 0.1 (the training call) and 0;
-     its keep mask is read back through the kernel's output and must equal the
-     plain hash bit for bit, keep 0.9 +- 0.001 of the draws and change with the
-     seed. Its backward is checked in fp32 and bf16 at p = 0 and 0.1. Flash
+     shapes the flagship batch of 8 gives it, with its error, its time (CUDA
+     events around back-to-back calls, see time_ms), the plain version's time,
+     a library call's time where one computes the same function, and its bound
+     on this card. The short attention runs with dropout p = 0.1 (the training
+     call) and 0; its keep mask is read back through the kernel's output and
+     must equal the plain hash bit for bit, keep 0.9 +- 0.001 of the draws and
+     change with the seed. Its backward is checked in fp32 and bf16 at p = 0
+     and 0.1. The fused MLP runs at 70656 rows (the serve batch), 8832 (one
+     window) and 1000 (ragged), and with x scaled by 2^-6 (the branch alone);
+     the cuBLAS time of its two products alone is printed as an anchor. Flash
      attention runs at the byte LM's (64, 129, 12, 64) causal on views of a
-     c_attn output in fp32 and bf16, at T = 300 non-causal and at T = 1024
-     causal (B = 8), with SDPA as the library call;
+     c_attn output in fp32 and bf16, in bf16 with dropout p = 0.1 (its mask read
+     back as the short kernel's is) and on a view that is not 16-byte aligned,
+     at head dims 32 and 128, at T = 300 non-causal and at T = 1024 causal
+     (B = 8), with SDPA as the library call;
   4. serve: a synthetic processed dir at the 41x71 grid, ForecastService on the
      flagship Config() with seeded random weights at max_batch=8 in bf16,
      forecast requests over HTTP on localhost (some concurrent, so the batcher
@@ -38,7 +43,8 @@ Phases (any failure exits non-zero):
      (T = 129 through the flash kernel), the corpus gathered from the repository,
      llm_dropout 0.1: 2 warm-up and 20 timed steps, step ms, bytes/s, peak
      memory, losses and the val loss before and after; flash_attention must
-     run once per block and forward. The first loss must lie within 20% of
+     run once per block and forward, with the attention dropout of llm_dropout
+     in training and none in the val forward. The first loss must lie within 20% of
      ln 256 and the last below it. With every dropout at 0, one step's
      gradients through the kernel in bf16 against an fp32 step on the plain
      path, within GRAD_TOL. Then the backbone is exported as an HF checkpoint,
@@ -83,9 +89,10 @@ SERVE_TOL_SCALED = 0.1
 # KEPT_TOL of 1 - p (about 4 standard deviations)
 DROPOUT, DROPOUT_SEED, KEPT_TOL = 0.1, 12345, 1e-3
 # the flagship eval batch (the service's max_batch, and the kernels' batch),
-# CUDA-event timed launches per kernel, timesteps of the synthetic test split,
-# forecast requests and the threads that send the concurrent ones
-BATCH, REPS, STEPS, REQUESTS, THREADS = 8, 20, 150, 16, 6
+# back-to-back calls in one CUDA-event timing and the timings whose median is
+# kept, timesteps of the synthetic test split, forecast requests and the
+# threads that send the concurrent ones
+BATCH, REPS, TIMING_RUNS, STEPS, REQUESTS, THREADS = 8, 20, 5, 150, 16, 6
 # train phase: warm-up and timed steps of the flagship train step, and the
 # windows of the gradient check
 TRAIN_WARMUP, TRAIN_STEPS, GRAD_BATCH = 2, 10, 2
@@ -94,11 +101,22 @@ TRAIN_WARMUP, TRAIN_STEPS, GRAD_BATCH = 2, 10, 2
 # by a few percent (the bf16 plain path, printed beside it); a wrong attention
 # backward moves lora_A/lora_B and everything below the blocks by order 1.
 GRAD_TOL = 0.1
-# flash attention checks: (batch, T, causal) by label; "path" is the byte LM's
-# pretraining batch (64 rows of seq_len 128 + 1 tokens); "t300" makes the JAX
-# wrapper pad T to 512 and mask keys >= t_valid; "t1024" is the shape of
-# scripts/bench_flash_attention.py
-FLASH_CASES = {"path": (64, 129, True), "t300": (8, 300, False), "t1024": (8, 1024, True)}
+# flash attention checks: (batch, T, causal, head dim, dtypes) by label; "path"
+# is the byte LM's pretraining batch (64 rows of seq_len 128 + 1 tokens, 12 heads
+# of 64); "t300" makes the JAX wrapper pad T to 512 and mask keys >= t_valid;
+# "t1024" is the shape of scripts/bench_flash_attention.py; "d32" and "d128" the
+# kernel's other head dims
+FLASH_CASES = {
+    "path": (64, 129, True, 64, ("fp32", "bf16")),
+    "t300": (8, 300, False, 64, ("fp32", "bf16")),
+    "t1024": (8, 1024, True, 64, ("fp32", "bf16")),
+    "d32": (64, 129, True, 32, ("bf16",)),
+    "d128": (64, 129, True, 128, ("bf16",)),
+}
+# fused MLP checks: rows by label; "path" is the serve batch (8 windows x 2944
+# padded nodes x 3 patches), "window" one window's rows, "ragged" a row count
+# that no tile divides
+MLP_ROWS = {"path": BATCH * 2944 * 3, "window": 2944 * 3, "ragged": 1000}
 # pretrain phase: the pretraining script's batch and length, warm-up and timed
 # steps, its peak rate reached after PRETRAIN_LR_WARMUP updates (the script
 # warms up over 100 of 3000), and the rows of its gradient check
@@ -121,19 +139,25 @@ def gpu_line() -> str:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Median of `reps` CUDA-event timed calls after two warm-up calls."""
+    """Device time of one call: the median over TIMING_RUNS of CUDA events
+    around `reps` back-to-back calls, divided by `reps`, after two warm-up
+    calls. Back to back, the host issues the next call while the device runs
+    this one, so a call's own host cost (Python, the launch) shows only where
+    it exceeds its device time."""
     import torch
 
     for _ in range(2):
         fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(TIMING_RUNS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -324,44 +348,7 @@ def check_kernels(args, graph, results: dict) -> list[dict]:
     entries.append(bwd)
 
     # --- 3. fused LN -> MLP -> residual at (B*N*T, d) ---
-    dh = cfg.llm_mlp_ratio * d
-    x = rand(rows_llm, d)
-    ln_w = 1.0 + rand(d, dtype=torch.float32, std=0.1)
-    ln_b = rand(d, dtype=torch.float32, std=0.1)
-    w1, b1 = rand(d, dh, dtype=torch.float32, std=0.02), rand(dh, dtype=torch.float32, std=0.02)
-    w2, b2 = rand(dh, d, dtype=torch.float32, std=0.02), rand(d, dtype=torch.float32, std=0.02)
-    mlp_args = (x, ln_w, ln_b, w1, b1, w2, b2)
-    got = ops.fused_ln_mlp(*mlp_args)
-    want = ops.fused_ln_mlp_reference(*mlp_args)
-    torch.cuda.synchronize()
-    max_abs, max_rel, ok = compare(got, want, "bf16")
-    if not ok:
-        failures.append("fused_mlp bf16")
-    # The residual (|x| ~ 1) dominates the output, so the check above barely sees
-    # an error in the MLP branch (~0.35). Scaled by 2^-6 (exact in bf16), x keeps
-    # its LN output and the same branch, and the output is about the branch alone:
-    # the same tolerance then bounds the GEMMs and their epilogues.
-    x_small = x * 2.0**-6
-    got_s = ops.fused_ln_mlp(x_small, *mlp_args[1:])
-    want_s = ops.fused_ln_mlp_reference(x_small, *mlp_args[1:])
-    torch.cuda.synchronize()
-    branch_abs, branch_rel, ok = compare(got_s, want_s, "bf16")
-    if not ok:
-        failures.append("fused_mlp bf16, branch alone")
-    entries.append({
-        "name": "fused_mlp", "source": "tec_mollm_tpu_torch/csrc/fused_mlp.cu",
-        "replaces": "tec_mollm_tpu/ops/fused_mlp.py:78",
-        "shape": f"x ({rows_llm},{d}) bf16, w1 ({d},{dh}), w2 ({dh},{d})",
-        "max_abs_err": max_abs, "max_rel_err_bf16": max_rel, "tol_bf16": TOL["bf16"],
-        "max_abs_err_branch": branch_abs, "max_rel_err_branch": branch_rel, "tol_branch": TOL["bf16"],
-        "ms": time_ms(lambda: ops.fused_ln_mlp(*mlp_args), REPS),
-        "plain_ms": time_ms(lambda: ops.fused_ln_mlp_reference(*mlp_args), REPS),
-        "library_ms": None,
-        "bytes": 2 * rows_llm * d * 2 + 2 * d * dh * 2 + (3 * d + dh) * 4,
-        "flops": 4 * rows_llm * d * dh,
-        "flop_rate": PEAK_FLOPS["bf16_tensor"],
-    })
-
+    entries.append(check_mlp(cfg, rand, failures))
     entries.append(check_flash(cfg, rand, failures))
 
     for e in entries:
@@ -384,46 +371,188 @@ def check_kernels(args, graph, results: dict) -> list[dict]:
     return entries
 
 
+def check_mlp(cfg, rand, failures: list) -> dict:
+    """The fused MLP against its plain version at MLP_ROWS, plus the branch
+    alone at the path's rows; the entry's times are the path's. Beside it, the
+    cuBLAS time of the two products alone, and the kernel's launches by name
+    from one profiled call."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+
+    d = cfg.d_llm
+    dh = cfg.llm_mlp_ratio * d
+    ln_w = 1.0 + rand(d, dtype=torch.float32, std=0.1)
+    ln_b = rand(d, dtype=torch.float32, std=0.1)
+    w1, b1 = rand(d, dh, std=0.02), rand(dh, dtype=torch.float32, std=0.02)
+    w2, b2 = rand(dh, d, std=0.02), rand(d, dtype=torch.float32, std=0.02)
+    weights = (ln_w, ln_b, w1, b1, w2, b2)
+    rows = MLP_ROWS["path"]
+    entry = {
+        "name": "fused_mlp", "source": "tec_mollm_tpu_torch/csrc/fused_mlp.cu",
+        "replaces": "tec_mollm_tpu/ops/fused_mlp.py:78",
+        "shape": f"x ({rows},{d}) bf16, w1 ({d},{dh}), w2 ({dh},{d}) bf16",
+    }
+    for label, n in MLP_ROWS.items():
+        x = rand(n, d)
+        got = ops.fused_ln_mlp(x, *weights)
+        want = ops.fused_ln_mlp_reference(x, *weights)
+        torch.cuda.synchronize()
+        tag = "bf16" if label == "path" else label
+        entry[f"max_abs_err_{tag}"], entry[f"max_rel_err_{tag}"], ok = compare(got, want, "bf16")
+        entry[f"tol_{tag}"] = TOL["bf16"]
+        if not ok:
+            failures.append(f"fused_mlp {label} ({n} rows)")
+        if label == "path":
+            x_path = x
+    # The residual (|x| ~ 1) dominates the output, so the check above barely sees
+    # an error in the MLP branch (~0.35). Scaled by 2^-6 (exact in bf16), x keeps
+    # its LN output and the same branch, and the output is about the branch alone:
+    # the same tolerance then bounds the GEMMs and their epilogues.
+    x_small = x_path * 2.0**-6
+    got = ops.fused_ln_mlp(x_small, *weights)
+    want = ops.fused_ln_mlp_reference(x_small, *weights)
+    torch.cuda.synchronize()
+    entry["max_abs_err_branch"], entry["max_rel_err_branch"], ok = compare(got, want, "bf16")
+    entry["tol_branch"] = TOL["bf16"]
+    if not ok:
+        failures.append("fused_mlp bf16, branch alone")
+    args = (x_path, *weights)
+    hidden = rand(rows, dh)
+    entry.update({
+        "max_abs_err": entry["max_abs_err_bf16"],
+        "ms": time_ms(lambda: ops.fused_ln_mlp(*args), REPS),
+        "plain_ms": time_ms(lambda: ops.fused_ln_mlp_reference(*args), REPS),
+        "library_ms": None,
+        # not library_ms (no one call computes the fused function): the two
+        # products alone through cuBLAS, an anchor for the GEMMs' time
+        "cublas_products_ms": time_ms(lambda: (x_path @ w1, hidden @ w2), REPS),
+        "bytes": 2 * rows * d * 2 + 2 * d * dh * 2 + (3 * d + dh) * 4,
+        "flops": 4 * rows * d * dh,
+        "flop_rate": PEAK_FLOPS["bf16_tensor"],
+        "profile": profile_call(lambda: ops.fused_ln_mlp(*args), top=6),
+    })
+    log(
+        f"anchor: cuBLAS x@w1 + h@w2 (bf16, {rows} rows) {entry['cublas_products_ms']:.4f} ms; the fused "
+        f"MLP kernel {entry['ms']:.4f} ms; one profiled call: "
+        + ", ".join(f"{r['name'][:48]} {r['ms']:.4f} ms" for r in entry["profile"]["top"])
+    )
+    return entry
+
+
+def flash_mask_check(failures: list) -> dict:
+    """The flash kernel's own keep mask at the path shape, read back through its
+    output: with q = k = 0 every causal weight of query i is 1/(i+1), and for a
+    window of 64 keys starting at w, v[b, j, h, c] = [j == w + c] puts key
+    w + c's weight in output lane c. The mask must be the plain hash's bit for
+    bit, keep 1 - p of the draws, and change with the seed."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+    from tec_mollm_tpu_torch.ops.short_attention import dropout_bits, dropout_threshold
+
+    b, t, _, hd, _ = FLASH_CASES["path"]
+    heads = 12
+    dev = torch.device("cuda")
+    zeros = torch.zeros(b, t, heads, hd, device=dev, dtype=torch.bfloat16)
+    unscale = (torch.arange(t, device=dev) + 1.0)[None, :, None, None] * (1.0 - DROPOUT)
+
+    def kernel_mask(seed: int) -> torch.Tensor:  # (B, H, Tq, Tk)
+        mask = torch.zeros(b, heads, t, t, dtype=torch.bool, device=dev)
+        for w in range(0, t, hd):
+            width = min(hd, t - w)
+            v = torch.zeros_like(zeros)
+            idx = torch.arange(width, device=dev)
+            v[:, w + idx, :, idx] = 1.0
+            out = ops.flash_attention_forward(zeros, zeros, v, True, DROPOUT, seed)
+            mask[..., w:w + width] = (out[..., :width].float() * unscale > 0.5).permute(0, 2, 1, 3)
+        return mask
+
+    causal = torch.ones(t, t, dtype=torch.bool, device=dev).tril()
+    mask, other = kernel_mask(DROPOUT_SEED) & causal, kernel_mask(DROPOUT_SEED + 1) & causal
+    plain = (dropout_bits(DROPOUT_SEED, b, heads, t, dev) >= dropout_threshold(DROPOUT)) & causal
+    draws = b * heads * int(causal.sum())
+    kept = float(mask.sum()) / draws
+    out = {
+        "flash_dropout_draws": draws, "flash_kept_fraction": kept,
+        "flash_mask_equals_plain_hash": bool(torch.equal(mask, plain)),
+        "flash_mask_share_changed_by_next_seed": float((mask != other).sum()) / draws,
+    }
+    log(
+        f"flash dropout p={DROPOUT}: kernel kept {kept:.6f} of {draws} draws (want {1 - DROPOUT} +- {KEPT_TOL}); "
+        f"mask equals the plain hash: {out['flash_mask_equals_plain_hash']}; seed+1 changes "
+        f"{out['flash_mask_share_changed_by_next_seed']:.4f} of it"
+    )
+    if abs(kept - (1.0 - DROPOUT)) > KEPT_TOL:
+        failures.append("flash_attention kept fraction")
+    if not out["flash_mask_equals_plain_hash"]:
+        failures.append("flash_attention mask differs from the plain hash")
+    if out["flash_mask_share_changed_by_next_seed"] < 0.1:
+        failures.append("flash_attention mask does not change with the seed")
+    return out
+
+
 def check_flash(cfg, rand, failures: list) -> dict:
     """Flash attention against its plain version at FLASH_CASES, on q, k, v
     that are (B, T, H, Dh) views of one (B, T, 3D) c_attn output, as the model
-    hands them over. The entry's times are the path shape's; the other shapes
-    go under their labels with their own bounds."""
+    hands them over; at the path shape also with dropout p = 0.1 (the
+    pretraining call) and on a view that is not 16-byte aligned (the wrapper
+    copies it). The entry's times are the path shape's at p = 0, the function
+    SDPA computes; the other shapes go under their labels with their own
+    bounds."""
     import torch
 
     from tec_mollm_tpu_torch import ops
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    d, heads = cfg.d_llm, cfg.llm_heads
-    hd = d // heads
+    heads = cfg.llm_heads
     entry = {
         "name": "flash_attention", "source": "tec_mollm_tpu_torch/csrc/flash_attention.cu",
         "replaces": "tec_mollm_tpu/ops/flash_attention.py:114",
     }
-    for label, (b, t, causal) in FLASH_CASES.items():
-        for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-            q, k, v = (a.reshape(b, t, heads, hd) for a in rand(b, t, 3 * d, dtype=dt).split(d, dim=-1))
-            got = ops.flash_attention_forward(q, k, v, causal)
-            want = ops.flash_attention_reference(q, k, v, causal)
-            torch.cuda.synchronize()
-            tag = name if label == "path" else f"{label}_{name}"
-            entry[f"max_abs_err_{tag}"], entry[f"max_rel_err_{tag}"], ok = compare(got, want, name)
-            entry[f"tol_{tag}"] = TOL[name]
-            if not ok:
-                failures.append(f"flash_attention {label} {name}")
-        q4, k4, v4 = (a.transpose(1, 2) for a in (q, k, v))  # the bf16 views, (B, H, T, Dh)
+
+    def views(b, t, hd, dt, pad=0):
+        d = heads * hd
+        qkv = rand(b, t, 3 * d + pad, dtype=dt)[..., pad:]
+        return [a.reshape(b, t, heads, hd) for a in qkv.split(d, dim=-1)]
+
+    def check(label, tag, dtype_name, q, k, v, causal, rate=0.0):
+        got = ops.flash_attention_forward(q, k, v, causal, rate, DROPOUT_SEED)
+        want = ops.flash_attention_reference(q, k, v, causal, rate, DROPOUT_SEED)
+        torch.cuda.synchronize()
+        entry[f"max_abs_err_{tag}"], entry[f"max_rel_err_{tag}"], ok = compare(got, want, dtype_name)
+        entry[f"tol_{tag}"] = TOL[dtype_name]
+        if not ok:
+            failures.append(f"flash_attention {label} {tag}")
+
+    for label, (b, t, causal, hd, dtypes) in FLASH_CASES.items():
+        for name in dtypes:
+            q, k, v = views(b, t, hd, torch.float32 if name == "fp32" else torch.bfloat16)
+            check(label, name if label == "path" else f"{label}_{name}", name, q, k, v, causal)
+        # the bf16 views, (B, H, T, Dh) for SDPA
+        q4, k4, v4 = (a.transpose(1, 2) for a in (q, k, v))
         pairs = t * (t + 1) // 2 if causal else t * t
         case = {
-            "shape": f"q,k,v ({b},{t},{heads},{hd}) bf16 views of ({b},{t},{3 * d}), causal {causal}",
+            "shape": f"q,k,v ({b},{t},{heads},{hd}) bf16 views of ({b},{t},{3 * heads * hd}), causal {causal}",
             "ms": time_ms(lambda: ops.flash_attention_forward(q, k, v, causal), REPS),
             "plain_ms": time_ms(lambda: ops.flash_attention_reference(q, k, v, causal), REPS),
             "library_ms": time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal), REPS),
             # q, k, v read and the output written once; q.k and p.v, 2 * Dh each
-            "bytes": 4 * b * t * d * 2,
+            "bytes": 4 * b * t * heads * hd * 2,
             "flops": b * heads * pairs * hd * 4,
         }
         if label == "path":
             entry.update(case, flop_rate=PEAK_FLOPS["bf16_tensor"])
+            check(label, "bf16_p01", "bf16", q, k, v, causal, DROPOUT)
+            entry["ms_p01"] = time_ms(lambda: ops.flash_attention_forward(q, k, v, causal, DROPOUT, DROPOUT_SEED), REPS)
+            entry["library_ms_p01"] = time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal, dropout_p=DROPOUT), REPS)
+            entry["x_sdpa"] = case["ms"] / case["library_ms"]
+            qm, km, vm = views(b, t, hd, torch.bfloat16, pad=1)  # 2-byte offset, odd token stride
+            check(label, "misaligned", "bf16", qm, km, vm, causal)
+            log(
+                f"kernel flash_attention[path]: p=0.1 {entry['ms_p01']:.4f} ms (SDPA dropout_p 0.1 "
+                f"{entry['library_ms_p01']:.4f} ms); p=0 {case['ms']:.4f} ms = {entry['x_sdpa']:.2f} x SDPA"
+            )
         else:
             case["bound_ms"], case["bound_by"] = bound(case["bytes"], case["flops"], PEAK_FLOPS["bf16_tensor"])
             entry[label] = case
@@ -432,6 +561,7 @@ def check_flash(cfg, rand, failures: list) -> dict:
                 f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
                 f"({case['bound_by']})"
             )
+    entry.update(flash_mask_check(failures))
     entry["max_abs_err"] = entry["max_abs_err_bf16"]
     return entry
 
@@ -895,7 +1025,7 @@ def pretrain_phase(args, graph) -> dict:
 
     from tec_mollm_tpu_torch import ops
     from tec_mollm_tpu_torch.config import ModelConfig
-    from tec_mollm_tpu_torch.models import ByteLM, pretrain_model_config
+    from tec_mollm_tpu_torch.models import ByteLM, gpt2, pretrain_model_config
     from tec_mollm_tpu_torch.models.byte_lm import byte_batches, gather_text_corpus
     from tec_mollm_tpu_torch.training import create_pretrain_state, make_pretrain_step, val_loss, warmup_cosine_decay
 
@@ -909,18 +1039,33 @@ def pretrain_phase(args, graph) -> dict:
     data = [torch.from_numpy(next(batches)).cuda() for _ in range(n)]
     val_tokens = torch.from_numpy(val_batch).cuda()
 
-    ops.reset_counts()
-    val_before = float(val_loss(model, val_tokens))
-    val_counts = ops.launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_counts()
-    metrics = [step(state, t) for t in data[:PRETRAIN_WARMUP]]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    metrics += [step(state, t) for t in data[PRETRAIN_WARMUP:]]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    # the attention dropout rate of every flash call, training and val
+    rates: dict[str, list] = {"train": [], "val": []}
+    flash = gpt2.flash_attention
+
+    def recording(phase: str):
+        def call(*a, **kw):
+            rates[phase].append(kw.get("dropout_rate", 0.0))
+            return flash(*a, **kw)
+        return call
+
+    try:
+        gpt2.flash_attention = recording("val")
+        ops.reset_counts()
+        val_before = float(val_loss(model, val_tokens))
+        val_counts = ops.launch_counts()
+        gpt2.flash_attention = recording("train")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        metrics = [step(state, t) for t in data[:PRETRAIN_WARMUP]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics += [step(state, t) for t in data[PRETRAIN_WARMUP:]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        gpt2.flash_attention = flash
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     val_after = float(val_loss(model, val_tokens))
     prof = profile_call(lambda: step(state, data[-1]), top=25)
@@ -953,6 +1098,12 @@ def pretrain_phase(args, graph) -> dict:
         log(f"  {row['ms']:8.3f} ms x{row['calls']:<4d} {row['name']}")
     if counts.get("flash_attention", 0) != cfg.llm_layers * n or val_counts.get("flash_attention", 0) != cfg.llm_layers:
         raise RuntimeError(f"pretrain: flash_attention ran {counts} in {n} steps, {val_counts} in one val forward")
+    out["flash_dropout_rates"] = {k: sorted(set(v)) for k, v in rates.items()}
+    log(f"pretrain: flash calls' attention dropout: train {out['flash_dropout_rates']['train']} over "
+        f"{len(rates['train'])} calls, val {out['flash_dropout_rates']['val']} over {len(rates['val'])} calls")
+    if rates["train"] != [cfg.llm_dropout] * (cfg.llm_layers * n) or rates["val"] != [0.0] * cfg.llm_layers:
+        raise RuntimeError(f"pretrain: flash calls' dropout rates {out['flash_dropout_rates']}, want "
+                           f"{cfg.llm_dropout} in training and 0 in the val forward")
     if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
         raise RuntimeError("pretrain: a loss or gradient norm is not finite")
     if abs(losses[0] - math.log(256)) > 0.2 * math.log(256) or not losses[-1] < losses[0]:

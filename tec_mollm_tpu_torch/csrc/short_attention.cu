@@ -7,8 +7,9 @@
 // sum are fp32; the output is written in the input type. Attention dropout keeps
 // a weight iff bits >= threshold (threshold = p * 2^32, the JAX rule) and scales
 // it by 1/(1-p). The bits are a counter-based hash of (seed, absolute index
-// ((m*H + h)*T + tq)*T + s), so the forward, the backward and the plain PyTorch
-// version draw the same mask whatever the launch shape.
+// ((m*H + h)*T + tq)*T + s) (tec::Dropout, common.cuh), so the forward, the
+// backward and the plain PyTorch version draw the same mask whatever the launch
+// shape.
 //
 // Design: one warp per (row m, head h). Each lane holds EPL = Dh / 32 elements of
 // every token's q, k, v (and g in the backward) in registers; the dot products
@@ -25,31 +26,6 @@
 #include "common.cuh"
 
 namespace {
-
-__host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-// The per-call key of the dropout hash; the bits of index i are
-// mix32(mix32(key ^ lo32(i)) ^ hi32(i)).
-__host__ __forceinline__ uint32_t dropout_key(uint32_t seed) { return mix32(seed ^ 0x9E3779B9u); }
-
-struct Dropout {
-  uint32_t key;
-  uint32_t threshold;
-  float inv_keep;
-  int on;
-
-  __device__ __forceinline__ bool keep(uint64_t idx) const {
-    const uint32_t bits = mix32(mix32(key ^ static_cast<uint32_t>(idx)) ^ static_cast<uint32_t>(idx >> 32));
-    return bits >= threshold;
-  }
-};
 
 // fp32 softmax over s <= tq of the scaled scores q[tq] . k[s], into sc[0..tq].
 template <int TLEN, int EPL>
@@ -83,7 +59,7 @@ template <typename T, int TLEN, int EPL>
 __global__ void short_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                        const T* __restrict__ v, T* __restrict__ out,
                                        int64_t rows, int heads, int64_t stride_m,
-                                       int64_t stride_t, float scale, Dropout drop) {
+                                       int64_t stride_t, float scale, tec::Dropout drop) {
   const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= rows * heads) return;  // whole warps exit together
@@ -132,7 +108,7 @@ __global__ void short_attention_bwd_kernel(const T* __restrict__ q, const T* __r
                                            const T* __restrict__ v, const T* __restrict__ g,
                                            T* __restrict__ dqkv, int64_t rows, int heads,
                                            int64_t stride_m, int64_t stride_t, float scale,
-                                           Dropout drop) {
+                                           tec::Dropout drop) {
   const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= rows * heads) return;
@@ -222,7 +198,7 @@ struct Args {
   int64_t stride_m;
   int64_t stride_t;
   float scale;
-  Dropout drop;
+  tec::Dropout drop;
 };
 
 template <typename T, int TLEN, int EPL>
@@ -272,7 +248,7 @@ int run(const void* q, const void* k, const void* v, const void* g, void* out, i
         void* stream) {
   Args a{q, k, v, g, out, rows, heads, stride_m, stride_t,
          1.f / std::sqrt(static_cast<float>(head_dim)),
-         Dropout{dropout_key(seed), threshold, dropout ? inv_keep : 1.f, dropout}};
+         tec::Dropout{tec::dropout_key(seed), threshold, dropout ? inv_keep : 1.f, dropout}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = is_bf16 ? launch<__nv_bfloat16>(a, t, head_dim, backward, s)
                                   : launch<float>(a, t, head_dim, backward, s);

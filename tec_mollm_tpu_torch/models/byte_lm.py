@@ -9,7 +9,9 @@ pretrained as a byte LM on local text, exported as an HF GPT-2 checkpoint
 The LM is wte (256 bytes, d) + ``GPT2Backbone`` + a tied readout in fp32
 (logits = h @ wte^T). The backbone has no LoRA (``lora_r = 0``) and the JAX
 backbone's default LayerNorms (fp32, ``lean_ln=False``). ``use_flash=True``
-sends its attention (T = seq_len + 1 = 129 by default) to the flash kernel.
+sends its attention (T = seq_len + 1 = 129 by default) to the flash kernel,
+which in training drops attention probabilities at ``llm_dropout`` where the
+JAX ``ByteLM``'s einsum attention drops them.
 
 The corpus and batch functions are the JAX module's numpy code, copied: the
 same corpus and seed give the same batches.

@@ -12,8 +12,10 @@ Paths, as in the JAX package:
   (the byte LM's);
 * attention over T <= ``UNROLL_MAX_SEQ`` tokens is the unrolled form, or the
   short-attention kernel with ``fused_attn=True``; longer sequences take the
-  flash-attention kernel with ``use_flash=True`` (no attention-probability
-  dropout there, as in JAX), else the einsum form;
+  flash-attention kernel with ``use_flash=True``, else the einsum form. Both
+  kernels drop attention probabilities in training, as JAX's einsum branch
+  does (JAX's own flash branch draws no mask, but its ``ByteLM`` pretrains
+  through the einsum branch, and the port's pretrains through the kernel);
 * ``use_fused_mlp=True`` sends ln_2 -> MLP -> residual of an eval call to the
   fused kernel, whose LayerNorm is two-pass (as ``ops/fused_mlp.py`` is).
 """
@@ -93,6 +95,10 @@ def _einsum_causal_attention(q, k, v, heads: int, dropout: float) -> torch.Tenso
     return torch.einsum("bhqk,bkhd->bqhd", probs, v4).reshape(b, t, d)
 
 
+def _call_seed(p: float) -> int:
+    return int(torch.randint(0, 2**31 - 1, ())) if p > 0.0 else 0
+
+
 class GPT2Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, fused_attn: bool = False, use_flash: bool = False):
         super().__init__()
@@ -108,14 +114,14 @@ class GPT2Attention(nn.Module):
         b, t, d = x.shape
         q, k, v = self.c_attn(x).split(d, dim=-1)
         p = self.dropout if self.training else 0.0
+        # a kernel's dropout seed: fresh per call from the default generator, as
+        # the JAX model draws one from its dropout rng; the train step seeds
+        # that generator
         if self.fused_attn and t <= UNROLL_MAX_SEQ:
-            # a fresh seed per call from the default generator, as the JAX model
-            # draws one from its dropout rng; the train step seeds that generator
-            seed = int(torch.randint(0, 2**31 - 1, ())) if p > 0.0 else 0
-            out = short_causal_attention(q, k, v, self.heads, dropout_rate=p, seed=seed)
+            out = short_causal_attention(q, k, v, self.heads, dropout_rate=p, seed=_call_seed(p))
         elif self.use_flash and t > 1 and t > UNROLL_MAX_SEQ:
             q4, k4, v4 = (a.reshape(b, t, self.heads, d // self.heads) for a in (q, k, v))
-            out = flash_attention(q4, k4, v4, causal=True).reshape(b, t, d)
+            out = flash_attention(q4, k4, v4, causal=True, dropout_rate=p, seed=_call_seed(p)).reshape(b, t, d)
         elif t <= UNROLL_MAX_SEQ:
             out = unrolled_causal_attention(q, k, v, self.heads, p)
         else:

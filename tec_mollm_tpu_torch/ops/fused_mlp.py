@@ -9,11 +9,16 @@ with two-pass fp32 LN statistics, the LN output cast to x's dtype, fp32
 accumulation, and the GELU output cast to x's dtype before the second product.
 x is (rows, d); w1 (d, dh) and w2 (dh, d) in the (in, out) layout.
 
-The kernel (``csrc/fused_mlp.cu``) is a hand-written bf16 tensor-core GEMM
-(mma.sync) in two launches: LN prologue + GEMM1 + bias + GELU into a (rows, dh)
-bf16 scratch, then GEMM2 + bias + residual. It takes bf16 only. Its bound on
-this card is operations: 4 * rows * d * dh FLOP over 989 TFLOP/s, about
-0.67 ms for the flagship eval batch (rows = 8*2944*3, d = 768, dh = 3072).
+The kernel (``csrc/fused_mlp.cu``) is three launches in one call: a one-pass
+LayerNorm into a bf16 (rows, d) scratch, then two persistent, warp-specialised
+Hopper GEMMs (TMA loads into a ring of shared-memory stages with mbarriers,
+``wgmma`` on two consumer warpgroups): GEMM1 + bias + tanh-GELU into a
+(rows, dh) bf16 scratch, GEMM2 + bias + residual into the output. It takes
+bf16 x; the weights are used as they are when they are already bf16 (w1, w2)
+and fp32 (LN and bias vectors) on x's device, and converted otherwise. Its
+bound on this card is operations: 4 * rows * d * dh FLOP over 989 TFLOP/s,
+about 0.67 ms for the flagship eval batch (rows = 8*2944*3, d = 768,
+dh = 3072).
 
 ``fused_ln_mlp`` is a ``torch.autograd.Function``. Its backward recomputes the
 plain version under autograd, as the JAX ``_fused_bwd`` differentiates
@@ -56,6 +61,16 @@ def fused_ln_mlp_reference(
     return (xf + h).to(dt)
 
 
+def _operand(t: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
+    """``t`` itself when it already has the kernel's type and device, is
+    contiguous and starts at a 16-byte aligned address (TMA's rule); else a
+    copy that has all of these."""
+    t = t.to(device=device, dtype=dtype)
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def fused_ln_mlp_forward(
     x: torch.Tensor,
     ln_w: torch.Tensor,
@@ -80,24 +95,20 @@ def fused_ln_mlp_forward(
     if d % 128 or dh % 128 or d > 1536 or rows == 0:
         raise ValueError(f"kernel takes d, dh multiples of 128 and d <= 1536, got {d}, {dh}")
 
-    def f32(t: torch.Tensor) -> torch.Tensor:
-        return t.to(device=x.device, dtype=torch.float32).contiguous()
-
-    def b16(t: torch.Tensor) -> torch.Tensor:
-        return t.to(device=x.device, dtype=torch.bfloat16).contiguous()
-
-    ln_w, ln_b, b1, b2 = f32(ln_w), f32(ln_b), f32(b1), f32(b2)
-    w1, w2 = b16(w1), b16(w2)
+    ln_w, ln_b, b1, b2 = (_operand(t, torch.float32, x.device) for t in (ln_w, ln_b, b1, b2))
+    w1, w2 = (_operand(t, torch.bfloat16, x.device) for t in (w1, w2))
+    x = _operand(x, torch.bfloat16, x.device)
+    x_norm = torch.empty((rows, d), dtype=torch.bfloat16, device=x.device)
     hidden = torch.empty((rows, dh), dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x)
     fn = _build.function(
         "fused_ln_mlp_forward",
-        [ctypes.c_void_p] * 9 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                 ctypes.c_void_p],
+        [ctypes.c_void_p] * 10 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                  ctypes.c_void_p],
     )
     err = fn(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), hidden.data_ptr(), out.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), x_norm.data_ptr(), hidden.data_ptr(), out.data_ptr(),
         rows, d, dh, float(eps), _build.stream_handle(x.device),
     )
     _build.check(NAME, err)

@@ -12,7 +12,8 @@ Dropout keeps a weight iff ``bits >= p * 2^32`` (the JAX rule). The bits are a
 counter-based hash of (seed, absolute index ``((m*H + h)*T + tq)*T + s``), not a
 block-local draw order as the Pallas kernel's PRNG is, so the CUDA forward, the
 CUDA backward and the plain versions here draw the same mask bit for bit. The
-plain versions compute the hash in int64 tensor arithmetic masked to 32 bits.
+plain versions compute the hash in wrapping int32 tensor arithmetic
+(``dropout_keep``; ``dropout_bits`` keeps the int64 form as the reference).
 
 The kernels (``csrc/short_attention.cu``) give one warp to each (row, head):
 Dh = 64 is two elements a lane, the dot products are warp-shuffle sums, T is a
@@ -72,8 +73,34 @@ def dropout_bits(seed: int, m: int, heads: int, t: int, device=None) -> torch.Te
     return bits.reshape(m, heads, t, t)
 
 
-def _keep(seed: int, rate: float, m: int, heads: int, t: int, device) -> torch.Tensor:
-    return dropout_bits(seed, m, heads, t, device) >= dropout_threshold(rate)
+def _as_int32(u: int) -> int:
+    """The int32 whose bits are the uint32 ``u``."""
+    return u - 2**32 if u >= 2**31 else u
+
+
+def _mix32_int32(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's finalizer on int32 tensors holding uint32 bits: products
+    wrap modulo 2^32 and each shift is made logical by a mask."""
+    x = x ^ ((x >> 16) & 0xFFFF)
+    x = x * _as_int32(0x7FEB352D)
+    x = x ^ ((x >> 15) & 0x1FFFF)
+    x = x * _as_int32(0x846CA68B)
+    return x ^ ((x >> 16) & 0xFFFF)
+
+
+def dropout_keep(seed: int, rate: float, m: int, heads: int, t: int, device=None) -> torch.Tensor:
+    """(M, H, T, T) bool: ``dropout_bits(...) >= dropout_threshold(rate)``,
+    computed in int32 (half the bytes and a third of the operations of the
+    int64 form) while the indices fit in 31 bits, where every index's high word
+    is 0."""
+    n = m * heads * t * t
+    threshold = dropout_threshold(rate)
+    if n >= 2**31:
+        return dropout_bits(seed, m, heads, t, device) >= threshold
+    key = _mix32((int(seed) & _M32) ^ 0x9E3779B9)
+    bits = _mix32_int32(_mix32_int32(torch.arange(n, dtype=torch.int32, device=device) ^ _as_int32(key)))
+    # unsigned order: flip the sign bit on both sides
+    return ((bits ^ -(2**31)) >= threshold - 2**31).reshape(m, heads, t, t)
 
 
 def _split_heads(a: torch.Tensor, heads: int) -> torch.Tensor:
@@ -103,7 +130,7 @@ def short_causal_attention_reference(
     qf, kf, vf = (_split_heads(a, heads) for a in (q, k, v))
     probs = _softmax(qf, kf)
     if dropout_rate > 0.0:
-        keep = _keep(seed, dropout_rate, m, heads, t, q.device)
+        keep = dropout_keep(seed, dropout_rate, m, heads, t, q.device)
         probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_rate)), 0.0)
     out = torch.einsum("mhqs,mshd->mqhd", probs, vf)
     return out.reshape(m, t, d).to(q.dtype)
@@ -126,7 +153,7 @@ def short_causal_attention_backward_reference(
     dused = torch.einsum("mqhd,mshd->mhqs", gf, vf)
     if dropout_rate > 0.0:
         inv_keep = 1.0 / (1.0 - dropout_rate)
-        keep = _keep(seed, dropout_rate, m, heads, t, q.device)
+        keep = dropout_keep(seed, dropout_rate, m, heads, t, q.device)
         used = torch.where(keep, alpha * inv_keep, 0.0)
         dalpha = torch.where(keep, dused * inv_keep, 0.0)
     else:
@@ -154,7 +181,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> Non
         raise ValueError("the feature axis must have unit stride")
 
 
-def _dropout_args(rate: float, seed: int) -> list:
+def dropout_args(rate: float, seed: int) -> list:
     on = rate > 0.0
     return [
         int(on), ctypes.c_uint32(int(seed) & _M32), ctypes.c_uint32(dropout_threshold(rate) if on else 0),
@@ -177,7 +204,7 @@ def short_attention_forward(q, k, v, heads: int, dropout_rate: float = 0.0, seed
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         m, t, heads, d // heads, q.stride(0), q.stride(1), int(q.dtype == torch.bfloat16),
-        *_dropout_args(dropout_rate, seed), _build.stream_handle(q.device),
+        *dropout_args(dropout_rate, seed), _build.stream_handle(q.device),
     )
     _build.check(NAME, err)
     _build.count_launch(NAME)
@@ -198,7 +225,7 @@ def short_attention_backward(q, k, v, g, heads: int, dropout_rate: float = 0.0, 
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
         m, t, heads, d // heads, q.stride(0), q.stride(1), int(q.dtype == torch.bfloat16),
-        *_dropout_args(dropout_rate, seed), _build.stream_handle(q.device),
+        *dropout_args(dropout_rate, seed), _build.stream_handle(q.device),
     )
     _build.check(BWD_NAME, err)
     _build.count_launch(BWD_NAME)

@@ -6,7 +6,8 @@
 The counterpart of the JAX package's ``scripts/pretrain_backbone.py``, with its
 flags. It trains ``ByteLM`` (the forecast model's GPT-2 backbone without LoRA,
 bf16 compute on fp32 parameters) with its attention on the flash kernel
-(T = seq_len + 1), then writes ``<out>/pytorch_model.bin`` and ``config.json``
+(T = seq_len + 1; in training the kernel drops attention probabilities at
+``llm_dropout``, as the einsum attention of the JAX ``ByteLM`` does), then writes ``<out>/pytorch_model.bin`` and ``config.json``
 (an HF GPT-2 checkpoint) and ``pretrain_meta.json``. The checkpoint loads into
 the forecast model through ``models/hf_import.load_gpt2_into_model``.
 

@@ -18,7 +18,7 @@ from tec_mollm_tpu.ops.fused_mlp import fused_ln_mlp_interpret
 from tec_mollm_tpu.ops.gat_stencil import gat_stencil_attention as jax_gat_stencil
 from tec_mollm_tpu.ops.short_attention import fused_short_causal_attention
 from tec_mollm_tpu_torch import ops
-from tec_mollm_tpu_torch.ops.short_attention import dropout_bits, dropout_threshold
+from tec_mollm_tpu_torch.ops.short_attention import dropout_bits, dropout_keep, dropout_threshold
 
 
 @pytest.fixture(scope="module")
@@ -303,6 +303,15 @@ class TestShortAttentionDropout:
         idx = np.arange(m * h * t * t, dtype=np.uint32)
         want = mix(mix(idx ^ key))  # the high word of every index is 0
         np.testing.assert_array_equal(dropout_bits(seed, m, h, t).numpy().ravel(), want.astype(np.int64))
+
+    @pytest.mark.parametrize("seed", [0, 7, 2**31 - 5, 2**32 - 1])
+    @pytest.mark.parametrize("rate", [1e-4, 0.1, 0.5, 0.9999])
+    def test_int32_keep_mask_equals_the_int64_hash(self, seed, rate):
+        """The plain versions' keep mask (the hash in wrapping int32 arithmetic,
+        compared in unsigned order) is the int64 hash's, bit for bit."""
+        m, h, t = 5, 3, 37
+        want = dropout_bits(seed, m, h, t) >= dropout_threshold(rate)
+        torch.testing.assert_close(dropout_keep(seed, rate, m, h, t), want, rtol=0, atol=0)
 
 
 class TestFusedMLP:
