@@ -10,7 +10,10 @@ Phases (any failure exits non-zero):
      shapes the flagship batch of 8 gives it, with its error, its time (CUDA
      events around back-to-back calls, see time_ms), the plain version's time,
      a library call's time where one computes the same function, and its bound
-     on this card. The short attention runs with dropout p = 0.1 (the training
+     on this card. The stencil GAT runs at GAT_CASES in fp32 and bf16 (the
+     flagship eval batch, the eval step's, the 300 km stencil, the unpadded node
+     axis, 70,000 slices), its padded lanes must be exactly 0, and its bare C
+     entry is timed beside the wrapper. The short attention runs with dropout p = 0.1 (the training
      call) and 0; its keep mask is read back through the kernel's output and
      must equal the plain hash bit for bit, keep 0.9 +- 0.001 of the draws and
      change with the seed. Its backward is checked in fp32 and bf16 at p = 0
@@ -113,6 +116,20 @@ FLASH_CASES = {
     "d32": (64, 129, True, 32, ("bf16",)),
     "d128": (64, 129, True, 128, ("bf16",)),
 }
+# stencil GAT checks: (slices M, stencil radius km, nodes N) by label; "path"
+# is the flagship eval batch (8 windows x 48 steps, N padded to 2944), "eval"
+# the eval step's batch of 16 windows, "r300" the 300 km (long_horizon)
+# stencil (33 offsets, largest |shift| 144), "n2911" the unpadded node axis
+# (rows not 16-byte aligned), "m70000" more slices than a grid's y axis held
+# (65535) on the GAT_SMALL_GRID stencil padded to 64 nodes
+GAT_CASES = {
+    "path": (BATCH * 48, 150.0, 2944),
+    "eval": (2 * BATCH * 48, 150.0, 2944),
+    "r300": (2 * BATCH * 48, 300.0, 2944),
+    "n2911": (BATCH * 48, 150.0, 2911),
+    "m70000": (70_000, 150.0, 64),
+}
+GAT_SMALL_GRID = (6, 8)
 # fused MLP checks: rows by label; "path" is the serve batch (8 windows x 2944
 # padded nodes x 3 patches), "window" one window's rows, "ragged" a row count
 # that no tile divides
@@ -233,8 +250,7 @@ def check_kernels(args, graph, results: dict) -> list[dict]:
     cfg = Config().resolved().model
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    n_real = cfg.num_nodes
-    n = -(-n_real // 128) * 128  # the model pads the node axis to 2944
+    n = -(-cfg.num_nodes // 128) * 128  # the model pads the node axis to 2944
     rows = BATCH * n
     rows_llm = rows * cfg.num_patches
     d, heads = cfg.d_llm, cfg.llm_heads
@@ -244,40 +260,7 @@ def check_kernels(args, graph, results: dict) -> list[dict]:
         return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
 
     # --- 1. stencil GAT at (B*L, H*C, N) ---
-    shifts = tuple(int(s) for s in graph.stencil_shifts)
-    valid = torch.zeros(len(shifts), n, dtype=torch.bool, device=dev)
-    valid[:, :n_real] = torch.as_tensor(graph.stencil_valid, device=dev)
-    m, hc = BATCH * cfg.temporal_seq_len, cfg.spatial_channels
-    att = rand(cfg.spatial_heads, cfg.spatial_out_channels, dtype=torch.float32, std=0.3)
-    per_dtype = {}
-    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        xl, xr = rand(m, hc, n, dtype=dt), rand(m, hc, n, dtype=dt)
-        got = ops.gat_stencil_attention(xl, xr, valid, att, shifts)
-        want = ops.gat_stencil_reference(xl, xr, valid, att, shifts)
-        torch.cuda.synchronize()
-        per_dtype[name] = compare(got, want, name) + (xl, xr)
-    xl, xr = per_dtype["bf16"][3:]
-    valid_pairs = int(valid.sum())
-    gat = {
-        "name": "gat_stencil", "source": "tec_mollm_tpu_torch/csrc/gat_stencil.cu",
-        "replaces": "tec_mollm_tpu/ops/gat_stencil.py:104",
-        "shape": f"xl,xr ({m},{hc},{n}) bf16; valid ({len(shifts)},{n})",
-        "ms": time_ms(lambda: ops.gat_stencil_attention(xl, xr, valid, att, shifts), REPS),
-        "plain_ms": time_ms(lambda: ops.gat_stencil_reference(xl, xr, valid, att, shifts), REPS),
-        "library_ms": None,
-        "bytes": 3 * m * hc * n * 2 + valid.numel() + att.numel() * 4,
-        # per valid (node, offset) pair and slice: add, leaky-relu, multiply-add
-        # per channel for the score, exp, and a multiply-add per channel for the sum
-        "flops": m * valid_pairs * (hc * 5 + 2 * hc + 4),
-        "flop_rate": PEAK_FLOPS["fp32"],
-    }
-    for name in ("fp32", "bf16"):
-        gat[f"max_abs_err_{name}"], gat[f"max_rel_err_{name}"], ok = per_dtype[name][:3]
-        gat[f"tol_{name}"] = TOL[name]
-        if not ok:
-            failures.append(f"gat_stencil {name}")
-    gat["max_abs_err"] = gat["max_abs_err_bf16"]
-    entries.append(gat)
+    entries.append(check_gat(cfg, graph, rand, failures))
 
     # --- 2. short causal attention at (B*N, T, D), q/k/v views of the c_attn output ---
     t = cfg.num_patches
@@ -369,6 +352,122 @@ def check_kernels(args, graph, results: dict) -> list[dict]:
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return entries
+
+
+def gat_bare_entry(xl, xr, valid, att, shifts):
+    """A call of the GAT kernel's C entry with its arguments marshalled once,
+    into a fresh output: the wrapper's launch without its checks and Python
+    (the timing cap). Not counted."""
+    import torch
+
+    from tec_mollm_tpu_torch.ops import _build
+    from tec_mollm_tpu_torch.ops import gat_stencil as g
+
+    att32 = att.float().contiguous()
+    out = torch.empty_like(xl)
+    fn = _build.function("gat_stencil_forward", g.ARGTYPES)
+    args = g.entry_args(xl, xr, valid, att32, g.check_stencil(shifts), out, 0.2)
+
+    def call():
+        _build.check(g.NAME, fn(*args))
+        return out
+
+    return call
+
+
+def gat_ptxas(log_text: str) -> list[dict]:
+    """Registers, spills and shared memory of each GAT kernel instance, from
+    nvcc's -Xptxas -v log of csrc/gat_stencil.cu."""
+    section = log_text.split("== gat_stencil.cu", 1)[-1].split("\n== ", 1)[0]
+    out, cur = [], None
+    for line in section.splitlines():
+        if "Compiling entry function" in line:
+            cur = {"entry": line.split("'")[1]}
+            out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            cur["stack_bytes"] = int(line.split("bytes stack frame")[0].split()[-1])
+            cur["spill_store_bytes"] = int(line.split("bytes spill stores")[0].split(",")[-1])
+            cur["spill_load_bytes"] = int(line.split("bytes spill loads")[0].split(",")[-1])
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(line.split("Used")[1].split()[0])
+            if "bytes smem" in line:
+                cur["static_smem_bytes"] = int(line.split("bytes smem")[0].split(",")[-1])
+    return out
+
+
+def check_gat(cfg, graph, rand, failures: list) -> dict:
+    """The stencil GAT against its plain version at GAT_CASES in fp32 and
+    bf16, padded lanes exactly 0; the entry's times are the flagship eval
+    shape's in bf16 (the serve path), through the wrapper and through the bare
+    C entry, with the other cases' times and bounds under their labels."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+    from tec_mollm_tpu_torch.graph import build_graph, grid_coordinates
+    from tec_mollm_tpu_torch.graph.builder import build_grid_stencil
+
+    dev = torch.device("cuda")
+    att = rand(cfg.spatial_heads, cfg.spatial_out_channels, dtype=torch.float32, std=0.3)
+    hc = cfg.spatial_channels
+
+    def stencil(km: float, n: int, small: bool = False):
+        if small:
+            g_small = build_graph(*grid_coordinates(*GAT_SMALL_GRID))
+            shifts, v = g_small.stencil_shifts, g_small.stencil_valid
+        elif km == 150.0:
+            shifts, v = graph.stencil_shifts, graph.stencil_valid
+        else:
+            shifts, v = build_grid_stencil(*grid_coordinates(41, 71), km)
+        valid = torch.zeros(len(shifts), n, dtype=torch.bool, device=dev)
+        valid[:, :v.shape[1]] = torch.as_tensor(v, device=dev)
+        return tuple(int(s) for s in shifts), valid
+
+    entry = {
+        "name": "gat_stencil", "source": "tec_mollm_tpu_torch/csrc/gat_stencil.cu",
+        "replaces": "tec_mollm_tpu/ops/gat_stencil.py:104", "library_ms": None,
+    }
+    for label, (m, km, n) in GAT_CASES.items():
+        shifts, valid = stencil(km, n, small=label == "m70000")
+        real = int(valid.any(dim=0).nonzero().max()) + 1  # lanes past the grid's nodes are padding
+        reach = max(map(abs, shifts))
+        case = {"shape": f"xl,xr ({m},{hc},{n}); valid ({len(shifts)},{n}); {km:g} km; largest |shift| {reach}"}
+        for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            xl, xr = rand(m, hc, n, dtype=dt), rand(m, hc, n, dtype=dt)
+            got = ops.gat_stencil_attention(xl, xr, valid, att, shifts)
+            want = ops.gat_stencil_reference(xl, xr, valid, att, shifts)
+            torch.cuda.synchronize()
+            tag = name if label == "path" else f"{label}_{name}"
+            entry[f"max_abs_err_{tag}"], entry[f"max_rel_err_{tag}"], ok = compare(got, want, name)
+            entry[f"tol_{tag}"] = TOL[name]
+            if not ok:
+                failures.append(f"gat_stencil {label} {name}")
+            if real < n and not bool((got[..., real:] == 0).all()):
+                failures.append(f"gat_stencil {label} {name}: padded lanes not exactly 0")
+            case[f"padded_lanes_{name}"] = n - real
+            del got, want
+        valid_pairs = int(valid.sum())
+        case.update({
+            "ms": time_ms(lambda: ops.gat_stencil_attention(xl, xr, valid, att, shifts), REPS),
+            "bare_ms": time_ms(gat_bare_entry(xl, xr, valid, att, shifts), REPS),
+            "bytes": 3 * m * hc * n * 2 + valid.numel() + att.numel() * 4,
+            # per valid (node, offset) pair and slice: add, leaky-relu, multiply-add
+            # per channel for the score, exp, and a multiply-add per channel for the sum
+            "flops": m * valid_pairs * (hc * 5 + 2 * hc + 4),
+        })
+        case["bound_ms"], case["bound_by"] = bound(case["bytes"], case["flops"], PEAK_FLOPS["fp32"])
+        if label == "path":
+            case["plain_ms"] = time_ms(lambda: ops.gat_stencil_reference(xl, xr, valid, att, shifts), REPS)
+            entry.update(case, flop_rate=PEAK_FLOPS["fp32"])
+            log(f"kernel gat_stencil[path]: bare entry {case['bare_ms']:.4f} ms (wrapper {case['ms']:.4f})")
+        else:
+            entry[label] = case
+            log(
+                f"kernel gat_stencil[{label}]: {case['shape']}: kernel {case['ms']:.4f} ms (bare "
+                f"{case['bare_ms']:.4f}), bound {case['bound_ms']:.4f} ms ({case['bound_by']})"
+            )
+        del xl, xr
+    entry["max_abs_err"] = entry["max_abs_err_bf16"]
+    return entry
 
 
 def check_mlp(cfg, rand, failures: list) -> dict:
@@ -1146,6 +1245,10 @@ def main() -> int:
     ptxas = (lib.parent / "ptxas.log").read_text() if (lib.parent / "ptxas.log").exists() else ""
     for line in ptxas_summary(ptxas):
         log(f"  {line}")
+    results["gat_ptxas"] = gat_ptxas(ptxas)
+    for k in results["gat_ptxas"]:
+        log(f"  gat_stencil {k['entry']}: {k.get('registers')} registers, {k.get('spill_store_bytes')} bytes "
+            f"spilled, {k.get('static_smem_bytes')} bytes static smem")
     results["build_s"] = build_s
     results["ptxas"] = ptxas
 

@@ -9,19 +9,31 @@ Replaces the Pallas kernel ``tec_mollm_tpu/ops/gat_stencil.py:gat_stencil_attent
 
 Shapes: xl, xr, out (M, H*C, N); valid (O, N) bool; att (H, C).
 
-The kernel (``csrc/gat_stencil.cu``) runs one thread per (m, n) with every
-channel in registers, so xl and xr are read once and the output written once.
-On this card it is bound by bytes: 3 * M*H*C*N elements over 3.35 TB/s, about
-45 us for the flagship eval batch (M = 8*48, N = 2944, bf16).
+The kernel (``csrc/gat_stencil.cu``) is bound by bytes on this card: xl and xr
+read once and the output written once, 3 * M*H*C*N elements, 0.0446 ms at
+3.35 TB/s for the flagship eval batch (M = 8*48, N = 2944, bf16). What holds it
+above that is its instruction stream, not its bytes (``PERF.md``). A block owns
+a tile of 256 nodes and walks consecutive slices; each slice's xl window (the
+tile plus a halo of 72 or 144 nodes on each side, whichever holds every shift)
+and xr tile come into shared memory by 16-byte ``cp.async`` while the slice
+before is computed, so each value comes from device memory about once. The
+window is converted once to node-major fp32 records, a neighbour's 11 channels
+beside the head's projection att . xl (with leaky_relu(e) = k1 e + k2 |e| that
+leaves a channel one add and one multiply-add of the score); the softmax is
+online over the offsets, and each record is read once, in three 16-byte loads.
 
 Unlike the Pallas body, the denominator is floored at the smallest normal
 float32, as the model's plain path does: a node with no valid offset (the lanes
-added by ``pad_nodes_to``) gives 0, not NaN.
+added by ``pad_nodes_to``) gives 0, not NaN. And the kernel counts a neighbour
+outside [0, N) as invalid, where the Pallas roll and the plain version wrap
+around the node axis; the two agree on every mask the graph builder makes,
+since it marks no such neighbour valid.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -30,6 +42,34 @@ from tec_mollm_tpu_torch.ops import _build
 NAME = "gat_stencil"
 _NEG = torch.finfo(torch.float32).min
 _TINY = torch.finfo(torch.float32).tiny
+
+# What csrc/gat_stencil.cu takes: up to MAX_OFFSETS offsets (a node's validity
+# bits are one uint64 there), each shift at most MAX_SHIFT nodes (its largest
+# halo: the 300 km stencil's), and 2 heads x 11 channels.
+MAX_OFFSETS = 64
+MAX_SHIFT = 144
+_HEADS, _CHANNELS = 2, 11
+
+
+def check_stencil(shifts) -> tuple[int, ...]:
+    """The shifts as a tuple of ints; raises for a stencil the kernel does not
+    take: no offset, more than MAX_OFFSETS, or a shift beyond MAX_SHIFT nodes."""
+    shifts = tuple(int(s) for s in shifts)
+    if not 1 <= len(shifts) <= MAX_OFFSETS:
+        raise ValueError(f"the stencil kernel takes 1 to {MAX_OFFSETS} offsets, got {len(shifts)}")
+    if max(map(abs, shifts)) > MAX_SHIFT:
+        raise ValueError(f"the stencil kernel takes shifts up to {MAX_SHIFT} nodes, got {max(map(abs, shifts))}")
+    return shifts
+
+
+# gat_stencil_forward's C signature: xl, xr, valid, shifts, att, out; m, heads,
+# channels, n, n_offsets; negative slope; is_bf16; stream
+ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=16)
+def _shift_array(shifts: tuple[int, ...]) -> ctypes.Array:
+    return (ctypes.c_int * len(shifts))(*shifts)
 
 
 def gat_stencil_reference(
@@ -66,6 +106,18 @@ def gat_stencil_reference(
     return out.reshape(m, hc, n).to(xl.dtype)
 
 
+def entry_args(xl, xr, valid, att32, shifts: tuple[int, ...], out, negative_slope: float) -> tuple:
+    """gat_stencil_forward's arguments for checked tensors on one device (att32
+    fp32 and contiguous there, out the result's buffer), in ARGTYPES' order."""
+    m, _, n = xl.shape
+    return (
+        xl.data_ptr(), xr.data_ptr(), valid.data_ptr(),
+        ctypes.cast(_shift_array(shifts), ctypes.c_void_p), att32.data_ptr(), out.data_ptr(),
+        m, _HEADS, _CHANNELS, n, len(shifts), float(negative_slope),
+        int(xl.dtype == torch.bfloat16), _build.stream_handle(xl.device),
+    )
+
+
 def gat_stencil_attention(
     xl: torch.Tensor,
     xr: torch.Tensor,
@@ -86,7 +138,7 @@ def gat_stencil_attention(
         return gat_stencil_reference(xl, xr, valid, att, shifts, negative_slope)
     m, hc, n = xl.shape
     h, c = att.shape
-    if (h, c) != (2, 11) or h * c != hc:
+    if (h, c) != (_HEADS, _CHANNELS) or h * c != hc:
         raise ValueError(f"the stencil kernel is built for 2 heads x 11 channels, got {h}x{c}")
     if xl.dtype not in (torch.bfloat16, torch.float32) or xr.dtype != xl.dtype:
         raise TypeError(f"xl/xr must share bf16 or fp32, got {xl.dtype}/{xr.dtype}")
@@ -100,19 +152,10 @@ def gat_stencil_attention(
     for name, t in (("xl", xl), ("xr", xr), ("valid", valid)):
         if t.device != xl.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {xl.device}")
+    shifts = check_stencil(shifts)
     att32 = att.detach().to(device=xl.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(xl)
-    fn = _build.function(
-        "gat_stencil_forward",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    )
-    shift_arr = (ctypes.c_int * len(shifts))(*(int(s) for s in shifts))
-    err = fn(
-        xl.data_ptr(), xr.data_ptr(), valid.data_ptr(),
-        ctypes.cast(shift_arr, ctypes.c_void_p), att32.data_ptr(), out.data_ptr(),
-        m, h, c, n, len(shifts), float(negative_slope),
-        int(xl.dtype == torch.bfloat16), _build.stream_handle(xl.device),
-    )
-    _build.check(NAME, err)
+    fn = _build.function("gat_stencil_forward", ARGTYPES)
+    _build.check(NAME, fn(*entry_args(xl, xr, valid, att32, shifts, out, negative_slope)))
     _build.count_launch(NAME)
     return out

@@ -14,10 +14,14 @@ import torch
 
 from tec_mollm_tpu.data.synthetic import grid_coordinates
 from tec_mollm_tpu.graph import build_graph
+from tec_mollm_tpu.graph.builder import build_grid_stencil as jax_build_grid_stencil
 from tec_mollm_tpu.ops.fused_mlp import fused_ln_mlp_interpret
 from tec_mollm_tpu.ops.gat_stencil import gat_stencil_attention as jax_gat_stencil
 from tec_mollm_tpu.ops.short_attention import fused_short_causal_attention
 from tec_mollm_tpu_torch import ops
+from tec_mollm_tpu_torch.graph import grid_coordinates as port_grid_coordinates
+from tec_mollm_tpu_torch.graph.builder import build_grid_stencil
+from tec_mollm_tpu_torch.ops.gat_stencil import MAX_OFFSETS, MAX_SHIFT, check_stencil
 from tec_mollm_tpu_torch.ops.short_attention import dropout_bits, dropout_keep, dropout_threshold
 
 
@@ -118,6 +122,124 @@ class TestGATStencil:
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="nvcc|CUDA"):
                 ops.gat_stencil_attention(xl, xl, v, torch.empty(2, 11), shifts)
+
+
+# the flagship 41x71 grid's two stencils: 150 km (the default, O = 11, largest
+# |shift| 72) and 300 km (long_horizon, O = 33, largest |shift| 144)
+FLAGSHIP_RADII_KM = (150.0, 300.0)
+
+
+@pytest.fixture(scope="module")
+def flagship_stencils():
+    out = {}
+    for km in FLAGSHIP_RADII_KM:
+        shifts, valid = build_grid_stencil(*port_grid_coordinates(41, 71), km)
+        out[km] = (tuple(int(s) for s in shifts), valid)
+    return out
+
+
+class TestGATStencilFlagship:
+    """The plain version against the Pallas kernel on the stencils the model
+    runs, and the preconditions of the CUDA kernel's halo and zero fill."""
+
+    @pytest.mark.parametrize("km", FLAGSHIP_RADII_KM)
+    def test_plain_matches_pallas_fp32(self, flagship_stencils, km):
+        shifts, valid = flagship_stencils[km]
+        xl, xr, att = _gat_inputs(10, 2, valid.shape[1])
+        want = np.asarray(jax_gat_stencil(
+            jnp.asarray(xl), jnp.asarray(xr), jnp.asarray(valid), jnp.asarray(att), shifts, interpret=True,
+        ))
+        got = ops.gat_stencil_reference(
+            torch.from_numpy(xl), torch.from_numpy(xr), torch.from_numpy(valid), torch.from_numpy(att), shifts,
+        ).numpy()
+        np.testing.assert_allclose(got, want, atol=2e-6, rtol=1e-5)
+
+    @pytest.mark.parametrize("km", FLAGSHIP_RADII_KM)
+    def test_plain_matches_pallas_bf16(self, flagship_stencils, km):
+        """bf16 in and out, fp32 inside: equal up to one bf16 rounding."""
+        shifts, valid = flagship_stencils[km]
+        xl, xr, att = _gat_inputs(11, 2, valid.shape[1])
+        want = jax_gat_stencil(
+            jnp.asarray(xl, jnp.bfloat16), jnp.asarray(xr, jnp.bfloat16), jnp.asarray(valid),
+            jnp.asarray(att), shifts, interpret=True,
+        )
+        got = ops.gat_stencil_reference(
+            torch.from_numpy(xl).bfloat16(), torch.from_numpy(xr).bfloat16(), torch.from_numpy(valid),
+            torch.from_numpy(att), shifts,
+        )
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=1e-2, rtol=1e-2)
+
+    @pytest.mark.parametrize("km", FLAGSHIP_RADII_KM)
+    @pytest.mark.parametrize("builder", ["port", "jax"])
+    def test_mask_marks_no_out_of_range_neighbour(self, km, builder):
+        """The kernel zero-fills (and counts as invalid) a neighbour outside
+        [0, N) where the Pallas roll wraps around: the two agree because the
+        builder never marks such a neighbour valid."""
+        if builder == "port":
+            shifts, valid = build_grid_stencil(*port_grid_coordinates(41, 71), km)
+        else:
+            shifts, valid = jax_build_grid_stencil(*grid_coordinates(41, 71), km)
+        n = valid.shape[1]
+        assert n == 41 * 71 and len(shifts) == {150.0: 11, 300.0: 33}[km]
+        assert max(abs(int(s)) for s in shifts) == {150.0: 72, 300.0: 144}[km]
+        neighbour = np.arange(n)[None, :] + np.asarray(shifts)[:, None]
+        assert not (valid & ((neighbour < 0) | (neighbour >= n))).any()
+        assert valid[list(shifts).index(0)].all()
+
+
+def _kernel_takes(shifts) -> bool:
+    """What the kernel takes, in numpy: 1 to 64 offsets (a node's validity bits
+    are one uint64) and no |shift| beyond its largest halo, 144 nodes."""
+    return 1 <= len(shifts) <= 64 and bool(np.abs(np.asarray(shifts, np.int64)).max() <= 144)
+
+
+class TestCheckStencil:
+    @pytest.mark.parametrize("seed", range(8))
+    def test_matches_numpy(self, seed):
+        """Random stencils around both limits: check_stencil takes exactly the
+        ones the numpy rule takes, and returns their shifts as ints."""
+        rng = np.random.default_rng(seed)
+        for _ in range(50):
+            o = int(rng.integers(0, MAX_OFFSETS + 8))
+            reach = MAX_SHIFT + int(rng.integers(0, 2)) * 8  # half the draws stay in range
+            shifts = rng.integers(-reach, reach + 1, size=o)
+            if _kernel_takes(shifts):
+                got = check_stencil(shifts)
+                assert got == tuple(int(s) for s in shifts) and all(type(s) is int for s in got)
+            else:
+                with pytest.raises(ValueError, match="stencil kernel takes"):
+                    check_stencil(shifts)
+
+    @pytest.mark.parametrize("km", FLAGSHIP_RADII_KM)
+    def test_takes_the_flagship_stencils(self, flagship_stencils, km):
+        shifts, _ = flagship_stencils[km]
+        assert check_stencil(np.asarray(shifts)) == shifts
+        assert max(map(abs, shifts)) == {150.0: 72, 300.0: 144}[km] <= MAX_SHIFT
+
+    @pytest.mark.parametrize("shifts, match", [
+        (tuple(range(MAX_OFFSETS + 1)), "1 to 64 offsets"),
+        ((), "1 to 64 offsets"),
+        ((0, MAX_SHIFT + 1), "shifts up to 144"),
+        ((-MAX_SHIFT - 1, 0), "shifts up to 144"),
+    ])
+    def test_refuses_what_the_kernel_does_not_take(self, shifts, match):
+        with pytest.raises(ValueError, match=match):
+            check_stencil(shifts)
+        assert check_stencil(tuple(range(MAX_OFFSETS))) == tuple(range(MAX_OFFSETS))
+        assert check_stencil((-MAX_SHIFT, 0, MAX_SHIFT)) == (-MAX_SHIFT, 0, MAX_SHIFT)
+
+    @pytest.mark.parametrize("shifts, match", [
+        (tuple(range(MAX_OFFSETS + 1)), "1 to 64 offsets"),
+        ((0, 1, MAX_SHIFT + 1), "shifts up to 144"),
+    ])
+    def test_wrapper_refuses_before_any_build(self, shifts, match):
+        """A device tensor with a stencil the kernel does not take raises in
+        the wrapper, before nvcc."""
+        n = 128
+        xl = torch.empty(2, 22, n, device="meta")
+        v = torch.empty(len(shifts), n, dtype=torch.bool, device="meta")
+        with pytest.raises(ValueError, match=match):
+            ops.gat_stencil_attention(xl, xl, v, torch.empty(2, 11), shifts)
 
 
 def _qkv(seed, m, t, d, dtype=np.float32):
