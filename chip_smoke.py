@@ -10,10 +10,13 @@ Phases (any failure exits non-zero):
      shapes the flagship batch of 8 gives it, with its error, its time (CUDA
      events around back-to-back calls, see time_ms), the plain version's time,
      a library call's time where one computes the same function, and its bound
-     on this card. The stencil GAT runs at GAT_CASES in fp32 and bf16 (the
-     flagship eval batch, the eval step's, the 300 km stencil, the unpadded node
-     axis, 70,000 slices), its padded lanes must be exactly 0, and its bare C
-     entry is timed beside the wrapper. The short attention runs with dropout p = 0.1 (the training
+     on this card. The stencil GAT's tiled kernel runs at GAT_CASES in fp32 and
+     bf16 (the flagship eval batch, the eval step's, the trainer's validation
+     batch, the 300 km stencil, the unpadded node axis, 70,000 slices) and its
+     general form at GAT_GENERAL_CASES (1 head x 22 channels, the 450 km
+     stencil's 81 offsets, 4 x 16 on the unpadded axis); padded lanes must be
+     exactly 0, each call must launch its form, and the bare C entry is timed
+     beside the wrapper. The short attention runs with dropout p = 0.1 (the training
      call) and 0; its keep mask is read back through the kernel's output and
      must equal the plain hash bit for bit, keep 0.9 +- 0.001 of the draws and
      change with the seed. Its backward is checked in fp32 and bf16 at p = 0
@@ -40,7 +43,30 @@ Phases (any failure exits non-zero):
      frozen tensors bit-identical and every trainable tensor changed. Then,
      with every dropout at 0, one step's gradients through the kernels in bf16
      against an fp32 step on the plain path, within GRAD_TOL;
-  6. pretrain: the surrogate GPT-2 pretraining (tec_mollm_tpu_torch/pretrain.py)
+  6. trainer: the training CLI (python -m tec_mollm_tpu_torch.train, called
+     in-process) at flagship width on Config() (B = 2 x accumulation 6, bf16,
+     the model built without the opt-in kernels), over the processed dir of
+     phase 4 with TRAINER_WINDOWS stride-1 train and val windows (4 macro steps
+     an epoch, 8 validation batches). Run A trains TRAINER_EPOCHS epochs with a
+     checkpoint every 2 macro steps: 2 finite history records, config.json,
+     latest.pt, latest.meta.json and best_params.pt, and the GAT kernel launched
+     once per validation forward (16) and no other kernel. Run B is stopped by
+     a SIGTERM to this process after 2 macro steps (fit's handler checkpoints
+     and stops), then --resume: it must restart at step 2 of epoch 0, make run
+     A's 8 updates, and its per-epoch losses lie within RESUME_RTOL of run A's.
+     A third trainer gives, after a warm-up epoch, an epoch timed without
+     checkpoints, its macro steps on batches already on the card, one profiled
+     epoch (busy share, under the profiler and over the unprofiled wall), the
+     validation ms a batch, the validation loss through the GAT kernel against
+     the same validation on the plain GAT (within VAL_RTOL), the latest.pt save
+     ms and size and the restore ms. Run A's best_params.pt is served on the
+     test split with the stencil graph (the tiled kernel, GAT launches) and
+     with a graph.npz without stencil arrays (the padded gather, no GAT launch,
+     within SERVE_TOL_SCALED of the stencil's forecasts); a 1 head x 22
+     channel config must serve finite forecasts through the kernel's general
+     form, its route giving the reason, within SERVE_TOL_SCALED of the same
+     service with the GAT on its plain path;
+  7. pretrain: the surrogate GPT-2 pretraining (tec_mollm_tpu_torch/pretrain.py)
      at its full width and batch: ByteLM on pretrain_model_config(ModelConfig())
      (d 768, 3 blocks, 12 heads, no LoRA), bf16 compute, B = 64 x seq_len 128
      (T = 129 through the flash kernel), the corpus gathered from the repository,
@@ -116,18 +142,29 @@ FLASH_CASES = {
     "d32": (64, 129, True, 32, ("bf16",)),
     "d128": (64, 129, True, 128, ("bf16",)),
 }
-# stencil GAT checks: (slices M, stencil radius km, nodes N) by label; "path"
-# is the flagship eval batch (8 windows x 48 steps, N padded to 2944), "eval"
-# the eval step's batch of 16 windows, "r300" the 300 km (long_horizon)
-# stencil (33 offsets, largest |shift| 144), "n2911" the unpadded node axis
-# (rows not 16-byte aligned), "m70000" more slices than a grid's y axis held
-# (65535) on the GAT_SMALL_GRID stencil padded to 64 nodes
+# stencil GAT checks of the tiled kernel: (slices M, stencil radius km, nodes N)
+# by label; "path" is the flagship eval batch (8 windows x 48 steps, N padded to
+# 2944), "eval" the eval step's batch of 16 windows, "r300" the 300 km
+# (long_horizon) stencil (33 offsets, largest |shift| 144), "n2911" the
+# unpadded node axis (rows not 16-byte aligned), "m70000" more slices than a
+# grid's y axis held (65535) on the GAT_SMALL_GRID stencil padded to 64 nodes;
+# check_gat adds "trainer", the trainer's validation batch (batch_size x L_in
+# slices of Config()).
 GAT_CASES = {
     "path": (BATCH * 48, 150.0, 2944),
     "eval": (2 * BATCH * 48, 150.0, 2944),
     "r300": (2 * BATCH * 48, 300.0, 2944),
     "n2911": (BATCH * 48, 150.0, 2911),
     "m70000": (70_000, 150.0, 64),
+}
+# and of its general form: (slices M, radius km, nodes N, heads, channels);
+# "path" is the serve batch of a 1 head x 22 channel config (trainer phase),
+# "r450" the 450 km stencil (81 offsets, largest |shift| 284) at the trainer's
+# validation batch, "n2911" 4 heads x 16 channels on the unpadded node axis
+GAT_GENERAL_CASES = {
+    "path": (BATCH * 48, 150.0, 2944, 1, 22),
+    "r450": (2 * 48, 450.0, 2944, 2, 11),
+    "n2911": (2 * 48, 150.0, 2911, 4, 16),
 }
 GAT_SMALL_GRID = (6, 8)
 # fused MLP checks: rows by label; "path" is the serve batch (8 windows x 2944
@@ -141,6 +178,19 @@ PRETRAIN_BATCH, PRETRAIN_SEQ, PRETRAIN_WARMUP, PRETRAIN_STEPS = 64, 128, 2, 20
 PRETRAIN_LR, PRETRAIN_LR_WARMUP, PRETRAIN_GRAD_ROWS = 3e-4, 5, 8
 # target scaler of the synthetic processed dir: TECU = scaled * SCALE + MEAN
 TARGET_MEAN, TARGET_SCALE = 25.0, 12.0
+# trainer phase: stride-1 windows of the train and val splits (at the default
+# batch 2 x accumulation 6: 4 macro steps an epoch and 8 validation batches),
+# epochs, macro steps between checkpoints and before the stop of run B, and
+# the relative distance allowed between run A's and the resumed run's
+# per-epoch losses (CUDA's atomics make bit equality unlikely; the CPU test
+# asks for it)
+TRAINER_WINDOWS = {"train": 48, "val": 16}
+TRAINER_EPOCHS, TRAINER_CKPT_EVERY, TRAINER_STOP_AFTER, RESUME_RTOL = 2, 2, 2, 1e-3
+# one validation through the GAT kernel against the same validation with the
+# GAT on its plain path, both bf16: the relative distance allowed between their
+# losses (one-ulp bf16 differences of the GAT output, averaged over 16 windows
+# x 12 steps x 2911 nodes)
+VAL_RTOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -259,8 +309,13 @@ def check_kernels(args, graph, results: dict) -> list[dict]:
     def rand(*shape, dtype=torch.bfloat16, std=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
 
-    # --- 1. stencil GAT at (B*L, H*C, N) ---
-    entries.append(check_gat(cfg, graph, rand, failures))
+    # --- 1. stencil GAT at (B*L, H*C, N): the tiled kernel, then its general form ---
+    train_cfg = Config().resolved().train
+    hc = (cfg.spatial_heads, cfg.spatial_out_channels)
+    tiled = {k: (*v, *hc) for k, v in GAT_CASES.items()}
+    tiled["trainer"] = (train_cfg.batch_size * train_cfg.L_in, 150.0, n, *hc)
+    entries.append(check_gat(graph, rand, failures, "gat_stencil", tiled))
+    entries.append(check_gat(graph, rand, failures, "gat_stencil_general", GAT_GENERAL_CASES))
 
     # --- 2. short causal attention at (B*N, T, D), q/k/v views of the c_attn output ---
     t = cfg.num_patches
@@ -395,11 +450,12 @@ def gat_ptxas(log_text: str) -> list[dict]:
     return out
 
 
-def check_gat(cfg, graph, rand, failures: list) -> dict:
-    """The stencil GAT against its plain version at GAT_CASES in fp32 and
-    bf16, padded lanes exactly 0; the entry's times are the flagship eval
-    shape's in bf16 (the serve path), through the wrapper and through the bare
-    C entry, with the other cases' times and bounds under their labels."""
+def check_gat(graph, rand, failures: list, name: str, cases: dict) -> dict:
+    """One form of the stencil GAT kernel against its plain version at
+    ``cases`` (label: (M, km, N, heads, channels)) in fp32 and bf16, padded
+    lanes exactly 0; the entry's times are the "path" case's in bf16, through
+    the wrapper and through the bare C entry, with the other cases' times and
+    bounds under their labels. Every call must launch this form (``name``)."""
     import torch
 
     from tec_mollm_tpu_torch import ops
@@ -407,8 +463,6 @@ def check_gat(cfg, graph, rand, failures: list) -> dict:
     from tec_mollm_tpu_torch.graph.builder import build_grid_stencil
 
     dev = torch.device("cuda")
-    att = rand(cfg.spatial_heads, cfg.spatial_out_channels, dtype=torch.float32, std=0.3)
-    hc = cfg.spatial_channels
 
     def stencil(km: float, n: int, small: bool = False):
         if small:
@@ -423,27 +477,34 @@ def check_gat(cfg, graph, rand, failures: list) -> dict:
         return tuple(int(s) for s in shifts), valid
 
     entry = {
-        "name": "gat_stencil", "source": "tec_mollm_tpu_torch/csrc/gat_stencil.cu",
+        "name": name, "source": "tec_mollm_tpu_torch/csrc/gat_stencil.cu",
         "replaces": "tec_mollm_tpu/ops/gat_stencil.py:104", "library_ms": None,
     }
-    for label, (m, km, n) in GAT_CASES.items():
+    for label, (m, km, n, heads, channels) in cases.items():
         shifts, valid = stencil(km, n, small=label == "m70000")
+        att = rand(heads, channels, dtype=torch.float32, std=0.3)
+        hc = heads * channels
         real = int(valid.any(dim=0).nonzero().max()) + 1  # lanes past the grid's nodes are padding
         reach = max(map(abs, shifts))
-        case = {"shape": f"xl,xr ({m},{hc},{n}); valid ({len(shifts)},{n}); {km:g} km; largest |shift| {reach}"}
-        for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        case = {"shape": f"xl,xr ({m},{hc},{n}), {heads}x{channels}; valid ({len(shifts)},{n}); {km:g} km; "
+                         f"largest |shift| {reach}"}
+        for dname, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             xl, xr = rand(m, hc, n, dtype=dt), rand(m, hc, n, dtype=dt)
+            ops.reset_counts()
             got = ops.gat_stencil_attention(xl, xr, valid, att, shifts)
+            counts = ops.launch_counts()
             want = ops.gat_stencil_reference(xl, xr, valid, att, shifts)
             torch.cuda.synchronize()
-            tag = name if label == "path" else f"{label}_{name}"
-            entry[f"max_abs_err_{tag}"], entry[f"max_rel_err_{tag}"], ok = compare(got, want, name)
-            entry[f"tol_{tag}"] = TOL[name]
+            tag = dname if label == "path" else f"{label}_{dname}"
+            entry[f"max_abs_err_{tag}"], entry[f"max_rel_err_{tag}"], ok = compare(got, want, dname)
+            entry[f"tol_{tag}"] = TOL[dname]
             if not ok:
-                failures.append(f"gat_stencil {label} {name}")
+                failures.append(f"{name} {label} {dname}")
+            if counts != {name: 1}:
+                failures.append(f"{name} {label} {dname}: launched {counts}")
             if real < n and not bool((got[..., real:] == 0).all()):
-                failures.append(f"gat_stencil {label} {name}: padded lanes not exactly 0")
-            case[f"padded_lanes_{name}"] = n - real
+                failures.append(f"{name} {label} {dname}: padded lanes not exactly 0")
+            case[f"padded_lanes_{dname}"] = n - real
             del got, want
         valid_pairs = int(valid.sum())
         case.update({
@@ -458,11 +519,11 @@ def check_gat(cfg, graph, rand, failures: list) -> dict:
         if label == "path":
             case["plain_ms"] = time_ms(lambda: ops.gat_stencil_reference(xl, xr, valid, att, shifts), REPS)
             entry.update(case, flop_rate=PEAK_FLOPS["fp32"])
-            log(f"kernel gat_stencil[path]: bare entry {case['bare_ms']:.4f} ms (wrapper {case['ms']:.4f})")
+            log(f"kernel {name}[path]: bare entry {case['bare_ms']:.4f} ms (wrapper {case['ms']:.4f})")
         else:
             entry[label] = case
             log(
-                f"kernel gat_stencil[{label}]: {case['shape']}: kernel {case['ms']:.4f} ms (bare "
+                f"kernel {name}[{label}]: {case['shape']}: kernel {case['ms']:.4f} ms (bare "
                 f"{case['bare_ms']:.4f}), bound {case['bound_ms']:.4f} ms ({case['bound_by']})"
             )
         del xl, xr
@@ -703,9 +764,10 @@ def device_rows(events) -> list[tuple[float, int, str]]:
 
 
 def profile_call(fn, top: int = 12) -> dict:
-    """torch.profiler over one call of ``fn``: device time by kernel, and the
+    """torch.profiler over one call of ``fn``: device time by kernel, the
     device's busy share of the call's wall time (kernels and copies run on one
-    stream, so their times add without overlap)."""
+    stream, so their times add without overlap), and the host's kernel
+    launches (cudaLaunchKernel and cuLaunchKernel calls: count and host ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -715,33 +777,43 @@ def profile_call(fn, top: int = 12) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_rows(prof.key_averages())
+    events = prof.key_averages()
+    rows = device_rows(events)
     device_ms = sum(r[0] for r in rows)
     if device_ms == 0:
         raise RuntimeError("the profiler recorded no device time for a call on the card")
+    launch_calls = [e for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")]
     return {
         "wall_ms": wall_ms, "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms if wall_ms else None,
+        "host_launches": sum(e.count for e in launch_calls),
+        "host_launch_ms": sum(float(e.self_cpu_time_total) for e in launch_calls) / 1e3,
         "top": [{"ms": ms, "calls": c, "name": k[:120]} for ms, c, k in rows[:top]],
     }
 
 
 def write_processed_dir(path: str, graph, cfg, seed: int, steps: int) -> None:
+    """A processed dir as the preprocess CLI writes it: the test split of
+    `steps` timesteps, train and val splits of TRAINER_WINDOWS stride-1
+    windows, graph.npz and target_scaler.npz."""
     from tec_mollm_tpu_torch.data.scaler import StandardScaler
 
     rng = np.random.default_rng(seed)
     n = cfg.model.num_nodes
-    t = np.arange(steps)
-    # scaled TEC-like series: a diurnal cycle (12 steps a day) plus noise
-    diurnal = np.sin(2 * np.pi * t / 12.0)[:, None]
-    tec = (diurnal + 0.3 * rng.standard_normal((steps, n))).astype(np.float32)
-    x = np.concatenate(
-        [tec[..., None], 0.5 * rng.standard_normal((steps, n, cfg.model.in_features - 1))], axis=-1
-    ).astype(np.float32)
-    horizon = cfg.train.L_out
-    y = np.stack([np.roll(tec, -h - 1, axis=0) for h in range(horizon)], axis=-1).astype(np.float32)
-    tf = np.stack([t % 12, (t // 12) % 366, np.full_like(t, 11), ((t // 12) // 91) % 4], axis=-1)
-    np.savez(os.path.join(path, "test_set.npz"), X=x, Y=y, time_features=tf.astype(np.int32))
+    window = cfg.train.L_in + cfg.train.L_out - 1
+    lengths = {"test": steps, "train": TRAINER_WINDOWS["train"] + window, "val": TRAINER_WINDOWS["val"] + window}
+    for split, length in lengths.items():
+        t = np.arange(length)
+        # scaled TEC-like series: a diurnal cycle (12 steps a day) plus noise
+        diurnal = np.sin(2 * np.pi * t / 12.0)[:, None]
+        tec = (diurnal + 0.3 * rng.standard_normal((length, n))).astype(np.float32)
+        x = np.concatenate(
+            [tec[..., None], 0.5 * rng.standard_normal((length, n, cfg.model.in_features - 1))], axis=-1
+        ).astype(np.float32)
+        horizon = cfg.train.L_out
+        y = np.stack([np.roll(tec, -h - 1, axis=0) for h in range(horizon)], axis=-1).astype(np.float32)
+        tf = np.stack([t % 12, (t // 12) % 366, np.full_like(t, 11), ((t // 12) // 91) % 4], axis=-1)
+        np.savez(os.path.join(path, f"{split}_set.npz"), X=x, Y=y, time_features=tf.astype(np.int32))
     graph.save(os.path.join(path, "graph.npz"))
     StandardScaler(mean=np.array([TARGET_MEAN]), scale=np.array([TARGET_SCALE])).save(os.path.join(path, "target_scaler.npz"))
 
@@ -861,10 +933,10 @@ def serve_phase(args, graph, data_dir: str, results: dict) -> dict:
 
     ds = SlidingWindowDataset.from_dir(data_dir, "test", cfg.train.L_in, cfg.train.L_out)
     batch = ds.gather_batch(np.asarray(first))
-    _, valid = graph_inputs(graph, "cuda")
+    _, graph_pair = graph_inputs(graph, "cuda")
     with torch.inference_mode():
         ref = ref_model(
-            torch.from_numpy(batch["x"]).cuda(), torch.from_numpy(batch["time_features"]).cuda(), valid
+            torch.from_numpy(batch["x"]).cuda(), torch.from_numpy(batch["time_features"]).cuda(), *graph_pair
         )[..., 0].cpu().numpy().astype(np.float64)
     ref = np.clip(ref * TARGET_SCALE + TARGET_MEAN, 0.0, 200.0)
     diff_ref = float(np.abs(a[tuple(first)] - ref).max()) / TARGET_SCALE
@@ -904,7 +976,7 @@ def grad_check(args, cfg) -> dict:
         cfg.model, gat_dropout=0.0, lora_dropout=0.0, llm_dropout=0.0, head_dropout=0.0, post_llm_dropout=0.0
     )
     cfg = dataclasses.replace(cfg, model=m, train=dataclasses.replace(cfg.train, batch_size=GRAD_BATCH, accumulation_steps=1))
-    shifts, valid = graph_inputs(build_graph(*grid_coordinates(m.grid_h, m.grid_w)), dev)
+    shifts, graph_pair = graph_inputs(build_graph(*grid_coordinates(m.grid_h, m.grid_w)), dev)
     base = TECMoLLM(m, shifts, seed=args.seed).state_dict()
     gen = torch.Generator().manual_seed(args.seed + 1)
     for name in base:
@@ -919,7 +991,7 @@ def grad_check(args, cfg) -> dict:
         model.load_state_dict(base)
         state, _ = create_train_state(model, cfg, frozen_dtype=torch.bfloat16 if dtype == torch.bfloat16 else None)
         model.train()
-        wsum, count = make_sum_loss_fn(model, cfg)(batch, valid)
+        wsum, count = make_sum_loss_fn(model, cfg)(batch, graph_pair)
         loss = wsum / count
         loss.backward()
         return {n: p.grad.float() for n, p in state.trainable().items()}, float(loss.detach())
@@ -1019,6 +1091,271 @@ def train_phase(args) -> dict:
     return out
 
 
+def serve_requests(service, requests: list[list[int]]) -> tuple[dict, dict]:
+    """({tuple(indices): forecast in TECU}, launch counts) of `requests` sent
+    to `service` one after another, counted from zero."""
+    from tec_mollm_tpu_torch import ops
+
+    ops.reset_counts()
+    out = {tuple(idx): np.asarray(service.forecast(idx)["forecast"], dtype=np.float64) for idx in requests}
+    return out, ops.launch_counts()
+
+
+def trainer_phase(args, graph, data_dir: str, train_windows_per_s: float) -> dict:
+    """The training CLI at flagship width (see the module docstring, phase 6):
+    run A trains TRAINER_EPOCHS epochs; run B stops after TRAINER_STOP_AFTER
+    macro steps through fit's SIGTERM handler and resumes; the best checkpoint
+    is served with the stencil graph and with a graph without a stencil; a
+    config the GAT kernel does not take serves on the plain path."""
+    import signal
+    import shutil
+
+    import torch
+
+    from tec_mollm_tpu_torch import ops, train
+    from tec_mollm_tpu_torch.config import Config
+    from tec_mollm_tpu_torch.models import TECMoLLM
+    from tec_mollm_tpu_torch.serving import ForecastService
+
+    cfg = Config().resolved()
+    macro = cfg.train.batch_size * cfg.train.accumulation_steps
+    steps_per_epoch = -(-TRAINER_WINDOWS["train"] // macro)
+    val_batches = -(-TRAINER_WINDOWS["val"] // cfg.train.batch_size)
+    work = os.path.join(data_dir, "work")
+
+    def argv(run: str, *extra: str) -> list[str]:
+        return ["--data-dir", data_dir, "--workdir", work, "--run-name", run, "--train-stride", "1",
+                "--val-stride", "1", "--epochs", str(TRAINER_EPOCHS),
+                "--checkpoint-every-steps", str(TRAINER_CKPT_EVERY), "--seed", str(args.seed), *extra]
+
+    def saved_step(run: str) -> int:
+        blob = torch.load(os.path.join(work, "checkpoints", run, "latest.pt"), map_location="cpu", weights_only=True)
+        return int(blob["step"])
+
+    # --- run A: the CLI in-process, every launch counted ---
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    hist_a = train.main(argv("a"))
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    counts_a = ops.launch_counts()
+    run_a = os.path.join(work, "checkpoints", "a")
+    files_a = sorted(os.listdir(run_a))
+    want_files = ["best_params.pt", "config.json", "latest.meta.json", "latest.pt"]
+    losses_a = [(r["train_loss"], r["val_loss"]) for r in hist_a]
+    log(
+        f"trainer[A]: Config() B={cfg.train.batch_size} x accum {cfg.train.accumulation_steps}, bf16, "
+        f"{TRAINER_WINDOWS['train']} train / {TRAINER_WINDOWS['val']} val windows, {len(hist_a)} epochs in "
+        f"{wall_a:.1f} s; (train, val) losses {losses_a}; launches {counts_a}; files {files_a}"
+    )
+    if len(hist_a) != TRAINER_EPOCHS or not np.isfinite(np.asarray(losses_a)).all():
+        raise RuntimeError(f"trainer[A]: history {hist_a}")
+    if files_a != want_files:
+        raise RuntimeError(f"trainer[A]: checkpoint dir holds {files_a}, want {want_files}")
+    if counts_a.get("gat_stencil", 0) != TRAINER_EPOCHS * val_batches or set(counts_a) - {"gat_stencil"}:
+        raise RuntimeError(f"trainer[A]: launches {counts_a}, want gat_stencil = {TRAINER_EPOCHS * val_batches} "
+                           "(one a validation forward) and nothing else")
+
+    # --- run B: stopped by SIGTERM after TRAINER_STOP_AFTER macro steps, then --resume ---
+    args_b = train.parse_args(argv("b"))
+    trainer_b = train.build_trainer(args_b, train.build_config(args_b))
+    step, part_losses = trainer_b._train_step, []
+
+    def step_then_signal(*a):
+        state, metrics = step(*a)
+        part_losses.append(float(metrics["loss"]))
+        if len(part_losses) == TRAINER_STOP_AFTER:
+            os.kill(os.getpid(), signal.SIGTERM)  # fit's handler sets the stop flag
+        return state, metrics
+
+    trainer_b._train_step = step_then_signal
+    if train.run(trainer_b, args_b, trainer_b.cfg):
+        raise RuntimeError("trainer[B]: the stopped run wrote a history record")
+    with open(os.path.join(work, "checkpoints", "b", "latest.meta.json")) as f:
+        meta_b = json.load(f)
+    del trainer_b
+    ops.reset_counts()
+    hist_b = train.main(argv("b", "--resume"))
+    counts_b = ops.launch_counts()
+    updates_a, updates_b = saved_step("a"), saved_step("b")
+    # run B's epoch 0 loss: its first part's steps and the resumed steps
+    resumed = hist_b[0]["updates"]
+    first_b = (sum(part_losses) + hist_b[0]["train_loss"] * resumed) / (len(part_losses) + resumed)
+    pairs = [(first_b, hist_a[0]["train_loss"])] + [(b["train_loss"], a["train_loss"]) for a, b in zip(hist_a[1:], hist_b[1:])]
+    pairs += [(b["val_loss"], a["val_loss"]) for a, b in zip(hist_a, hist_b)]
+    rel = max(abs(b - a) / abs(a) for b, a in pairs)
+    log(
+        f"trainer[B]: stopped at epoch {meta_b['epoch']} step {meta_b['step_in_epoch']} (losses {part_losses}); "
+        f"resumed: {[(r['epoch'], r['updates']) for r in hist_b]} (epoch, updates); updates A {updates_a}, "
+        f"B {updates_b}; largest relative loss difference from A {rel:.3e} (tol {RESUME_RTOL}); launches {counts_b}"
+    )
+    if (meta_b["epoch"], meta_b["step_in_epoch"]) != (0, TRAINER_STOP_AFTER):
+        raise RuntimeError(f"trainer[B]: stopped at {meta_b}, want epoch 0 step {TRAINER_STOP_AFTER}")
+    if resumed != steps_per_epoch - TRAINER_STOP_AFTER or len(hist_b) != TRAINER_EPOCHS:
+        raise RuntimeError(f"trainer[B]: the resumed run did not start at step {TRAINER_STOP_AFTER}: {hist_b}")
+    if updates_a != updates_b or updates_a != TRAINER_EPOCHS * steps_per_epoch:
+        raise RuntimeError(f"trainer[B]: {updates_b} updates, run A {updates_a}")
+    if not rel <= RESUME_RTOL:
+        raise RuntimeError(f"trainer[B]: losses differ from run A by {rel:.3e} > {RESUME_RTOL}")
+
+    # --- one more trainer: epoch times, validation, save and restore ---
+    # A warm-up epoch (first calls), then an epoch timed without checkpoints
+    # (a default run saves none mid-epoch), its macro steps on batches already
+    # on the card, and one profiled epoch; the device time the profiler
+    # records over the unprofiled epoch's wall time is the busy share without
+    # the profiler's own host cost.
+    args_c = train.parse_args(argv("c"))
+    trainer_c = train.build_trainer(args_c, train.build_config(args_c))
+    trainer_c.train_epoch(checkpoints=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = trainer_c.train_epoch(checkpoints=False)
+    torch.cuda.synchronize()
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    staged = [trainer_c._put(b) for b in trainer_c.train_loader]
+    step_ms = []
+    for _ in range(2):
+        for b in staged:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer_c.state, _ = trainer_c._train_step(trainer_c.state, b, trainer_c.graph)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    staged_step_ms = statistics.median(step_ms)
+    del staged
+    prof = profile_call(lambda: trainer_c.train_epoch(checkpoints=False), top=100_000)
+    copies = {
+        kind: sum(r["ms"] for r in prof["top"] if r["name"].startswith(f"Memcpy {kind}"))
+        for kind in ("HtoD", "DtoH")
+    }
+    prof["top"] = prof["top"][:12]
+    busy_unprofiled = prof["device_ms"] / epoch_ms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val_kernel = trainer_c.validate()
+    torch.cuda.synchronize()
+    val_ms = (time.perf_counter() - t0) * 1e3 / val_batches
+    # the same validation with the GAT on its plain path: same weights, same batches
+    ops.reset_counts()
+    trainer_c.model.gat_kernel = False
+    val_plain = trainer_c.validate()
+    trainer_c.model.gat_kernel = True
+    if ops.launch_counts():
+        raise RuntimeError(f"trainer: the plain validation launched {ops.launch_counts()}")
+    val_rel = abs(val_kernel[0] - val_plain[0]) / abs(val_plain[0])
+    mae_diff = float(np.abs(np.asarray(val_kernel[1]["mae_by_horizon"]) - np.asarray(val_plain[1]["mae_by_horizon"])).max())
+    t0 = time.perf_counter()
+    trainer_c._save_latest(step_in_epoch=0)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    latest_mb = os.path.getsize(trainer_c.ckpt.path("latest")) / 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer_c.ckpt.restore_state(trainer_c.state, "latest")
+    torch.cuda.synchronize()
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    del trainer_c
+    epoch_wps = [r["windows_per_sec"] for r in hist_a]
+    log(
+        f"trainer: windows/s by epoch (run A, a checkpoint every {TRAINER_CKPT_EVERY} macro steps) "
+        f"{[round(w, 2) for w in epoch_wps]}; a warm epoch without checkpoints {epoch_ms:.1f} ms = "
+        f"{timed['windows_per_sec']:.2f} windows/s; its macro step on batches already on the card "
+        f"{staged_step_ms:.1f} ms (median of {len(step_ms)}) = {macro / staged_step_ms * 1e3:.2f} windows/s; "
+        f"the train phase's bare step {train_windows_per_s:.2f}; validation {val_ms:.2f} ms a batch of "
+        f"{cfg.train.batch_size}; latest.pt save {save_ms:.1f} ms, {latest_mb:.1f} MB; resume (restore) "
+        f"{resume_ms:.1f} ms"
+    )
+    log(
+        f"trainer validation, GAT kernel vs plain on the same weights: val loss {val_kernel[0]:.6f} vs "
+        f"{val_plain[0]:.6f} (relative {val_rel:.3e}, tol {VAL_RTOL}); max |MAE by horizon diff| {mae_diff:.3e} TECU"
+    )
+    log(
+        f"profile[trainer epoch]: {steps_per_epoch} macro steps, no checkpoint; wall {prof['wall_ms']:.2f} ms "
+        f"(under the profiler), device {prof['device_ms']:.2f} ms (busy {prof['device_busy_share']:.2%}; over the "
+        f"unprofiled epoch's wall {busy_unprofiled:.2%}); copies HtoD {copies['HtoD']:.2f} ms, DtoH "
+        f"{copies['DtoH']:.2f} ms; {prof['host_launches']} kernel launches taking {prof['host_launch_ms']:.2f} ms "
+        f"of host time"
+    )
+    for row in prof["top"][:10]:
+        log(f"  {row['ms']:8.3f} ms x{row['calls']:<4d} {row['name']}")
+    if not val_rel <= VAL_RTOL:
+        raise RuntimeError(f"trainer: validation through the GAT kernel differs from the plain path by {val_rel:.3e}")
+
+    # --- serve run A's best checkpoint: the stencil graph, a graph without one ---
+    best = os.path.join(run_a, "best_params.pt")
+    rng = np.random.default_rng(args.seed + 2)
+    n_windows = STEPS - cfg.train.L_in - cfg.train.L_out + 1
+    requests = [rng.integers(0, n_windows, size=int(rng.integers(1, 4))).tolist() for _ in range(4)]
+    padded_dir = os.path.join(data_dir, "padded_graph")
+    os.makedirs(padded_dir)
+    for name in ("test_set.npz", "target_scaler.npz"):
+        shutil.copy(os.path.join(data_dir, name), padded_dir)
+    dataclasses.replace(graph, stencil_shifts=None, stencil_valid=None).save(os.path.join(padded_dir, "graph.npz"))
+    served = {}
+    for label, d in (("stencil", data_dir), ("padded", padded_dir)):
+        service = ForecastService(cfg, d, checkpoint=best, max_batch=BATCH, batch_window_ms=0)
+        try:
+            forecasts, counts = serve_requests(service, requests)
+            route = service.stats()["gat_route"]
+        finally:
+            service.close()
+        served[label] = {"forecasts": forecasts, "launches": counts, "route": route}
+    diff = max(float(np.abs(served["stencil"]["forecasts"][k] - served["padded"]["forecasts"][k]).max())
+               for k in served["stencil"]["forecasts"]) / TARGET_SCALE
+    finite = all(np.isfinite(f).all() for s in served.values() for f in s["forecasts"].values())
+    log(
+        f"trainer serve: best_params.pt, {len(requests)} requests; stencil route {served['stencil']['route']!r}, "
+        f"launches {served['stencil']['launches']}; padded route {served['padded']['route']!r}, launches "
+        f"{served['padded']['launches']}; max |stencil - padded| {diff:.4e} scaled (tol {SERVE_TOL_SCALED}); "
+        f"finite {finite}"
+    )
+    if not finite or served["stencil"]["route"] != "kernel" or not served["stencil"]["launches"].get("gat_stencil"):
+        raise RuntimeError(f"trainer serve: stencil service {served['stencil']['route']}, {served['stencil']['launches']}")
+    if served["padded"]["launches"] or not diff <= SERVE_TOL_SCALED:
+        raise RuntimeError(f"trainer serve: padded graph launched {served['padded']['launches']} or differs by {diff}")
+
+    # --- a config the JAX package takes and the tiled kernel does not: 1 head x
+    # 22 channels, through the kernel's general form, against its plain path ---
+    m = dataclasses.replace(cfg.model, spatial_heads=1, spatial_out_channels=22)
+    cfg_122 = dataclasses.replace(cfg, model=m)
+    state = TECMoLLM(m, tuple(int(s) for s in graph.stencil_shifts), seed=args.seed).state_dict()
+    service = ForecastService(cfg_122, data_dir, state_dict=state, max_batch=BATCH, batch_window_ms=0)
+    try:
+        forecasts, counts_122 = serve_requests(service, requests)
+        route_122 = service.stats()["gat_route"]
+        service.model.gat_kernel = False
+        plain_122, counts_plain = serve_requests(service, requests)
+    finally:
+        service.close()
+    finite_122 = all(np.isfinite(f).all() for f in forecasts.values())
+    diff_122 = max(float(np.abs(forecasts[k] - plain_122[k]).max()) for k in forecasts) / TARGET_SCALE
+    log(
+        f"trainer serve (1 head x 22 channels): route {route_122!r}; launches {counts_122}; finite {finite_122}; "
+        f"max |kernel - plain GAT| {diff_122:.4e} scaled (tol {SERVE_TOL_SCALED}); plain launches {counts_plain}"
+    )
+    if (not route_122.startswith("kernel, general form: ") or "1x22" not in route_122
+            or set(counts_122) != {"gat_stencil_general"} or counts_plain or not finite_122
+            or not diff_122 <= SERVE_TOL_SCALED):
+        raise RuntimeError(f"general form: route {route_122!r}, launches {counts_122}, finite {finite_122}, "
+                           f"diff {diff_122}")
+
+    for s in served.values():
+        del s["forecasts"]
+    return {
+        "history_a": hist_a, "history_b": hist_b, "stop_meta_b": meta_b, "part_losses_b": part_losses,
+        "updates": {"a": updates_a, "b": updates_b}, "max_rel_loss_diff_b_vs_a": rel, "rtol": RESUME_RTOL,
+        "wall_s_a": wall_a, "launches": counts_a, "launches_resumed_b": counts_b,
+        "windows_per_s_by_epoch": epoch_wps, "train_phase_windows_per_s": train_windows_per_s,
+        "val_ms_per_batch": val_ms, "latest_save_ms": save_ms, "latest_mb": latest_mb, "resume_ms": resume_ms,
+        "profile_epoch": prof, "profile_epoch_copies_ms": copies, "serve": served, "serve_max_abs_diff_padded_scaled": diff,
+        "route_1x22": route_122, "launches_1x22": counts_122, "max_abs_diff_1x22_plain_scaled": diff_122,
+        "epoch_ms_no_checkpoint": epoch_ms, "windows_per_s_no_checkpoint": timed["windows_per_sec"],
+        "staged_macro_step_ms": staged_step_ms, "staged_macro_step_ms_all": step_ms,
+        "device_busy_share_unprofiled_wall": busy_unprofiled,
+        "val_loss_kernel": val_kernel[0], "val_loss_plain": val_plain[0], "val_rel_diff": val_rel,
+        "val_mae_by_horizon_max_diff": mae_diff,
+    }
+
+
 def pretrain_grad_check(args, cfg, tokens) -> dict:
     """One pretraining step's gradients with every dropout at 0: ByteLM through
     the flash kernel in bf16 against an fp32 step on the plain (einsum) path,
@@ -1088,7 +1425,7 @@ def hf_roundtrip(args, graph, lm) -> dict:
         files = sorted(os.listdir(out))
         loaded = load_torch_checkpoint(out)
     cfg = Config().resolved()
-    shifts, valid = graph_inputs(graph, "cuda")
+    shifts, graph_pair = graph_inputs(graph, "cuda")
     model = TECMoLLM(cfg.model, shifts, dtype=torch.bfloat16, seed=args.seed).to("cuda")
     load_gpt2_into_model(model, loaded)
     backbone = dict(model.llm_backbone.model.named_parameters())
@@ -1098,7 +1435,7 @@ def hf_roundtrip(args, graph, lm) -> dict:
     batch = SlidingWindowDataset(split, cfg.train.L_in, cfg.train.L_out).gather_batch(np.arange(2))
     with torch.inference_mode():
         preds = model.eval()(
-            torch.from_numpy(batch["x"]).cuda(), torch.from_numpy(batch["time_features"]).cuda(), valid
+            torch.from_numpy(batch["x"]).cuda(), torch.from_numpy(batch["time_features"]).cuda(), *graph_pair
         )
     out = {
         "files": files, "tensors": len(sd), "backbone_tensors_differing": differ,
@@ -1258,18 +1595,23 @@ def main() -> int:
     results["kernels"] = entries
     with tempfile.TemporaryDirectory(prefix="tec_smoke_") as data_dir:
         paths = serve_phase(args, graph, data_dir, results)
-    results["serve"] = paths
-    train = train_phase(args)
-    results["train"] = train
+        results["serve"] = paths
+        train = train_phase(args)
+        results["train"] = train
+        trainer = trainer_phase(args, graph, data_dir, train["windows_per_s"])
+        results["trainer"] = trainer
     pretrain = pretrain_phase(args, graph)
     results["pretrain"] = pretrain
-    runs = [p["launches"] for p in paths.values()] + [train["launches"], pretrain["launches"]]
+    runs = [p["launches"] for p in paths.values()] + [
+        train["launches"], trainer["launches"], trainer["launches_1x22"], pretrain["launches"]]
     for e in entries:
-        # launches over the main-path runs (both serve cells, the train steps
-        # and the pretrain steps), each counted from zero
+        # launches over the main-path runs (both serve cells, the train steps,
+        # the trainer's run A, its 1 x 22 serve and the pretrain steps), each
+        # counted from zero
         e["launches"] = sum(r.get(e["name"], 0) for r in runs)
         e["launches_per_forward_fused"] = paths["fused"]["launches"].get(e["name"], 0) / paths["fused"]["forwards"]
         e["launches_per_train_step"] = train["launches_per_step"].get(e["name"], 0)
+        e["launches_trainer_run"] = trainer["launches"].get(e["name"], 0)
         e["launches_per_pretrain_step"] = pretrain["launches_per_step"].get(e["name"], 0)
     missing = [e["name"] for e in entries if e["launches"] == 0]
     if missing:

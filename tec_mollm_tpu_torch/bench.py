@@ -97,7 +97,7 @@ def setup(
     ``device`` and the step to time."""
     m = cfg.model
     graph = build_graph(*grid_coordinates(m.grid_h, m.grid_w), distance_threshold_km=cfg.data.distance_threshold_km)
-    shifts, stencil_valid = graph_inputs(graph, device)
+    shifts, graph_pair = graph_inputs(graph, device)
     dtype = torch.bfloat16 if cfg.train.bf16 else torch.float32
     model = TECMoLLM(m, shifts, dtype=dtype, fused_attn=fused_attn, use_fused_mlp=fused_mlp, seed=seed).to(device)
     state, _ = create_train_state(model, cfg, frozen_dtype=torch.bfloat16 if cfg.train.bf16 else None)
@@ -111,12 +111,12 @@ def setup(
         eval_step = make_eval_step(model, cfg)
 
         def step():
-            return {"loss": eval_step(batch, stencil_valid)[0]}
+            return {"loss": eval_step(batch, graph_pair)[0]}
     else:
         train_step = make_train_step(model, cfg)
 
         def step():
-            return train_step(state, batch, stencil_valid)[1]
+            return train_step(state, batch, graph_pair)[1]
 
     return BenchRun(device, state, batch, step)
 

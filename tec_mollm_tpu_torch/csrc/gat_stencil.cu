@@ -53,8 +53,19 @@
 // models/gat.py's XLA path is: a lane with no valid offset (the padded nodes)
 // gives 0 and not NaN; and a neighbour outside [0, N) counts as invalid where
 // the Pallas roll would wrap around (the graph builder never marks one valid).
+//
+// The tiled kernel above is built for the model's 2 heads x 11 channels, at
+// most 64 offsets and |shift| <= 144. Every other layout and stencil the Pallas
+// kernel takes (any heads x channels, any shift, any number of offsets) runs
+// gat_stencil_general_kernel: a thread per (slice, head, node) reads its
+// neighbours straight from device memory (coalesced along the node axis), a
+// first pass over the offsets makes the online max and denominator, and a
+// second pass per kGeneralChunk channels recomputes each score and sums the
+// weighted neighbours. Same masking, floor and out-of-range rule; its shifts
+// come from device memory, so their number has no limit.
 #include <algorithm>
 #include <cfloat>
+#include <climits>
 #include <cstdint>
 #include <cstdlib>
 
@@ -367,20 +378,110 @@ cudaError_t launch(const Launch& a) {
   return a.reach <= 72 ? launch_as<T, 72>(a) : launch_as<T, 144>(a);
 }
 
+constexpr int kGeneralThreads = 256;  // nodes of a block, all of one (slice, head)
+constexpr int kGeneralChunk = 16;     // output channels one pass accumulates
+
+template <typename T>
+__global__ void __launch_bounds__(kGeneralThreads)
+gat_stencil_general_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
+                           const uint8_t* __restrict__ valid, const int* __restrict__ shifts,
+                           const float* __restrict__ att, T* __restrict__ out, int heads, int channels,
+                           int n_nodes, int n_offsets, int n_tiles, float slope) {
+  const int n = (blockIdx.x % n_tiles) * kGeneralThreads + threadIdx.x;
+  const int64_t mh = blockIdx.x / n_tiles;  // m * heads + h
+  if (n >= n_nodes) return;
+  const int h = static_cast<int>(mh % heads);
+  const int64_t row0 = mh * channels;  // the head's first row: m * heads*channels + h * channels
+  const T* const l = xl + row0 * n_nodes;
+  const T* const r = xr + row0 * n_nodes + n;
+  const float* const a = att + h * channels;
+  T* const o = out + row0 * n_nodes + n;
+
+  // offset k's neighbour, or -1 where it is masked or outside [0, N)
+  auto neighbour = [&](int k) {
+    const int j = n + __ldg(shifts + k);
+    return j >= 0 && j < n_nodes && valid[static_cast<int64_t>(k) * n_nodes + n] ? j : -1;
+  };
+  auto score = [&](int j) {
+    float s = 0.f;
+    for (int c = 0; c < channels; ++c) {
+      const int64_t row = static_cast<int64_t>(c) * n_nodes;
+      const float e = tec::to_float(l[row + j]) + tec::to_float(r[row]);
+      s = fmaf(__ldg(a + c), e >= 0.f ? e : slope * e, s);
+    }
+    return s;
+  };
+
+  float mx = -FLT_MAX, den = 0.f;
+  for (int k = 0; k < n_offsets; ++k) {
+    const int j = neighbour(k);
+    if (j < 0) continue;
+    const float s = score(j);
+    if (s > mx) {
+      den = den * expf(mx - s) + 1.f;
+      mx = s;
+    } else {
+      den += expf(s - mx);
+    }
+  }
+  const float inv = 1.f / fmaxf(den, FLT_MIN);  // no valid offset: 0, not NaN
+  for (int c0 = 0; c0 < channels; c0 += kGeneralChunk) {
+    float acc[kGeneralChunk];
+#pragma unroll
+    for (int q = 0; q < kGeneralChunk; ++q) acc[q] = 0.f;
+    for (int k = 0; k < n_offsets; ++k) {
+      const int j = neighbour(k);
+      if (j < 0) continue;
+      const float w = expf(score(j) - mx);
+#pragma unroll
+      for (int q = 0; q < kGeneralChunk; ++q)
+        if (c0 + q < channels) acc[q] = fmaf(w, tec::to_float(l[static_cast<int64_t>(c0 + q) * n_nodes + j]), acc[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < kGeneralChunk; ++q)
+      if (c0 + q < channels) o[static_cast<int64_t>(c0 + q) * n_nodes] = tec::from_float<T>(acc[q] * inv);
+  }
+}
+
+template <typename T>
+cudaError_t launch_general(const void* xl, const void* xr, const void* valid, const int* shifts,
+                           const float* att, void* out, int m, int heads, int channels, int n,
+                           int n_offsets, float slope, cudaStream_t stream) {
+  const int n_tiles = (n + kGeneralThreads - 1) / kGeneralThreads;
+  const int64_t blocks = static_cast<int64_t>(n_tiles) * m * heads;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  gat_stencil_general_kernel<T><<<static_cast<unsigned>(blocks), kGeneralThreads, 0, stream>>>(
+      static_cast<const T*>(xl), static_cast<const T*>(xr), static_cast<const uint8_t*>(valid), shifts, att,
+      static_cast<T*>(out), heads, channels, n, n_offsets, n_tiles, slope);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // xl, xr, out: (m, heads*channels, n) contiguous; valid: (n_offsets, n) uint8
-// (torch.bool); att: heads*channels fp32 on the device; shifts: a host array of
-// n_offsets ints, each |shift| <= kMaxShift. Only heads=2, channels=11 (the
-// model's GAT) is instantiated.
+// (torch.bool); att: heads*channels fp32 on the device. general = 0 launches
+// the tiled kernel, which takes heads=2, channels=11, at most kMaxOffsets
+// offsets and |shift| <= kMaxShift, from the host array shifts; general = 1
+// launches gat_stencil_general_kernel, which takes any of them and reads the
+// same n_offsets shifts from shifts_dev, an int32 array on the device.
 extern "C" int gat_stencil_forward(const void* xl, const void* xr, const void* valid,
-                                   const int* shifts, const void* att, void* out, int m,
-                                   int heads, int channels, int n, int n_offsets, float slope,
-                                   int is_bf16, void* stream) {
-  if (heads != kHeads || channels != kChannels || n_offsets < 1 || n_offsets > kMaxOffsets || m < 1 || n < 1)
+                                   const int* shifts, const int* shifts_dev, const void* att, void* out,
+                                   int m, int heads, int channels, int n, int n_offsets, float slope,
+                                   int is_bf16, int general, void* stream) {
+  if (m < 1 || n < 1 || heads < 1 || channels < 1 || n_offsets < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto att32 = static_cast<const float*>(att);
+  if (general) {
+    if (shifts_dev == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        is_bf16 ? launch_general<__nv_bfloat16>(xl, xr, valid, shifts_dev, att32, out, m, heads, channels, n,
+                                                n_offsets, slope, s)
+                : launch_general<float>(xl, xr, valid, shifts_dev, att32, out, m, heads, channels, n, n_offsets,
+                                        slope, s));
+  }
+  if (heads != kHeads || channels != kChannels || n_offsets > kMaxOffsets)
     return static_cast<int>(cudaErrorInvalidValue);
-  Launch a{xl, xr, valid, static_cast<const float*>(att), out, m, n, n_offsets, 0, 0,
-           slope, {}, static_cast<cudaStream_t>(stream)};
+  Launch a{xl, xr, valid, att32, out, m, n, n_offsets, 0, 0, slope, {}, s};
   for (int o = 0; o < n_offsets; ++o) {
     if (shifts[o] > kMaxShift || shifts[o] < -kMaxShift) return static_cast<int>(cudaErrorInvalidValue);
     a.p.shifts[o] = shifts[o];

@@ -9,10 +9,13 @@ On the 41x71 grid the 150 km neighbourhood is a fixed set of node shifts with a
 per-offset validity mask (``graph.build_grid_stencil``), so the neighbour gather
 is a shift of the node axis. After the two projections the features move to
 (M, H*C, N), the layout of the stencil kernel (``ops/gat_stencil.py``), which
-the eval path launches on the card. Training (attention dropout) and
-``gat_kernel=False`` take the plain path below.
+the eval path launches on the card (``TECMoLLM.gat_kernel``, the JAX model's
+``gat_pallas``). Training (attention dropout) takes the plain path below.
 
-The padded-gather GATv2 for irregular graphs is not ported yet.
+Graphs without a stencil (irregular node sets) take ``GATv2``: the neighbours
+come from a padded (N, D) table with a mask, gathered by ``index_select``, and
+the softmax runs over D. Both classes hold the same parameters (``lin_l``,
+``lin_r``, ``att``, ``bias``), so one state_dict loads into either mode.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ def _glorot_uniform_(t: torch.Tensor, fan_in: int, fan_out: int, g: torch.Genera
     nn.init.uniform_(t, -bound, bound, generator=g)
 
 
-class GATv2Stencil(nn.Module):
+class _GATv2Params(nn.Module):
+    """The parameters both GATv2 modes share, under the reference's names."""
+
     def __init__(
         self,
         in_channels: int,
@@ -57,6 +62,42 @@ class GATv2Stencil(nn.Module):
             nn.init.zeros_(lin.bias)
         _glorot_uniform_(self.att, 1, hc, g)  # flax's (1, H*C) fans
         nn.init.zeros_(self.bias)
+
+
+class GATv2(_GATv2Params):
+    """Padded-gather GATv2: (..., N, F) -> (..., N, H*C), neighbours from an
+    (N, D) table that includes the self loop, ``mask`` marking the real ones."""
+
+    def forward(
+        self,
+        x: torch.Tensor,          # (..., N, F)
+        neighbors: torch.Tensor,  # (N, D) int
+        mask: torch.Tensor,       # (N, D) bool
+    ) -> torch.Tensor:
+        h, c = self.heads, self.out_channels
+        dt = x.dtype
+        n, d = neighbors.shape
+        node_axis = x.dim() - 2
+        xl = F.linear(x, self.lin_l.weight.to(dt), self.lin_l.bias.to(dt))
+        xr = F.linear(x, self.lin_r.weight.to(dt), self.lin_r.bias.to(dt))
+        xl = xl.reshape(*x.shape[:-1], h, c)
+        xr = xr.reshape(*x.shape[:-1], h, c)
+        xl_nbr = xl.index_select(node_axis, neighbors.reshape(-1).long())
+        xl_nbr = xl_nbr.reshape(*x.shape[:-2], n, d, h, c)            # (..., N, D, h, c)
+        scores = F.leaky_relu(xl_nbr + xr.unsqueeze(-3), self.negative_slope)
+        scores = torch.einsum("...dhc,hc->...dh", scores, self.att.reshape(h, c).to(dt))
+        mask_b = mask[..., None]                                       # (N, D, 1)
+        neg = torch.tensor(torch.finfo(torch.float32).min, dtype=scores.dtype, device=x.device)
+        alpha = torch.softmax(torch.where(mask_b, scores, neg), dim=-2)  # over the D neighbours
+        alpha = torch.where(mask_b, alpha, 0.0)
+        alpha = F.dropout(alpha, self.dropout, self.training)
+        out = torch.einsum("...dh,...dhc->...hc", alpha, xl_nbr)
+        return out.reshape(*x.shape[:-1], h * c) + self.bias.to(dt)
+
+
+class GATv2Stencil(_GATv2Params):
+    """Stencil GATv2 on a regular grid: (..., N, F) -> (..., N, H*C), the
+    neighbours at static node shifts with an (O, N) validity."""
 
     def _project(self, lin: nn.Linear, x3: torch.Tensor) -> torch.Tensor:
         """(M, N, F) -> (M, H*C, N): the node axis last, as the kernel reads it."""
@@ -116,14 +157,25 @@ class GATv2Stencil(nn.Module):
 
 
 class SpatialEncoder(nn.Module):
-    """x + GATv2(x); heads * out_channels equals the input width (22)."""
+    """x + GATv2(x); heads * out_channels equals the input width (22).
 
-    def __init__(self, cfg: ModelConfig):
+    Two modes with identical parameters, as the JAX SpatialEncoder's:
+      * stencil (``stencil_shifts`` set): ``neighbors`` is the (O, N) validity
+        and ``mask`` is None;
+      * padded gather (``stencil_shifts=None``): ``neighbors`` is the (N, D)
+        table and ``mask`` its (N, D) validity.
+    """
+
+    def __init__(self, cfg: ModelConfig, stencil_shifts: tuple[int, ...] | None = None):
         super().__init__()
-        self.gat_conv = GATv2Stencil(
+        self.stencil_shifts = stencil_shifts
+        cls = GATv2 if stencil_shifts is None else GATv2Stencil
+        self.gat_conv = cls(
             cfg.spatial_in_channels, cfg.spatial_out_channels, cfg.spatial_heads,
             cfg.gat_negative_slope, cfg.gat_dropout,
         )
 
-    def forward(self, x, shifts, valid, use_kernel: bool = False) -> torch.Tensor:
-        return x + self.gat_conv(x, shifts, valid, use_kernel)
+    def forward(self, x, neighbors, mask=None, use_kernel: bool = False) -> torch.Tensor:
+        if self.stencil_shifts is None:
+            return x + self.gat_conv(x, neighbors, mask)
+        return x + self.gat_conv(x, self.stencil_shifts, neighbors, use_kernel)

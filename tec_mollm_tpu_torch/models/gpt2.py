@@ -27,6 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tec_mollm_tpu_torch.config import ModelConfig
 from tec_mollm_tpu_torch.models.lora import LoRADense
@@ -182,10 +183,15 @@ class GPT2Backbone(nn.Module):
         use_fused_mlp: bool = False,
         use_flash: bool = False,
         lean_ln: bool = True,
+        remat: bool = False,
     ):
         super().__init__()
         self.dropout = cfg.llm_dropout
         self.norm = lean_layernorm if lean_ln else fp32_layernorm
+        # recompute each block's activations in the backward (the JAX model's
+        # remat_llm with the 'full' policy); the checkpoint restores the RNG
+        # state, so the recomputed dropout masks are the forward's
+        self.remat = remat
         self.wpe = nn.Embedding(cfg.llm_max_positions, cfg.d_llm)
         self.h = nn.ModuleList(
             GPT2Block(cfg, fused_attn, use_fused_mlp, use_flash, lean_ln)
@@ -209,7 +215,10 @@ class GPT2Backbone(nn.Module):
         dt = inputs_embeds.dtype
         x = F.dropout(inputs_embeds + self.wpe.weight[:t].to(dt)[None], self.dropout, self.training)
         for block in self.h:
-            x = block(x)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
         return self.norm(x, self.ln_f.weight, self.ln_f.bias, self.ln_f.eps)
 
 

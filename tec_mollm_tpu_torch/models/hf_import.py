@@ -55,24 +55,32 @@ def load_torch_checkpoint(path: str) -> dict[str, torch.Tensor]:
     return dict(torch.load(path, map_location="cpu", weights_only=True))
 
 
+def gpt2_state_dict(model: nn.Module, state_dict: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``model.state_dict()`` (of a ``TECMoLLM``) with a GPT-2 checkpoint's
+    tensors in place of the backbone's, each on its entry's device and dtype;
+    ``model`` itself is not changed. ``wpe`` is cut to the model's positions.
+    LoRA adapters are read when the checkpoint has them; otherwise they keep
+    their values (a fresh lora_B is 0, so the adapter starts as the identity)."""
+    sd = normalize_keys(state_dict)
+    prefix = "llm_backbone.model."
+    out = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    for name, param in model.llm_backbone.model.named_parameters():
+        if ".lora_" in name and name not in sd:
+            continue
+        if name not in sd:
+            raise KeyError(f"{name} missing from checkpoint (have e.g. {list(sd)[:5]})")
+        value = sd[name]
+        if name == "wpe.weight":
+            value = value[: param.shape[0]]
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(f"shape mismatch for {name}: checkpoint {tuple(value.shape)} vs model {tuple(param.shape)}")
+        out[prefix + name] = value.to(device=param.device, dtype=param.dtype)
+    return out
+
+
 def load_gpt2_into_model(model: nn.Module, state_dict: Mapping[str, Any]) -> nn.Module:
     """Overlay a GPT-2 checkpoint onto ``model.llm_backbone.model`` (a
-    ``TECMoLLM``) in place, checking shapes and casting to each parameter's
-    dtype. ``wpe`` is cut to the model's positions. LoRA adapters are read when
-    the checkpoint has them; otherwise they keep their fresh init (lora_B = 0,
-    so the adapter starts as the identity). Returns ``model``."""
-    sd = normalize_keys(state_dict)
-    backbone = model.llm_backbone.model
+    ``TECMoLLM``) in place (``gpt2_state_dict``). Returns ``model``."""
     with torch.no_grad():
-        for name, param in backbone.named_parameters():
-            if ".lora_" in name and name not in sd:
-                continue
-            if name not in sd:
-                raise KeyError(f"{name} missing from checkpoint (have e.g. {list(sd)[:5]})")
-            value = sd[name]
-            if name == "wpe.weight":
-                value = value[: param.shape[0]]
-            if tuple(value.shape) != tuple(param.shape):
-                raise ValueError(f"shape mismatch for {name}: checkpoint {tuple(value.shape)} vs model {tuple(param.shape)}")
-            param.copy_(value.to(device=param.device, dtype=param.dtype))
+        model.load_state_dict(gpt2_state_dict(model, state_dict))
     return model

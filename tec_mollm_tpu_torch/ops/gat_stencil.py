@@ -21,6 +21,11 @@ window is converted once to node-major fp32 records, a neighbour's 11 channels
 beside the head's projection att . xl (with leaky_relu(e) = k1 e + k2 |e| that
 leaves a channel one add and one multiply-add of the score); the softmax is
 online over the offsets, and each record is read once, in three 16-byte loads.
+That tiled kernel is built for the model's 2 heads x 11 channels, at most 64
+offsets and shifts up to 144 nodes (``tiled_takes``). Any other layout or
+stencil, all of which the Pallas kernel takes, launches the file's general
+kernel: a thread per (slice, head, node) reading its neighbours from device
+memory, with the same arithmetic and masks.
 
 Unlike the Pallas body, the denominator is floored at the smallest normal
 float32, as the model's plain path does: a node with no valid offset (the lanes
@@ -43,33 +48,58 @@ NAME = "gat_stencil"
 _NEG = torch.finfo(torch.float32).min
 _TINY = torch.finfo(torch.float32).tiny
 
-# What csrc/gat_stencil.cu takes: up to MAX_OFFSETS offsets (a node's validity
-# bits are one uint64 there), each shift at most MAX_SHIFT nodes (its largest
-# halo: the 300 km stencil's), and 2 heads x 11 channels.
+# What csrc/gat_stencil.cu's tiled kernel takes: up to MAX_OFFSETS offsets (a
+# node's validity bits are one uint64 there), each shift at most MAX_SHIFT nodes
+# (its largest halo: the 300 km stencil's), and 2 heads x 11 channels. Any other
+# stencil or layout launches its general kernel instead, counted as
+# GENERAL_NAME.
 MAX_OFFSETS = 64
 MAX_SHIFT = 144
 _HEADS, _CHANNELS = 2, 11
+GENERAL_NAME = "gat_stencil_general"
+_INT32 = 2**31 - 1
+
+
+def tiled_takes(shifts, heads: int = _HEADS, channels: int = _CHANNELS) -> str | None:
+    """None when the tiled kernel takes this stencil and head layout, else why
+    the general kernel runs it: more than MAX_OFFSETS offsets, a shift beyond
+    MAX_SHIFT nodes, or another layout than 2 heads x 11 channels."""
+    shifts = tuple(int(s) for s in shifts)
+    if not 1 <= len(shifts) <= MAX_OFFSETS:
+        return f"the tiled kernel takes 1 to {MAX_OFFSETS} offsets, got {len(shifts)}"
+    if max(map(abs, shifts)) > MAX_SHIFT:
+        return f"the tiled kernel takes shifts up to {MAX_SHIFT} nodes, got {max(map(abs, shifts))}"
+    if (heads, channels) != (_HEADS, _CHANNELS):
+        return f"the tiled kernel is built for {_HEADS} heads x {_CHANNELS} channels, got {heads}x{channels}"
+    return None
 
 
 def check_stencil(shifts) -> tuple[int, ...]:
-    """The shifts as a tuple of ints; raises for a stencil the kernel does not
-    take: no offset, more than MAX_OFFSETS, or a shift beyond MAX_SHIFT nodes."""
+    """The shifts as a tuple of ints; raises for a stencil no kernel takes: one
+    without an offset, or a shift that is not a 32-bit int."""
     shifts = tuple(int(s) for s in shifts)
-    if not 1 <= len(shifts) <= MAX_OFFSETS:
-        raise ValueError(f"the stencil kernel takes 1 to {MAX_OFFSETS} offsets, got {len(shifts)}")
-    if max(map(abs, shifts)) > MAX_SHIFT:
-        raise ValueError(f"the stencil kernel takes shifts up to {MAX_SHIFT} nodes, got {max(map(abs, shifts))}")
+    if not shifts:
+        raise ValueError("the stencil kernel takes at least one offset, got none")
+    if max(map(abs, shifts)) > _INT32:
+        raise ValueError(f"the stencil kernel takes shifts up to {_INT32} nodes, got {max(map(abs, shifts))}")
     return shifts
 
 
-# gat_stencil_forward's C signature: xl, xr, valid, shifts, att, out; m, heads,
-# channels, n, n_offsets; negative slope; is_bf16; stream
-ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# gat_stencil_forward's C signature: xl, xr, valid, shifts (host), shifts (device),
+# att, out; m, heads, channels, n, n_offsets; negative slope; is_bf16, general;
+# stream
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=16)
 def _shift_array(shifts: tuple[int, ...]) -> ctypes.Array:
     return (ctypes.c_int * len(shifts))(*shifts)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_shifts(shifts: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The shifts as int32 on ``device``, where the general kernel reads them."""
+    return torch.tensor(shifts, dtype=torch.int32, device=device)
 
 
 def gat_stencil_reference(
@@ -108,13 +138,19 @@ def gat_stencil_reference(
 
 def entry_args(xl, xr, valid, att32, shifts: tuple[int, ...], out, negative_slope: float) -> tuple:
     """gat_stencil_forward's arguments for checked tensors on one device (att32
-    fp32 and contiguous there, out the result's buffer), in ARGTYPES' order."""
+    the (H, C) fp32 attention vector, contiguous there; out the result's
+    buffer), in ARGTYPES' order: the tiled kernel where ``tiled_takes``, else
+    the general one."""
     m, _, n = xl.shape
+    heads, channels = att32.shape
+    general = tiled_takes(shifts, heads, channels) is not None
     return (
         xl.data_ptr(), xr.data_ptr(), valid.data_ptr(),
-        ctypes.cast(_shift_array(shifts), ctypes.c_void_p), att32.data_ptr(), out.data_ptr(),
-        m, _HEADS, _CHANNELS, n, len(shifts), float(negative_slope),
-        int(xl.dtype == torch.bfloat16), _build.stream_handle(xl.device),
+        None if general else ctypes.cast(_shift_array(shifts), ctypes.c_void_p),
+        _device_shifts(shifts, xl.device).data_ptr() if general else None,
+        att32.data_ptr(), out.data_ptr(),
+        m, heads, channels, n, len(shifts), float(negative_slope),
+        int(xl.dtype == torch.bfloat16), int(general), _build.stream_handle(xl.device),
     )
 
 
@@ -138,8 +174,9 @@ def gat_stencil_attention(
         return gat_stencil_reference(xl, xr, valid, att, shifts, negative_slope)
     m, hc, n = xl.shape
     h, c = att.shape
-    if (h, c) != (_HEADS, _CHANNELS) or h * c != hc:
-        raise ValueError(f"the stencil kernel is built for 2 heads x 11 channels, got {h}x{c}")
+    if h * c != hc:
+        raise ValueError(f"att ({h}x{c}) does not fit {hc} channels")
+    shifts = check_stencil(shifts)
     if xl.dtype not in (torch.bfloat16, torch.float32) or xr.dtype != xl.dtype:
         raise TypeError(f"xl/xr must share bf16 or fp32, got {xl.dtype}/{xr.dtype}")
     if xr.shape != xl.shape or tuple(valid.shape) != (len(shifts), n):
@@ -152,10 +189,9 @@ def gat_stencil_attention(
     for name, t in (("xl", xl), ("xr", xr), ("valid", valid)):
         if t.device != xl.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {xl.device}")
-    shifts = check_stencil(shifts)
     att32 = att.detach().to(device=xl.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(xl)
     fn = _build.function("gat_stencil_forward", ARGTYPES)
     _build.check(NAME, fn(*entry_args(xl, xr, valid, att32, shifts, out, negative_slope)))
-    _build.count_launch(NAME)
+    _build.count_launch(NAME if tiled_takes(shifts, h, c) is None else GENERAL_NAME)
     return out

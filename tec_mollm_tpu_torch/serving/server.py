@@ -1,8 +1,12 @@
 """Persistent forecast service on one GPU: load once, answer requests warm.
 
 * loads the processed splits, the graph and the target scaler once;
-* weights come from a port ``.pt`` state_dict file, or from a state_dict passed
-  in memory; the model runs in eval mode at bf16 when ``cfg.train.bf16``;
+* weights come from a port ``.pt`` state_dict file (the trainer's
+  ``best_params.pt`` is one), or from a state_dict passed in memory; the model
+  runs in eval mode at bf16 when ``cfg.train.bf16``;
+* the graph's stencil feeds the stencil GAT kernel, a graph without one the
+  padded-gather GAT; the model's route (``TECMoLLM.gat_route``) is reported by
+  ``stats()`` and ``health()``;
 * every request is padded to ``max_batch`` windows (one shape on the card);
 * concurrent requests are coalesced into one device batch (``_DynamicBatcher``);
 * forecasts come back in TECU: inverse target scaling, ``nan_to_num`` and a clip
@@ -33,7 +37,7 @@ from tec_mollm_tpu_torch.data.dataset import SlidingWindowDataset
 from tec_mollm_tpu_torch.data.scaler import StandardScaler
 from tec_mollm_tpu_torch.device import resolve_device
 from tec_mollm_tpu_torch.graph.builder import GraphData
-from tec_mollm_tpu_torch.models.tec_mollm import TECMoLLM, graph_inputs
+from tec_mollm_tpu_torch.models.tec_mollm import TECMoLLM, graph_inputs, opt_in_kernel_refusal
 
 logger = logging.getLogger(__name__)
 
@@ -158,6 +162,11 @@ class ForecastService:
         if (checkpoint is None) == (state_dict is None):
             raise ValueError("pass exactly one of checkpoint (a .pt path) or state_dict")
         self.cfg = cfg = cfg.resolved()
+        self.dtype = torch.bfloat16 if cfg.train.bf16 else torch.float32
+        if self.device.type == "cuda":
+            reason = opt_in_kernel_refusal(cfg.model, self.dtype, fused_attn, use_fused_mlp)
+            if reason is not None:
+                raise ValueError(reason)
         self.datasets = {
             s: SlidingWindowDataset.from_dir(data_dir, s, cfg.train.L_in, cfg.train.L_out, stride=1)
             for s in splits
@@ -169,11 +178,8 @@ class ForecastService:
         if checkpoint is not None:
             state_dict = torch.load(checkpoint, map_location="cpu", weights_only=True)
         self.ckpt_path = checkpoint or "<in-memory state_dict>"
-        shifts, self.valid = graph_inputs(graph, self.device)
-        self.dtype = torch.bfloat16 if cfg.train.bf16 else torch.float32
-        model = TECMoLLM(
-            cfg.model, shifts, dtype=self.dtype, fused_attn=fused_attn, use_fused_mlp=use_fused_mlp,
-        )
+        shifts, self.graph = graph_inputs(graph, self.device)
+        model = TECMoLLM(cfg.model, shifts, dtype=self.dtype, fused_attn=fused_attn, use_fused_mlp=use_fused_mlp)
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
         self.max_batch = max_batch
@@ -197,8 +203,8 @@ class ForecastService:
         self.warmup_s = time.perf_counter() - t0
         self._batcher = _DynamicBatcher(self, batch_window_ms) if batch_window_ms > 0 else None
         logger.info(
-            "service warm on %s: %s max_batch=%d first run %.1fs",
-            self.device, self.ckpt_path, self.max_batch, self.warmup_s,
+            "service warm on %s: %s max_batch=%d first run %.1fs; GAT route: %s",
+            self.device, self.ckpt_path, self.max_batch, self.warmup_s, self.model.gat_route,
         )
 
     def _run_padded(self, batch: dict[str, np.ndarray], n: int) -> np.ndarray:
@@ -210,7 +216,7 @@ class ForecastService:
         tf = torch.from_numpy(batch["time_features"])
         with torch.inference_mode():
             preds = self.model(
-                x.to(self.device, non_blocking=True), tf.to(self.device, non_blocking=True), self.valid
+                x.to(self.device, non_blocking=True), tf.to(self.device, non_blocking=True), *self.graph
             )
         out = preds[:n].cpu().numpy()
         with self._stats_lock:
@@ -261,7 +267,7 @@ class ForecastService:
             lat = np.asarray(self._latencies_ms)
             fwd = np.asarray(self._forward_ms)
             count = self._count
-        out: dict[str, Any] = {"requests": count}
+        out: dict[str, Any] = {"requests": count, "gat_route": self.model.gat_route}
         if lat.size:
             out.update(
                 p50_ms=round(float(np.percentile(lat, 50)), 3),
@@ -315,6 +321,7 @@ class ForecastService:
             "L_in": self.cfg.train.L_in,
             "L_out": self.cfg.train.L_out,
             "max_batch": self.max_batch,
+            "gat_route": self.model.gat_route,
             "splits": {k: len(v) for k, v in self.datasets.items()},
             "warmup_s": round(self.warmup_s, 2),
         }

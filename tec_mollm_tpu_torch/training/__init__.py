@@ -15,6 +15,7 @@ from tec_mollm_tpu_torch.training.train_state import (
     make_eval_step,
     make_sum_loss_fn,
     make_train_step,
+    point_forecast,
 )
 
 __all__ = [
@@ -30,6 +31,7 @@ __all__ = [
     "make_sum_loss_fn",
     "make_train_step",
     "pinball_loss",
+    "point_forecast",
     "trainable_mask",
     "val_loss",
     "warmup_cosine_decay",

@@ -18,8 +18,9 @@ re-run from the same state and batch gives the same loss.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
@@ -54,6 +55,23 @@ class TrainState:
     def frozen(self) -> dict[str, torch.nn.Parameter]:
         return {n: p for n, p in self.model.named_parameters() if not p.requires_grad}
 
+    @contextlib.contextmanager
+    def eval_params(self) -> Iterator[torch.nn.Module]:
+        """The model with the parameters evaluation should use: the EMA weights
+        when tracked (swapped in for the block and back out after it), else
+        the raw ones. The JAX TrainState's ``eval_params``."""
+        if self.ema is None:
+            yield self.model
+            return
+        params = self.trainable()
+        for n, p in params.items():
+            p.data, self.ema[n] = self.ema[n], p.data
+        try:
+            yield self.model
+        finally:
+            for n, p in params.items():
+                p.data, self.ema[n] = self.ema[n], p.data
+
 
 def create_train_state(
     model: torch.nn.Module,
@@ -87,6 +105,13 @@ def dropout_seed(seed: int, step: int, micro: int) -> int:
     return int(np.random.SeedSequence([seed, step, micro]).generate_state(1, np.uint64)[0] >> 1)
 
 
+def point_forecast(preds: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """(B, L_out, N, Q) -> (B, L_out, N, 1): the forecast itself, or the 0.5
+    level in quantile mode."""
+    q = cfg.model.median_index
+    return preds[..., q : q + 1]
+
+
 def _targets(batch: dict[str, torch.Tensor]) -> torch.Tensor:
     """y (B, N, L_out) -> (B, L_out, N, 1), the model's output layout."""
     return batch["y"].transpose(1, 2)[..., None]
@@ -99,13 +124,14 @@ def _objective(preds, targets, cfg: Config, weights=None) -> torch.Tensor:
 
 
 def make_sum_loss_fn(model: torch.nn.Module, cfg: Config) -> Callable:
-    """loss_fn(batch, stencil_valid) -> (weighted SUM of the elementwise
-    objective, weight count). ``batch['valid']`` (B,) bool, when present, gives
+    """loss_fn(batch, graph) -> (weighted SUM of the elementwise objective,
+    weight count); ``graph`` is the (neighbors, neighbor_mask) pair of
+    ``graph_inputs``. ``batch['valid']`` (B,) bool, when present, gives
     padded rows weight 0. Summing both over microbatches and dividing once gives
     the valid-weighted mean of the macro batch however its rows are split."""
 
-    def loss_fn(batch: dict[str, torch.Tensor], stencil_valid: torch.Tensor):
-        preds = model(batch["x"], batch["time_features"], stencil_valid)
+    def loss_fn(batch: dict[str, torch.Tensor], graph: tuple[torch.Tensor, torch.Tensor | None]):
+        preds = model(batch["x"], batch["time_features"], *graph)
         targets = _targets(batch)
         if cfg.model.quantiles:
             elem = pinball_elementwise(preds, targets, cfg.model.quantiles)
@@ -120,7 +146,7 @@ def make_sum_loss_fn(model: torch.nn.Module, cfg: Config) -> Callable:
 
 
 def make_train_step(model: torch.nn.Module, cfg: Config) -> Callable:
-    """train_step(state, batch, stencil_valid) -> (state, {"loss", "grad_norm"}).
+    """train_step(state, batch, graph) -> (state, {"loss", "grad_norm"}).
 
     ``batch`` arrays have leading dim accumulation_steps * microbatch. Only the
     trainable parameters get gradients."""
@@ -130,12 +156,12 @@ def make_train_step(model: torch.nn.Module, cfg: Config) -> Callable:
         cfg.train.lr, cfg.train.sched_t0, cfg.train.sched_t_mult, cfg.train.sched_eta_min
     )
 
-    def train_step(state: TrainState, batch: dict[str, torch.Tensor], stencil_valid: torch.Tensor):
+    def train_step(state: TrainState, batch: dict[str, torch.Tensor], graph: tuple[torch.Tensor, torch.Tensor | None]):
         model.train()
         params = list(state.trainable().values())
         for p in params:
             p.grad = None
-        device = stencil_valid.device
+        device = graph[0].device
         forked = [device] if device.type == "cuda" else []
         micro = batch["x"].shape[0] // accum
         loss_sum = torch.zeros((), device=device)
@@ -144,7 +170,7 @@ def make_train_step(model: torch.nn.Module, cfg: Config) -> Callable:
             mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()} if accum > 1 else batch
             with torch.random.fork_rng(devices=forked):
                 torch.manual_seed(dropout_seed(state.seed, state.step, i))
-                wsum, count = loss_fn(mb, stencil_valid)
+                wsum, count = loss_fn(mb, graph)
             wsum.backward()
             loss_sum += wsum.detach()
             count_sum += count
@@ -170,14 +196,14 @@ def make_train_step(model: torch.nn.Module, cfg: Config) -> Callable:
 
 
 def make_eval_step(model: torch.nn.Module, cfg: Config) -> Callable:
-    """eval_step(batch, stencil_valid) -> (loss, preds, targets), deterministic
+    """eval_step(batch, graph) -> (loss, preds, targets), deterministic
     and under ``torch.no_grad()``; padded rows (``batch['valid']``) carry zero
     loss weight."""
 
-    def eval_step(batch: dict[str, torch.Tensor], stencil_valid: torch.Tensor):
+    def eval_step(batch: dict[str, torch.Tensor], graph: tuple[torch.Tensor, torch.Tensor | None]):
         model.eval()
         with torch.no_grad():
-            preds = model(batch["x"], batch["time_features"], stencil_valid)
+            preds = model(batch["x"], batch["time_features"], *graph)
             targets = _targets(batch)
             valid = batch.get("valid")
             if valid is None:

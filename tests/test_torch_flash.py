@@ -352,7 +352,7 @@ def test_forecast_model_is_unchanged_by_use_flash():
 
     m = tiny_config().model
     graph = build_graph(*grid_coordinates(m.grid_h, m.grid_w))
-    shifts, valid = graph_inputs(graph, "cpu")
+    shifts, graph_pair = graph_inputs(graph, "cpu")
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(2, m.temporal_seq_len, m.num_nodes, m.in_features)).astype(np.float32))
     tf = torch.zeros(2, m.temporal_seq_len, 4, dtype=torch.int32)
@@ -361,5 +361,5 @@ def test_forecast_model_is_unchanged_by_use_flash():
         model = TECMoLLM(m, shifts, use_flash=use_flash, seed=3).eval()
         assert all(blk.attn.use_flash == use_flash for blk in model.llm_backbone.model.h)
         with torch.no_grad():
-            outs.append(model(x, tf, valid))
+            outs.append(model(x, tf, *graph_pair))
     torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)

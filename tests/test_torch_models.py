@@ -29,6 +29,7 @@ from tec_mollm_tpu.models.ref_import import reference_state_dict_to_params
 from tec_mollm_tpu.models.temporal import MultiScaleConvBlock as JaxConvBlock
 from tec_mollm_tpu.models.temporal import TemporalEncoder as JaxTemporal
 from tec_mollm_tpu_torch.models import TECMoLLM, graph_inputs, params_to_state_dict
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL, RTOL = 3e-5, 1e-4
 
@@ -94,9 +95,9 @@ class World:
         ))
 
     def port_forward(self, **kwargs):
-        _, valid = graph_inputs(self.graph, "cpu")
+        _, graph = graph_inputs(self.graph, "cpu")
         with torch.no_grad():
-            return self.port(**kwargs)(torch.from_numpy(self.x), torch.from_numpy(self.tf), valid).numpy()
+            return self.port(**kwargs)(torch.from_numpy(self.x), torch.from_numpy(self.tf), *graph).numpy()
 
 
 @pytest.fixture(scope="module")
@@ -260,17 +261,22 @@ class TestWeights:
 
     def test_train_mode_runs_the_plain_paths_with_dropout(self, world):
         model = world.port(fused_attn=False, use_fused_mlp=True).train()
-        _, valid = graph_inputs(world.graph, "cpu")
+        _, graph = graph_inputs(world.graph, "cpu")
         torch.manual_seed(0)
-        out = model(_t(world.x), _t(world.tf), valid)
+        out = model(_t(world.x), _t(world.tf), *graph)
         out.sum().backward()
         assert torch.isfinite(out).all()
         assert model.llm_backbone.model.h[0].attn.c_attn.lora_A.weight.grad is not None
 
     def test_graph_without_stencil_is_refused(self, world):
+        """A graph without a stencil is refused by a model built for the
+        stencil: graph_inputs hands it the padded (N, D) table, which only a
+        padded-gather model (stencil_shifts=None) takes."""
         g = dataclasses.replace(world.graph, stencil_shifts=None, stencil_valid=None)
         from tec_mollm_tpu_torch.graph import GraphData
 
         port_graph = GraphData(**{f.name: getattr(g, f.name) for f in dataclasses.fields(g)})
-        with pytest.raises(NotImplementedError, match="stencil"):
-            graph_inputs(port_graph, "cpu")
+        shifts, (neighbors, mask) = graph_inputs(port_graph, "cpu")
+        assert shifts is None and neighbors.dtype == torch.int64 and mask.dtype == torch.bool
+        with pytest.raises(ValueError, match="stencil"), torch.no_grad():
+            world.port()(_t(world.x), _t(world.tf), neighbors, mask)

@@ -21,7 +21,7 @@ from tec_mollm_tpu.ops.short_attention import fused_short_causal_attention
 from tec_mollm_tpu_torch import ops
 from tec_mollm_tpu_torch.graph import grid_coordinates as port_grid_coordinates
 from tec_mollm_tpu_torch.graph.builder import build_grid_stencil
-from tec_mollm_tpu_torch.ops.gat_stencil import MAX_OFFSETS, MAX_SHIFT, check_stencil
+from tec_mollm_tpu_torch.ops.gat_stencil import MAX_OFFSETS, MAX_SHIFT, check_stencil, tiled_takes
 from tec_mollm_tpu_torch.ops.short_attention import dropout_bits, dropout_keep, dropout_threshold
 
 
@@ -110,18 +110,20 @@ class TestGATStencil:
     def test_device_tensor_never_falls_back(self, padded_stencil):
         """A tensor off the CPU goes to the kernel or raises: shapes the kernel
         does not take raise before any build, and without a CUDA toolchain the
-        build itself raises."""
+        build itself raises, for the tiled layout and for the general form's
+        (1 head x 22 channels)."""
         shifts, valid, _ = padded_stencil
         n = valid.shape[1]
         xl = torch.empty(2, 22, n, device="meta")
         v = torch.empty(len(shifts), n, dtype=torch.bool, device="meta")
-        with pytest.raises(ValueError, match="2 heads x 11"):
-            ops.gat_stencil_attention(xl, xl, v, torch.empty(1, 22, device="meta"), shifts)
+        with pytest.raises(ValueError, match="does not fit 22 channels"):
+            ops.gat_stencil_attention(xl, xl, v, torch.empty(2, 7, device="meta"), shifts)
         with pytest.raises(TypeError, match="bool"):
             ops.gat_stencil_attention(xl, xl, v.float(), torch.empty(2, 11), shifts)
         if not torch.cuda.is_available():
-            with pytest.raises(RuntimeError, match="nvcc|CUDA"):
-                ops.gat_stencil_attention(xl, xl, v, torch.empty(2, 11), shifts)
+            for att in (torch.empty(2, 11), torch.empty(1, 22)):
+                with pytest.raises(RuntimeError, match="nvcc|CUDA"):
+                    ops.gat_stencil_attention(xl, xl, v, att, shifts)
 
 
 # the flagship 41x71 grid's two stencils: 150 km (the default, O = 11, largest
@@ -188,16 +190,23 @@ class TestGATStencilFlagship:
 
 
 def _kernel_takes(shifts) -> bool:
-    """What the kernel takes, in numpy: 1 to 64 offsets (a node's validity bits
-    are one uint64) and no |shift| beyond its largest halo, 144 nodes."""
+    """What the kernel takes, in numpy: at least one offset, each shift a 32-bit
+    int. Its tiled form takes 1 to 64 offsets (a node's validity bits are one
+    uint64) and no |shift| beyond its largest halo, 144 nodes; the general
+    form the rest."""
+    return len(shifts) >= 1 and bool(np.abs(np.asarray(shifts, np.int64)).max() <= 2**31 - 1)
+
+
+def _tiled_takes(shifts) -> bool:
     return 1 <= len(shifts) <= 64 and bool(np.abs(np.asarray(shifts, np.int64)).max() <= 144)
 
 
 class TestCheckStencil:
     @pytest.mark.parametrize("seed", range(8))
     def test_matches_numpy(self, seed):
-        """Random stencils around both limits: check_stencil takes exactly the
-        ones the numpy rule takes, and returns their shifts as ints."""
+        """Random stencils around the tiled form's limits: check_stencil takes
+        exactly the ones the numpy rule takes and returns their shifts as ints,
+        and tiled_takes picks the tiled form exactly where the numpy rule does."""
         rng = np.random.default_rng(seed)
         for _ in range(50):
             o = int(rng.integers(0, MAX_OFFSETS + 8))
@@ -206,6 +215,7 @@ class TestCheckStencil:
             if _kernel_takes(shifts):
                 got = check_stencil(shifts)
                 assert got == tuple(int(s) for s in shifts) and all(type(s) is int for s in got)
+                assert (tiled_takes(got) is None) == _tiled_takes(shifts), shifts
             else:
                 with pytest.raises(ValueError, match="stencil kernel takes"):
                     check_stencil(shifts)
@@ -215,6 +225,7 @@ class TestCheckStencil:
         shifts, _ = flagship_stencils[km]
         assert check_stencil(np.asarray(shifts)) == shifts
         assert max(map(abs, shifts)) == {150.0: 72, 300.0: 144}[km] <= MAX_SHIFT
+        assert tiled_takes(shifts) is None
 
     @pytest.mark.parametrize("shifts, match", [
         (tuple(range(MAX_OFFSETS + 1)), "1 to 64 offsets"),
@@ -223,14 +234,25 @@ class TestCheckStencil:
         ((-MAX_SHIFT - 1, 0), "shifts up to 144"),
     ])
     def test_refuses_what_the_kernel_does_not_take(self, shifts, match):
-        with pytest.raises(ValueError, match=match):
-            check_stencil(shifts)
+        """Past the tiled form's limits (with the reason) the general form
+        takes the stencil; only a stencil without an offset, or with a shift
+        beyond 32 bits, is refused."""
+        reason = tiled_takes(shifts)
+        assert reason is not None and match in reason
+        if shifts:
+            assert check_stencil(shifts) == shifts
+        else:
+            with pytest.raises(ValueError, match="at least one offset"):
+                check_stencil(shifts)
+        with pytest.raises(ValueError, match="shifts up to 2147483647"):
+            check_stencil((0, 2**31))
         assert check_stencil(tuple(range(MAX_OFFSETS))) == tuple(range(MAX_OFFSETS))
         assert check_stencil((-MAX_SHIFT, 0, MAX_SHIFT)) == (-MAX_SHIFT, 0, MAX_SHIFT)
+        assert tiled_takes((-MAX_SHIFT, 0, MAX_SHIFT)) is None
 
     @pytest.mark.parametrize("shifts, match", [
-        (tuple(range(MAX_OFFSETS + 1)), "1 to 64 offsets"),
-        ((0, 1, MAX_SHIFT + 1), "shifts up to 144"),
+        ((), "at least one offset"),
+        ((0, 1, 2**31), "shifts up to 2147483647"),
     ])
     def test_wrapper_refuses_before_any_build(self, shifts, match):
         """A device tensor with a stencil the kernel does not take raises in

@@ -373,11 +373,11 @@ class TestCLI:
         graph = build_graph(*grid_coordinates(pm.grid_h, pm.grid_w))
         model = TECMoLLM(pm, tuple(int(s) for s in graph.stencil_shifts))
         load_gpt2_into_model(model, load_torch_checkpoint(str(out)))
-        _, valid = graph_inputs(graph, "cpu")
+        _, graph_pair = graph_inputs(graph, "cpu")
         x = torch.zeros(1, pm.temporal_seq_len, pm.num_nodes, pm.in_features)
         tf = torch.zeros(1, pm.temporal_seq_len, 4, dtype=torch.int32)
         with torch.no_grad():
-            assert torch.isfinite(model.eval()(x, tf, valid)).all()
+            assert torch.isfinite(model.eval()(x, tf, *graph_pair)).all()
 
     def test_without_cpu_and_without_cuda_it_raises(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

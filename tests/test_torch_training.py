@@ -53,6 +53,7 @@ from tec_mollm_tpu_torch.training import (
     trainable_mask,
 )
 from tec_mollm_tpu_torch.training import loss as ploss
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 LR, PAD = 1e-3, 32
@@ -115,8 +116,8 @@ class Setup:
         model = TECMoLLM(self.pc.model, self.shifts, pad_nodes_to=PAD, fused_attn=True, **kwargs)
         model.load_state_dict(params_to_state_dict(self.flat, self.pc.model))
         state, mask = create_train_state(model, self.pc, seed=0, frozen_dtype=frozen_dtype)
-        _, valid = graph_inputs(self.graph, "cpu")
-        return model, state, mask, valid
+        _, graph = graph_inputs(self.graph, "cpu")
+        return model, state, mask, graph
 
     def tensors(self, batch=None):
         return {k: torch.from_numpy(np.asarray(v)) for k, v in (batch or self.batch).items()}
