@@ -80,6 +80,24 @@ Phases (any failure exits non-zero):
      loaded through hf_import into the flagship TECMoLLM (LoRA r 32): its
      backbone tensors must equal the exported ones bit for bit, lora_B stay 0,
      and one eval forecast on the card be finite.
+  8. eval (run inside phase 4's processed dir, before phase 7): the test CLI
+     (python -m tec_mollm_tpu_torch.test, called in-process) with --checkpoint
+     latest on phase 6's workdir: the newest best_params.pt at flagship width,
+     bf16, eval batch 16 over the 91 test windows, with a rollout of
+     EVAL_ROLLOUT_STEPS steps over EVAL_ROLLOUT_WINDOWS windows. Both CSV rows
+     finite, rollout_results.csv written, and the GAT kernel launched exactly
+     once per eval batch and once per rollout chunk, no other kernel. The same
+     evaluation on the plain GAT within VAL_RTOL on MAE and RMSE; the eval loop
+     timed on a warm executor (windows/s, ms a batch) and profiled (busy share
+     over the unprofiled wall); the rollout timed and profiled. The weights
+     resaved as a reference .pth with DDP's module. prefixes score an
+     identical CSV. A seeded operational_config() checkpoint (quantiles
+     0.1/0.5/0.9, RevIN): --split val --conformal fit writes conformal.npz and
+     its calibrated 80% interval covers 0.80 within COVERAGE_TOL of the val
+     windows it was fit on; --conformal auto --conformal-mode adaptive writes
+     the three quantile_metrics CSVs; the predict CLI writes
+     forecast_quantiles_conformal for windows 0 and 5, and a ForecastService
+     on the checkpoint returns the same bands within BANDS_TOL_TECU.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON. Details also go to chiprun_out/chip_smoke.json.
 """
@@ -191,6 +209,12 @@ TRAINER_EPOCHS, TRAINER_CKPT_EVERY, TRAINER_STOP_AFTER, RESUME_RTOL = 2, 2, 2, 1
 # losses (one-ulp bf16 differences of the GAT output, averaged over 16 windows
 # x 12 steps x 2911 nodes)
 VAL_RTOL = 1e-2
+# eval phase: the test CLI's rollout (steps, windows), the distance allowed
+# between the conformal 80% interval's coverage on the split its offsets were
+# fit on and 0.80, and between predict's and the service's calibrated bands in
+# TECU (both bf16 through the kernel, at the same batch shape)
+EVAL_ROLLOUT_STEPS, EVAL_ROLLOUT_WINDOWS = 24, 8
+COVERAGE_TOL, BANDS_TOL_TECU = 0.02, 0.1
 
 
 def log(msg: str) -> None:
@@ -795,7 +819,8 @@ def profile_call(fn, top: int = 12) -> dict:
 def write_processed_dir(path: str, graph, cfg, seed: int, steps: int) -> None:
     """A processed dir as the preprocess CLI writes it: the test split of
     `steps` timesteps, train and val splits of TRAINER_WINDOWS stride-1
-    windows, graph.npz and target_scaler.npz."""
+    windows, graph.npz, target_scaler.npz and scaler.npz (the features': the
+    rollout maps its forecasts back through it)."""
     from tec_mollm_tpu_torch.data.scaler import StandardScaler
 
     rng = np.random.default_rng(seed)
@@ -816,6 +841,9 @@ def write_processed_dir(path: str, graph, cfg, seed: int, steps: int) -> None:
         np.savez(os.path.join(path, f"{split}_set.npz"), X=x, Y=y, time_features=tf.astype(np.int32))
     graph.save(os.path.join(path, "graph.npz"))
     StandardScaler(mean=np.array([TARGET_MEAN]), scale=np.array([TARGET_SCALE])).save(os.path.join(path, "target_scaler.npz"))
+    others = cfg.model.in_features - 1
+    StandardScaler(mean=np.r_[TARGET_MEAN, np.zeros(others)], scale=np.r_[TARGET_SCALE, np.ones(others)]).save(
+        os.path.join(path, "scaler.npz"))
 
 
 def drive_http(service, requests: list[list[int]], threads: int) -> tuple[dict, float]:
@@ -1356,6 +1384,225 @@ def trainer_phase(args, graph, data_dir: str, train_windows_per_s: float) -> dic
     }
 
 
+def read_csv(path: str) -> tuple[list[str], dict[str, np.ndarray]]:
+    """(header, {first column: the row's numbers}) of a results CSV."""
+    with open(path) as f:
+        header, *rows = [line.split(",") for line in f.read().splitlines()]
+    return header, {r[0]: np.asarray(r[1:], dtype=np.float64) for r in rows}
+
+
+def eval_phase(args, graph, data_dir: str) -> dict:
+    """Evaluation at flagship width (see the module docstring, phase 8): the
+    test CLI on phase 6's newest best_params.pt with a rollout, the same
+    weights as a reference .pth, and a seeded operational-preset checkpoint
+    through conformal fit, adaptive conformal, predict and the service."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops, predict, test
+    from tec_mollm_tpu_torch.config import operational_config
+    from tec_mollm_tpu_torch.data.dataset import SlidingWindowDataset
+    from tec_mollm_tpu_torch.data.scaler import StandardScaler
+    from tec_mollm_tpu_torch.evaluation import harness
+    from tec_mollm_tpu_torch.models import TECMoLLM
+    from tec_mollm_tpu_torch.serving import ForecastService
+
+    phase_t0 = time.perf_counter()
+    work, out = os.path.join(data_dir, "work"), os.path.join(data_dir, "eval")
+    common = ["--data-dir", data_dir, "--workdir", work]
+    cfg, ckpt = harness.resolve_cli_config(None, "latest", work)
+    cfg = cfg.resolved()
+    batch, L_out = cfg.train.eval_batch_size, cfg.train.L_out
+    test_ds = SlidingWindowDataset.from_dir(data_dir, "test", cfg.train.L_in, L_out)
+    eval_batches = -(-len(test_ds) // batch)
+    chunks = -(-EVAL_ROLLOUT_STEPS // L_out)
+    launches: dict[str, int] = {}  # over the phase's main-path runs
+
+    def counted(fn):
+        """(fn(), its launch counts from zero, its wall seconds)."""
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return result, counts, wall
+
+    # --- 1. the point model: phase 6's newest best_params.pt, with a rollout ---
+    point_dir = os.path.join(out, "point")
+    point, counts_point, wall_point = counted(lambda: test.main(common + [
+        "--checkpoint", "latest", "--rollout-steps", str(EVAL_ROLLOUT_STEPS),
+        "--rollout-windows", str(EVAL_ROLLOUT_WINDOWS), "--output-dir", point_dir]))
+    header, rows = read_csv(os.path.join(point_dir, "evaluation_results.csv"))
+    want_counts = {"gat_stencil": eval_batches + chunks}
+    finite = all(np.isfinite(r).all() for r in rows.values())
+    log(
+        f"eval[point]: {ckpt} ({cfg.model.num_nodes} nodes, bf16 {cfg.train.bf16}), {len(test_ds)} test windows in "
+        f"{eval_batches} batches of {batch}, rollout {EVAL_ROLLOUT_STEPS} steps x {point['rollout']['num_windows']} "
+        f"windows ({chunks} chunks): CLI {wall_point:.2f} s; launches {counts_point} (want {want_counts}); "
+        f"MAE {point['results']['TEC-MoLLM']['mae_avg']:.4f} vs HA {point['results']['HistoricalAverage']['mae_avg']:.4f} "
+        f"TECU; rollout MAE {point['rollout']['mae_avg']:.4f}; finite {finite}"
+    )
+    if list(rows) != ["TEC-MoLLM", "HistoricalAverage"] or not finite or len(test_ds) < 64:
+        raise RuntimeError(f"eval[point]: rows {list(rows)}, finite {finite}, {len(test_ds)} windows")
+    if not os.path.exists(os.path.join(point_dir, "rollout_results.csv")) or counts_point != want_counts:
+        raise RuntimeError(f"eval[point]: launches {counts_point}, want {want_counts}, or no rollout_results.csv")
+
+    # the same evaluation with the GAT on its plain path: same weights, same batches
+    kernel_executor = harness.EvalExecutor
+
+    class PlainGAT(kernel_executor):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.model.gat_kernel = False
+
+    ops.reset_counts()
+    harness.EvalExecutor = PlainGAT
+    try:
+        plain = harness.run_evaluation(cfg, data_dir, ckpt, output_dir=os.path.join(out, "plain"), batch_size=batch)
+    finally:
+        harness.EvalExecutor = kernel_executor
+    plain_counts = ops.launch_counts()
+    k_m, p_m = point["results"]["TEC-MoLLM"], plain["results"]["TEC-MoLLM"]
+    rel = max(float(np.max(np.abs(np.asarray(k_m[k]) - p_m[k]) / np.abs(p_m[k])))
+              for k in ("mae_avg", "rmse_avg", "mae_by_horizon", "rmse_by_horizon"))
+    log(f"eval[point] through the GAT kernel vs the plain GAT: MAE/RMSE largest relative difference {rel:.3e} "
+        f"(tol {VAL_RTOL}); plain launches {plain_counts}")
+    if plain_counts or not rel <= VAL_RTOL:
+        raise RuntimeError(f"eval[point]: kernel vs plain GAT {rel:.3e}, plain launches {plain_counts}")
+
+    # --- the eval loop timed on a warm executor, then profiled ---
+    state = harness.load_params_for_eval(cfg, ckpt)
+    scaler = StandardScaler.load(os.path.join(data_dir, "target_scaler.npz"))
+    ex = harness.EvalExecutor(cfg, graph, state, batch)
+    ex.stream_metrics(test_ds, scaler)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex.stream_metrics(test_ds, scaler)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    prof = profile_call(lambda: ex.stream_metrics(test_ds, scaler))
+    busy = prof["device_ms"] / (stream_s * 1e3)
+    del ex
+    rollout_dir = os.path.join(out, "rollout")
+    harness.run_rollout_eval(cfg, data_dir, ckpt, EVAL_ROLLOUT_STEPS, EVAL_ROLLOUT_WINDOWS, output_dir=rollout_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    harness.run_rollout_eval(cfg, data_dir, ckpt, EVAL_ROLLOUT_STEPS, EVAL_ROLLOUT_WINDOWS, output_dir=rollout_dir)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    prof_rollout = profile_call(lambda: harness.run_rollout_eval(
+        cfg, data_dir, ckpt, EVAL_ROLLOUT_STEPS, EVAL_ROLLOUT_WINDOWS, output_dir=rollout_dir), top=100_000)
+    # the kernels' time alone: the call also copies the weights to the card
+    rollout_kernel_ms = sum(r["ms"] for r in prof_rollout["top"] if not r["name"].startswith("Memcpy"))
+    prof_rollout["top"] = prof_rollout["top"][:12]
+    timing = {
+        "eval_windows_per_s": len(test_ds) / stream_s, "eval_ms_per_batch": stream_s * 1e3 / eval_batches,
+        "eval_device_busy_share_unprofiled_wall": busy, "profile_eval": prof,
+        "rollout_s": rollout_s, "rollout_kernel_ms_per_chunk": rollout_kernel_ms / chunks,
+        "profile_rollout": prof_rollout,
+    }
+    log(
+        f"eval timing: {len(test_ds)} windows in {stream_s * 1e3:.1f} ms on a warm executor = "
+        f"{timing['eval_windows_per_s']:.1f} windows/s, {timing['eval_ms_per_batch']:.2f} ms a batch of {batch}; "
+        f"device {prof['device_ms']:.2f} ms = busy {busy:.2%} of the unprofiled wall ({prof['device_busy_share']:.2%} "
+        f"under the profiler); rollout eval {rollout_s * 1e3:.1f} ms (checkpoint load and model build included), "
+        f"its kernels {timing['rollout_kernel_ms_per_chunk']:.2f} ms a chunk of {point['rollout']['num_windows']} "
+        "windows"
+    )
+    for row in prof["top"][:8]:
+        log(f"  {row['ms']:8.3f} ms x{row['calls']:<4d} {row['name']}")
+
+    # --- 2. the same weights as a reference .pth: DDP prefixes, no config.json beside ---
+    ref_dir = os.path.join(data_dir, "reference")
+    os.makedirs(ref_dir)
+    pth = os.path.join(ref_dir, "best_model.pth")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+    torch.save({"module." + k: v for k, v in saved.items()}, pth)
+    pth_dir = os.path.join(out, "pth")
+    _, counts_pth, _ = counted(lambda: test.main(common + [
+        "--config", os.path.join(os.path.dirname(ckpt), "config.json"), "--checkpoint", pth, "--output-dir", pth_dir]))
+    with open(os.path.join(point_dir, "evaluation_results.csv")) as f, \
+            open(os.path.join(pth_dir, "evaluation_results.csv")) as g:
+        same_csv = f.read() == g.read()
+    log(f"eval[.pth]: module.-prefixed copy of the weights scored: CSV identical to the point run's {same_csv}; "
+        f"launches {counts_pth}")
+    if not same_csv:
+        raise RuntimeError("eval[.pth]: the reference-format checkpoint scored differently")
+
+    # --- 3. the operational preset: quantiles 0.1/0.5/0.9 with RevIN ---
+    op = operational_config()
+    op_run = os.path.join(work, "checkpoints", "op")
+    os.makedirs(op_run)
+    op_ckpt = os.path.join(op_run, "best_params.pt")
+    torch.save(TECMoLLM(op.model, tuple(int(s) for s in graph.stencil_shifts), seed=args.seed).state_dict(), op_ckpt)
+    with open(os.path.join(op_run, "config.json"), "w") as f:
+        f.write(op.to_json())
+    op_args = common + ["--run-name", "op"]
+    fit, counts_fit, wall_fit = counted(lambda: test.main(op_args + [
+        "--split", "val", "--conformal", "fit", "--output-dir", os.path.join(out, "op_fit")]))
+    qm = fit["results"]["TEC-MoLLM"]
+    coverage, raw_cov = qm["quantile_metrics_conformal"]["interval_coverage"], qm["quantile_metrics"]["interval_coverage"]
+    has_npz = os.path.exists(os.path.join(op_run, "conformal.npz"))
+    adaptive_dir = os.path.join(out, "op_adaptive")
+    ada, counts_ada, wall_ada = counted(lambda: test.main(op_args + [
+        "--conformal", "auto", "--conformal-mode", "adaptive", "--output-dir", adaptive_dir]))
+    q_csvs = sorted(n for n in os.listdir(adaptive_dir) if n.startswith("quantile_metrics"))
+    pred_dir = os.path.join(out, "op_predict")
+    pred, counts_pred, _ = counted(lambda: predict.main(op_args + ["--indices", "0", "5", "--output-dir", pred_dir]))
+
+    def serve():
+        # at the request's batch, so that the service and predict run the same shapes
+        service = ForecastService(op, data_dir, checkpoint="latest", workdir=work, run_name="op", max_batch=2,
+                                  batch_window_ms=0)
+        try:
+            return service.forecast([0, 5])
+        finally:
+            service.close()
+
+    served, counts_serve, _ = counted(serve)
+    bands_diff = (float(np.abs(np.asarray(served["forecast_quantiles_conformal"])
+                               - pred["forecast_quantiles_conformal"]).max())
+                  if "forecast_quantiles_conformal" in served and "forecast_quantiles_conformal" in pred else None)
+    ada_q = ada["results"]["TEC-MoLLM"]
+    log(
+        f"eval[operational]: conformal fit on {TRAINER_WINDOWS['val']} val windows (CLI {wall_fit:.2f} s): calibrated "
+        f"80% interval coverage {coverage:.4f} on that split (raw head {raw_cov:.4f}; tol {COVERAGE_TOL}); "
+        f"conformal.npz {has_npz}; launches {counts_fit}"
+    )
+    log(
+        f"eval[operational]: adaptive on {len(test_ds)} test windows (CLI {wall_ada:.2f} s): coverage raw "
+        f"{ada_q['quantile_metrics']['interval_coverage']:.4f}, split conformal "
+        f"{ada_q['quantile_metrics_conformal']['interval_coverage']:.4f}, adaptive "
+        f"{ada_q['quantile_metrics_adaptive']['interval_coverage']:.4f}; files {q_csvs}; launches {counts_ada}"
+    )
+    log(f"eval[operational]: predict [0, 5] launches {counts_pred}; service launches {counts_serve}; service vs "
+        f"predict conformal bands max |diff| {bands_diff} TECU (tol {BANDS_TOL_TECU})")
+    if not has_npz or not abs(coverage - 0.8) <= COVERAGE_TOL:
+        raise RuntimeError(f"eval[operational]: coverage {coverage} on the fitted split, conformal.npz {has_npz}")
+    if q_csvs != ["quantile_metrics.csv", "quantile_metrics_adaptive.csv", "quantile_metrics_conformal.csv"]:
+        raise RuntimeError(f"eval[operational]: adaptive run wrote {q_csvs}")
+    if bands_diff is None or not bands_diff <= BANDS_TOL_TECU:
+        raise RuntimeError(f"eval[operational]: service vs predict conformal bands {bands_diff}")
+    if set(launches) != {"gat_stencil"}:
+        raise RuntimeError(f"eval: launches {launches}, want the GAT kernel alone")
+    phase_s = time.perf_counter() - phase_t0
+    log(f"eval phase: {phase_s:.1f} s; launches over its CLI and service runs {launches}")
+    return {
+        "phase_s": phase_s,
+        "checkpoint": ckpt, "test_windows": len(test_ds), "eval_batches": eval_batches, "rollout_chunks": chunks,
+        "launches": launches, "launches_point": counts_point, "cli_s_point": wall_point,
+        "results_point": point["results"], "rollout_point": point["rollout"], "plain_gat_max_rel_diff": rel,
+        **timing, "pth_csv_identical": same_csv, "launches_pth": counts_pth,
+        "op_fit_coverage": coverage, "op_fit_raw_coverage": raw_cov, "op_fit_cli_s": wall_fit,
+        "op_adaptive": {k: ada_q[k]["interval_coverage"] for k in (
+            "quantile_metrics", "quantile_metrics_conformal", "quantile_metrics_adaptive")},
+        "op_adaptive_cli_s": wall_ada, "op_service_vs_predict_bands_tecu": bands_diff,
+        "launches_op": {"fit": counts_fit, "adaptive": counts_ada, "predict": counts_pred, "serve": counts_serve},
+    }
+
+
 def pretrain_grad_check(args, cfg, tokens) -> dict:
     """One pretraining step's gradients with every dropout at 0: ByteLM through
     the flash kernel in bf16 against an fp32 step on the plain (einsum) path,
@@ -1454,7 +1701,7 @@ def hf_roundtrip(args, graph, lm) -> dict:
 
 def pretrain_phase(args, graph) -> dict:
     """The surrogate GPT-2 pretraining at the script's full width and batch,
-    through the flash kernel (see the module docstring, phase 6)."""
+    through the flash kernel (see the module docstring, phase 7)."""
     import math
 
     import torch
@@ -1600,15 +1847,18 @@ def main() -> int:
         results["train"] = train
         trainer = trainer_phase(args, graph, data_dir, train["windows_per_s"])
         results["trainer"] = trainer
+        evaluation = eval_phase(args, graph, data_dir)
+        results["eval"] = evaluation
     pretrain = pretrain_phase(args, graph)
     results["pretrain"] = pretrain
     runs = [p["launches"] for p in paths.values()] + [
-        train["launches"], trainer["launches"], trainer["launches_1x22"], pretrain["launches"]]
+        train["launches"], trainer["launches"], trainer["launches_1x22"], evaluation["launches"], pretrain["launches"]]
     for e in entries:
         # launches over the main-path runs (both serve cells, the train steps,
-        # the trainer's run A, its 1 x 22 serve and the pretrain steps), each
-        # counted from zero
+        # the trainer's run A, its 1 x 22 serve, the eval phase's CLI and
+        # service runs and the pretrain steps), each counted from zero
         e["launches"] = sum(r.get(e["name"], 0) for r in runs)
+        e["launches_eval"] = evaluation["launches"].get(e["name"], 0)
         e["launches_per_forward_fused"] = paths["fused"]["launches"].get(e["name"], 0) / paths["fused"]["forwards"]
         e["launches_per_train_step"] = train["launches_per_step"].get(e["name"], 0)
         e["launches_trainer_run"] = trainer["launches"].get(e["name"], 0)

@@ -79,7 +79,9 @@ class TECMoLLM(nn.Module):
         # torch.utils.checkpoint around each GPT-2 block in training
         remat_llm: bool = False,
         pad_nodes_to: int = 128,
-        seed: int = 0,
+        # the initialisers' seed; None skips them, for a caller that loads
+        # every tensor (the eval path: the draws take seconds at full width)
+        seed: int | None = 0,
     ):
         super().__init__()
         self.cfg = cfg
@@ -106,7 +108,8 @@ class TECMoLLM(nn.Module):
         )
         self.post_llm_dropout = nn.Dropout(cfg.post_llm_dropout)
         self.prediction_head = PredictionHead(cfg)
-        self.reset_parameters(torch.Generator().manual_seed(seed))
+        if seed is not None:
+            self.reset_parameters(torch.Generator().manual_seed(seed))
 
     @torch.no_grad()
     def reset_parameters(self, g: torch.Generator) -> None:

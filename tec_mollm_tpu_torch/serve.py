@@ -1,15 +1,18 @@
-"""Forecast server CLI of the PyTorch port.
+"""Forecast server CLI of the PyTorch port: ``python -m tec_mollm_tpu_torch.serve``.
 
-    python -m tec_mollm_tpu_torch.serve --data-dir data/processed --checkpoint model.pt --port 8901
+    python -m tec_mollm_tpu_torch.serve --data-dir data/processed --checkpoint latest --port 8901
     curl -s localhost:8901/healthz
     curl -s -X POST localhost:8901/forecast -d '{"indices": [0, 1]}'
 
---checkpoint is a port state_dict saved with ``torch.save(model.state_dict())``
-(``models/convert.py`` turns a JAX parameter tree into one). The config is
---config (a preset name or a config.json), else the config.json beside the
-checkpoint, else the flagship default. --bench N skips HTTP and prints latency
-statistics of N warm forecast calls as one JSON line. Runs on the GPU; --cpu
-asks for the CPU.
+The JAX package's ``serve.py`` flags. --checkpoint is ``latest`` (the newest
+``<workdir>/checkpoints/<run>/best_params.pt``, within --run-name when given),
+a ``best_params.pt`` or a reference ``.pth``; the config is --config, else the
+config.json beside the resolved checkpoint, else the flagship default
+(``evaluation/harness.resolve_cli_config``). A quantile model serves its bands
+calibrated by the ``conformal.npz`` beside the checkpoint. --bench N skips HTTP
+and prints latency statistics of N warm forecast calls as one JSON line. Runs
+on the GPU; --cpu asks for the CPU. --artifact is refused: exported artifacts
+are not ported yet (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -17,31 +20,27 @@ from __future__ import annotations
 import argparse
 import json
 import logging
-import os
 import time
 
 import numpy as np
 
-
-def _resolve_config(config: str | None, checkpoint: str):
-    from tec_mollm_tpu_torch.config import Config, load_config
-
-    if config:
-        return load_config(config)
-    beside = os.path.join(os.path.dirname(os.path.abspath(checkpoint)), "config.json")
-    if os.path.exists(beside):
-        with open(beside) as f:
-            return Config.from_json(f.read())
-    logging.getLogger(__name__).warning("no config.json beside %s: using the flagship config", checkpoint)
-    return Config()
+ARTIFACT_REFUSAL = (
+    "--artifact: serving an exported artifact is not ported yet (ROADMAP Queue A item 6, export and the "
+    "artifact server)"
+)
 
 
 def main(argv: list[str] | None = None) -> None:
     p = argparse.ArgumentParser(description="TEC-MoLLM forecast server (PyTorch port)")
     p.add_argument("--data-dir", default="data/processed")
-    p.add_argument("--checkpoint", required=True, help="port state_dict (.pt)")
+    p.add_argument("--workdir", default=".")
+    p.add_argument("--checkpoint", default="latest",
+                   help="'latest', a best_params.pt file or a reference .pth")
+    p.add_argument("--run-name", default=None, help="restrict 'latest' resolution to one run")
     p.add_argument("--config", default=None)
     p.add_argument("--splits", nargs="*", default=["test"])
+    p.add_argument("--artifact", default=None,
+                   help="serve from an exported artifact (not ported yet: refused)")
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--batch-window-ms", type=float, default=5.0,
                    help="coalesce concurrent requests for up to this long (0 disables)")
@@ -54,16 +53,21 @@ def main(argv: list[str] | None = None) -> None:
     args = p.parse_args(argv)
     if not args.splits:
         p.error("--splits needs at least one split name")
+    if args.artifact:
+        p.error(ARTIFACT_REFUSAL)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
 
+    from tec_mollm_tpu_torch.device import resolve_device
+    from tec_mollm_tpu_torch.evaluation.harness import resolve_cli_config
     from tec_mollm_tpu_torch.serving import ForecastService, serve
 
+    device = resolve_device("cpu" if args.cpu else None)  # no card and no --cpu: raises
+    cfg, checkpoint = resolve_cli_config(args.config, args.checkpoint, args.workdir, args.run_name)
     # a serial bench with the batching window on would add the window to every request
     window_ms = 0.0 if (args.bench and args.bench_threads == 1) else args.batch_window_ms
     service = ForecastService(
-        _resolve_config(args.config, args.checkpoint), args.data_dir, checkpoint=args.checkpoint,
-        max_batch=args.max_batch, splits=tuple(args.splits), batch_window_ms=window_ms,
-        device="cpu" if args.cpu else None,
+        cfg, args.data_dir, checkpoint=checkpoint, workdir=args.workdir, run_name=args.run_name,
+        max_batch=args.max_batch, splits=tuple(args.splits), batch_window_ms=window_ms, device=device,
     )
     if not args.bench:
         serve(service, args.host, args.port)

@@ -1,8 +1,9 @@
 """Persistent forecast service on one GPU: load once, answer requests warm.
 
 * loads the processed splits, the graph and the target scaler once;
-* weights come from a port ``.pt`` state_dict file (the trainer's
-  ``best_params.pt`` is one), or from a state_dict passed in memory; the model
+* weights come from a checkpoint (``latest``, the trainer's ``best_params.pt``
+  or a reference ``.pth``, resolved and imported as the eval CLI does:
+  ``evaluation/harness.py``), or from a state_dict passed in memory; the model
   runs in eval mode at bf16 when ``cfg.train.bf16``;
 * the graph's stencil feeds the stencil GAT kernel, a graph without one the
   padded-gather GAT; the model's route (``TECMoLLM.gat_route``) is reported by
@@ -13,9 +14,12 @@
   to [0, 200];
 * stdlib HTTP: GET /healthz, /stats, /metrics; POST /forecast with
   ``{"indices": [i, ...], "split": "test"}`` -> ``{"indices", "forecast"
-  (W, L_out, N), "latency_ms"}``.
+  (W, L_out, N), "latency_ms"}``; a quantile head adds ``quantile_levels`` and
+  ``forecast_quantiles`` (W, L_out, N, Q), and ``forecast_quantiles_conformal``
+  when the ``conformal.npz`` that ``python -m tec_mollm_tpu_torch.test
+  --conformal fit`` writes beside the checkpoint has the model's levels.
 
-Conformal band offsets and serving an exported artifact are not ported yet.
+Serving an exported artifact is not ported yet (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ from tec_mollm_tpu_torch.config import Config
 from tec_mollm_tpu_torch.data.dataset import SlidingWindowDataset
 from tec_mollm_tpu_torch.data.scaler import StandardScaler
 from tec_mollm_tpu_torch.device import resolve_device
+from tec_mollm_tpu_torch.evaluation.conformal import ConformalOffsets
+from tec_mollm_tpu_torch.evaluation.harness import load_params_for_eval, resolve_checkpoint, warn_on_config_mismatch
 from tec_mollm_tpu_torch.graph.builder import GraphData
 from tec_mollm_tpu_torch.models.tec_mollm import TECMoLLM, graph_inputs, opt_in_kernel_refusal
 
@@ -151,6 +157,8 @@ class ForecastService:
         data_dir: str,
         checkpoint: str | None = None,
         state_dict: Mapping[str, torch.Tensor] | None = None,
+        workdir: str = ".",
+        run_name: str | None = None,
         max_batch: int = 8,
         splits: tuple[str, ...] = ("test",),
         batch_window_ms: float = 5.0,
@@ -160,7 +168,7 @@ class ForecastService:
     ):
         self.device = resolve_device(device)
         if (checkpoint is None) == (state_dict is None):
-            raise ValueError("pass exactly one of checkpoint (a .pt path) or state_dict")
+            raise ValueError("pass exactly one of checkpoint ('latest' or a path) or state_dict")
         self.cfg = cfg = cfg.resolved()
         self.dtype = torch.bfloat16 if cfg.train.bf16 else torch.float32
         if self.device.type == "cuda":
@@ -175,11 +183,18 @@ class ForecastService:
         tscaler_path = os.path.join(data_dir, "target_scaler.npz")
         self.tscaler = StandardScaler.load(tscaler_path) if os.path.exists(tscaler_path) else None
 
+        self.conformal: ConformalOffsets | None = None
         if checkpoint is not None:
-            state_dict = torch.load(checkpoint, map_location="cpu", weights_only=True)
-        self.ckpt_path = checkpoint or "<in-memory state_dict>"
+            self.ckpt_path = resolve_checkpoint(checkpoint, workdir, run_name)
+            warn_on_config_mismatch(cfg, self.ckpt_path)
+            state_dict = load_params_for_eval(cfg, self.ckpt_path)
+            self._load_conformal()
+        else:
+            self.ckpt_path = "<in-memory state_dict>"
         shifts, self.graph = graph_inputs(graph, self.device)
-        model = TECMoLLM(cfg.model, shifts, dtype=self.dtype, fused_attn=fused_attn, use_fused_mlp=use_fused_mlp)
+        model = TECMoLLM(
+            cfg.model, shifts, dtype=self.dtype, fused_attn=fused_attn, use_fused_mlp=use_fused_mlp, seed=None
+        )
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
         self.max_batch = max_batch
@@ -206,6 +221,23 @@ class ForecastService:
             "service warm on %s: %s max_batch=%d first run %.1fs; GAT route: %s",
             self.device, self.ckpt_path, self.max_batch, self.warmup_s, self.model.gat_route,
         )
+
+    def _load_conformal(self) -> None:
+        """The split-conformal offsets beside the checkpoint, when a quantile
+        head has a file of its own levels; other levels are served raw."""
+        quantiles = self.cfg.model.quantiles
+        conf_path = ConformalOffsets.path_for(self.ckpt_path)
+        if not quantiles or not os.path.exists(conf_path):
+            return
+        off = ConformalOffsets.load(conf_path)
+        if tuple(off.quantiles) == tuple(quantiles):
+            self.conformal = off
+            logger.info("serving conformal-calibrated bands (%s)", conf_path)
+        else:
+            logger.warning(
+                "conformal offsets at %s have levels %s != model %s — serving raw bands",
+                conf_path, off.quantiles, quantiles,
+            )
 
     def _run_padded(self, batch: dict[str, np.ndarray], n: int) -> np.ndarray:
         """Pad to max_batch, run, return (n, L_out, N, Q) fp32 on the host."""
@@ -260,6 +292,8 @@ class ForecastService:
         if self.cfg.model.quantiles:
             out["quantile_levels"] = list(self.cfg.model.quantiles)
             out["forecast_quantiles"] = phys.tolist()
+            if self.conformal is not None:
+                out["forecast_quantiles_conformal"] = self.conformal.apply_physical(phys).tolist()
         return out
 
     def stats(self) -> dict[str, Any]:

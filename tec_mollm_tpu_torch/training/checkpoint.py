@@ -5,9 +5,9 @@ Files under ``<workdir>/checkpoints/<run_name>/``:
 * ``latest.pt``: the trainable and frozen tensors, the optimizer's
   ``state_dict``, the step, the EMA (or None), the epoch and the step in it;
 * ``latest.meta.json``: the trainer's metadata (the JAX ``_save_latest`` keys);
-* ``best_params.pt``: a plain model ``state_dict``, which
-  ``ForecastService(checkpoint=...)`` and ``python -m tec_mollm_tpu_torch.serve
-  --checkpoint`` load as they are.
+* ``best_params.pt``: a plain model ``state_dict``, which the eval, predict
+  and serve CLIs load (``--checkpoint latest`` finds the newest through
+  ``find_latest_checkpoint``).
 
 Every write goes to a temporary file first and is renamed into place, so a
 crash never leaves a half-written file under a checkpoint's name. The meta is
@@ -117,3 +117,21 @@ class CheckpointManager:
         _atomic_save(dict(state_dict), path)
         return path
 
+
+
+def find_latest_checkpoint(
+    checkpoint_root: str, kind: str = "best_params.pt", run_name: str | None = None
+) -> str:
+    """The most recently modified ``<run>/<kind>`` file under
+    ``checkpoint_root`` (the JAX package's ``find_latest_checkpoint``, whose
+    checkpoints are directories). ``run_name`` restricts the search to one
+    run: without it, a workdir of several configs resolves to whichever run
+    saved last. Raises ``FileNotFoundError`` when there is none."""
+    runs = [run_name] if run_name else sorted(os.listdir(checkpoint_root))
+    candidates = [
+        path for path in (os.path.join(checkpoint_root, run, kind) for run in runs) if os.path.isfile(path)
+    ]
+    if not candidates:
+        where = f"{checkpoint_root}/{run_name}" if run_name else checkpoint_root
+        raise FileNotFoundError(f"No '{kind}' checkpoints under {where}")
+    return max(candidates, key=os.path.getmtime)

@@ -112,6 +112,23 @@ def point_forecast(preds: torch.Tensor, cfg: Config) -> torch.Tensor:
     return preds[..., q : q + 1]
 
 
+def put_batch(batch: dict[str, np.ndarray], device: torch.device, bf16: bool) -> dict[str, torch.Tensor]:
+    """A loader batch on ``device``: pinned host memory and an asynchronous
+    copy on CUDA. Under ``bf16``, x is cast on the host (the model casts it
+    anyway), which halves the bytes of the largest tensor; y stays fp32 for
+    the loss and the metrics."""
+    out = {}
+    cuda = device.type == "cuda"
+    for k, v in batch.items():
+        t = torch.from_numpy(v)
+        if k == "x" and bf16:
+            t = t.to(torch.bfloat16)
+        if cuda:
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=cuda)
+    return out
+
+
 def _targets(batch: dict[str, torch.Tensor]) -> torch.Tensor:
     """y (B, N, L_out) -> (B, L_out, N, 1), the model's output layout."""
     return batch["y"].transpose(1, 2)[..., None]

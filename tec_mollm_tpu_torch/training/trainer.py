@@ -51,6 +51,7 @@ from tec_mollm_tpu_torch.training.train_state import (
     make_eval_step,
     make_train_step,
     point_forecast,
+    put_batch,
 )
 from tec_mollm_tpu_torch.utils.profiler import StepTimer
 from tec_mollm_tpu_torch.utils.run_name import make_run_name
@@ -147,20 +148,7 @@ class Trainer:
             self.model.load_state_dict(state_dict)
 
     def _put(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-        """A loader batch on the device: pinned host memory and an asynchronous
-        copy on CUDA. Under bf16, x is cast on the host (the model casts it
-        anyway), which halves the bytes of the largest tensor; y stays fp32
-        for the loss."""
-        out = {}
-        cuda = self.device.type == "cuda"
-        for k, v in batch.items():
-            t = torch.from_numpy(v)
-            if k == "x" and self.cfg.train.bf16:
-                t = t.to(torch.bfloat16)
-            if cuda:
-                t = t.pin_memory()
-            out[k] = t.to(self.device, non_blocking=cuda)
-        return out
+        return put_batch(batch, self.device, self.cfg.train.bf16)
 
     def train_epoch(
         self,
