@@ -27,7 +27,8 @@ Phases (any failure exits non-zero):
      c_attn output in fp32 and bf16, in bf16 with dropout p = 0.1 (its mask read
      back as the short kernel's is) and on a view that is not 16-byte aligned,
      at head dims 32 and 128, at T = 300 non-causal and at T = 1024 causal
-     (B = 8), with SDPA as the library call;
+     (B = 8), with SDPA as the library call, and its bare C entry timed beside
+     the wrapper (flash_bare_entry);
   4. serve: a synthetic processed dir at the 41x71 grid, ForecastService on the
      flagship Config() with seeded random weights at max_batch=8 in bf16,
      forecast requests over HTTP on localhost (some concurrent, so the batcher
@@ -98,7 +99,35 @@ Phases (any failure exits non-zero):
      the three quantile_metrics CSVs; the predict CLI writes
      forecast_quantiles_conformal for windows 0 and 5, and a ForecastService
      on the checkpoint returns the same bands within BANDS_TOL_TECU.
-The last line is {"ok": true, "device": {...}}; the line before it holds the
+  9. preprocess (after phase 6): the preprocess CLI (python -m
+     tec_mollm_tpu_torch.data.preprocess, called in-process) on the 41x71 grid
+     with PREPROCESS_STEPS synthetic steps, and again with an outage of
+     PREPROCESS_DROP steps under --cadence-policy segment: the CLI's wall, the
+     files and their bytes, the *_raw.npz bytes and the stride-1 windows (more
+     than one eval batch in each split; the outage drops some, and only the
+     segmented archive has segment ids).
+ 10. device data: the train CLI at phase 6's policy and cut on that archive
+     (strides that leave about TRAINER_WINDOWS windows), on the host pipeline
+     and with --device-data: first-epoch losses within DEVICE_DATA_RTOL of each
+     other, exactly one GAT launch per validation batch and no other kernel, a
+     gathered fp32 batch within 1e-6 of the host mirror; the device-resident
+     bytes, and each mode's warm epoch (windows/s, busy share of a profiled
+     epoch over the unprofiled wall, HtoD copy ms).
+ 11. export: phase 6's run A best_params.pt through the export CLI (python -m
+     tec_mollm_tpu_torch.export), on the default path and at the fused config
+     (fused_attn, use_fused_mlp, bf16), each with a symbolic batch and at
+     --batch-size 8, and a default artifact traced on the CPU for both
+     platforms and moved to the card: its export and load wall and .pt2 size;
+     its op nodes (tec_mollm.gat_stencil once, tec_mollm.short_attention and
+     tec_mollm.fused_ln_mlp once per block in a fused one, no aten.roll); 16
+     HTTP requests through ForecastService(artifact=...) against the
+     checkpoint service of the same flags, within EXPORT_TOL_SCALED, with
+     exactly one GAT launch per forward (and 3 attention and 3 MLP launches
+     per fused forward); full-batch forward ms and request p50/p95 beside the
+     checkpoint service's; and python -m tec_mollm_tpu_torch.serve --artifact
+     --bench SERVE_CLI_BENCH, one GAT launch per forward.
+The phases run in the order 1-6, 9-11, 8, 7; the total time is printed. The
+last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON. Details also go to chiprun_out/chip_smoke.json.
 """
 
@@ -215,6 +244,18 @@ VAL_RTOL = 1e-2
 # TECU (both bf16 through the kernel, at the same batch shape)
 EVAL_ROLLOUT_STEPS, EVAL_ROLLOUT_WINDOWS = 24, 8
 COVERAGE_TOL, BANDS_TOL_TECU = 0.02, 0.1
+# preprocess phase: synthetic steps of the archive at the 41x71 grid (train,
+# val and test each hold more than one eval batch of stride-1 windows) and the
+# outage (start, count) of its gapped twin
+PREPROCESS_STEPS, PREPROCESS_DROP = 1500, (200, 6)
+# device-data phase: the relative distance allowed between the first-epoch
+# losses of --device-data and the host pipeline (the same bf16 batches; CUDA's
+# atomics in the backward make bit equality unlikely)
+DEVICE_DATA_RTOL = 1e-3
+# export phase: an artifact's forecasts against the checkpoint service of the
+# same flags, in scaled units (the same kernels and arithmetic), and the serve
+# CLI's --bench requests
+EXPORT_TOL_SCALED, SERVE_CLI_BENCH = 1e-3, 4
 
 
 def log(msg: str) -> None:
@@ -449,6 +490,30 @@ def gat_bare_entry(xl, xr, valid, att, shifts):
 
     def call():
         _build.check(g.NAME, fn(*args))
+        return out
+
+    return call
+
+
+def flash_bare_entry(q, k, v, causal: bool):
+    """A call of the flash kernel's C entry with its arguments marshalled
+    once (``flash_attention.entry_args``), into a fresh output: the wrapper's
+    launch without its checks and Python. Not counted."""
+    import importlib
+
+    import torch
+
+    from tec_mollm_tpu_torch.ops import _build
+
+    # the module (ops re-exports its function under the same name)
+    fa = importlib.import_module("tec_mollm_tpu_torch.ops.flash_attention")
+    q, k, v = (fa._aligned16(a) for a in (q, k, v))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    fn = _build.function("flash_attention_forward", fa.ARGTYPES)
+    args = fa.entry_args(q, k, v, out, causal, 0.0, 0)
+
+    def call():
+        _build.check(fa.NAME, fn(*args))
         return out
 
     return call
@@ -727,6 +792,10 @@ def check_flash(cfg, rand, failures: list) -> dict:
         }
         if label == "path":
             entry.update(case, flop_rate=PEAK_FLOPS["bf16_tensor"])
+            # the bare C entry beside the wrapper: is the wrapper's host cost the time?
+            bare = flash_bare_entry(q, k, v, causal)
+            torch.testing.assert_close(bare(), ops.flash_attention_forward(q, k, v, causal), rtol=0, atol=0)
+            entry["bare_ms"] = time_ms(bare, REPS)
             check(label, "bf16_p01", "bf16", q, k, v, causal, DROPOUT)
             entry["ms_p01"] = time_ms(lambda: ops.flash_attention_forward(q, k, v, causal, DROPOUT, DROPOUT_SEED), REPS)
             entry["library_ms_p01"] = time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal, dropout_p=DROPOUT), REPS)
@@ -735,7 +804,8 @@ def check_flash(cfg, rand, failures: list) -> dict:
             check(label, "misaligned", "bf16", qm, km, vm, causal)
             log(
                 f"kernel flash_attention[path]: p=0.1 {entry['ms_p01']:.4f} ms (SDPA dropout_p 0.1 "
-                f"{entry['library_ms_p01']:.4f} ms); p=0 {case['ms']:.4f} ms = {entry['x_sdpa']:.2f} x SDPA"
+                f"{entry['library_ms_p01']:.4f} ms); p=0 {case['ms']:.4f} ms = {entry['x_sdpa']:.2f} x SDPA; "
+                f"bare entry {entry['bare_ms']:.4f} ms (wrapper {case['ms']:.4f}, SDPA {case['library_ms']:.4f})"
             )
         else:
             case["bound_ms"], case["bound_by"] = bound(case["bytes"], case["flops"], PEAK_FLOPS["bf16_tensor"])
@@ -1384,6 +1454,283 @@ def trainer_phase(args, graph, data_dir: str, train_windows_per_s: float) -> dic
     }
 
 
+def preprocess_phase(args, data_dir: str) -> dict:
+    """The preprocess CLI at the 41 x 71 grid (phase 9): PREPROCESS_STEPS
+    synthetic steps, then the same with an outage under the segment cadence
+    policy; the CLI's wall time, the files it writes and the raw series'
+    bytes."""
+    from tec_mollm_tpu_torch.config import Config
+    from tec_mollm_tpu_torch.data.dataset import SlidingWindowDataset
+    from tec_mollm_tpu_torch.data.preprocess import main as preprocess
+
+    train_cfg = Config().resolved().train
+    out = {}
+    for label, extra in (("plain", []), ("gap", ["--synthetic-drop", *map(str, PREPROCESS_DROP),
+                                                  "--cadence-policy", "segment"])):
+        path = os.path.join(data_dir, f"archive_{label}")
+        t0 = time.perf_counter()
+        sizes = preprocess(["--synthetic", str(PREPROCESS_STEPS), "--out", path, *extra])
+        wall = time.perf_counter() - t0
+        files = {n: os.path.getsize(os.path.join(path, n)) for n in sorted(os.listdir(path))}
+        raw_bytes = sum(v for n, v in files.items() if n.endswith("_raw.npz"))
+        windows = {
+            split: len(SlidingWindowDataset.from_dir(path, split, train_cfg.L_in, train_cfg.L_out))
+            for split in ("train", "val", "test")
+        }
+        with np.load(os.path.join(path, "train_raw.npz")) as raw:
+            segmented = "segment_id" in raw.files
+        out[label] = {"dir": path, "wall_s": wall, "sizes": sizes, "files": files, "raw_npz_bytes": raw_bytes,
+                      "stride1_windows": windows, "segment_id": segmented}
+        log(
+            f"preprocess[{label}]: --synthetic {PREPROCESS_STEPS} {' '.join(extra)} on 41x71: CLI {wall:.2f} s; "
+            f"timesteps {sizes}; stride-1 windows {windows}; *_raw.npz {raw_bytes / 1e6:.2f} MB of "
+            f"{sum(files.values()) / 1e6:.1f} MB written; files {files}"
+        )
+        if segmented != (label == "gap") or min(windows.values()) <= 16:
+            raise RuntimeError(f"preprocess[{label}]: segment ids {segmented}, windows {windows}")
+    if not sum(out["gap"]["stride1_windows"].values()) < sum(out["plain"]["stride1_windows"].values()):
+        raise RuntimeError("preprocess: the outage dropped no window")
+    return out
+
+
+def device_data_phase(args, archive: str) -> dict:
+    """The train CLI on the preprocessed archive (phase 10), host pipeline and
+    --device-data, at phase 6's policy and cut (B = 2 x 6, 2 epochs, about
+    TRAINER_WINDOWS train and val windows by stride): first-epoch losses
+    within DEVICE_DATA_RTOL, one GAT launch per validation batch and nothing
+    else, a gathered fp32 batch within 1e-6 of the host mirror; then each
+    mode's warm epoch (windows/s, busy share of a profiled epoch over the
+    unprofiled wall) on a fresh trainer."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops, train
+    from tec_mollm_tpu_torch.config import Config
+    from tec_mollm_tpu_torch.data.dataset import SlidingWindowDataset
+    from tec_mollm_tpu_torch.data.device_data import DeviceResidentDataset
+
+    cfg = Config().resolved()
+    L_in, L_out = cfg.train.L_in, cfg.train.L_out
+    strides = {
+        split: max(1, len(SlidingWindowDataset.from_dir(archive, split, L_in, L_out)) // TRAINER_WINDOWS[split])
+        for split in ("train", "val")
+    }
+    val_windows = len(SlidingWindowDataset.from_dir(archive, "val", L_in, L_out, stride=strides["val"]))
+    val_batches = -(-val_windows // cfg.train.batch_size)
+    work = os.path.join(archive, "work")
+
+    def argv(run: str, *extra: str) -> list[str]:
+        return ["--data-dir", archive, "--workdir", work, "--run-name", run, "--epochs", str(TRAINER_EPOCHS),
+                "--train-stride", str(strides["train"]), "--val-stride", str(strides["val"]),
+                "--seed", str(args.seed), *extra]
+
+    runs = {}
+    for mode, extra in (("host", []), ("device", ["--device-data"])):
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        hist = train.main(argv(mode, *extra))
+        torch.cuda.synchronize()
+        runs[mode] = {"history": hist, "wall_s": time.perf_counter() - t0, "launches": ops.launch_counts()}
+    rel = max(
+        abs(runs["device"]["history"][0][k] - runs["host"]["history"][0][k]) / abs(runs["host"]["history"][0][k])
+        for k in ("train_loss", "val_loss")
+    )
+    want_launches = {"gat_stencil": TRAINER_EPOCHS * val_batches}
+
+    # a gathered batch against the host mirror, fp32
+    dev_ds = DeviceResidentDataset(archive, "train", L_in, L_out, stride=strides["train"])
+    val_ds = DeviceResidentDataset(archive, "val", L_in, L_out, stride=strides["val"])
+    split = dev_ds.device_split("cuda", torch.float32)
+    idxs = np.arange(min(cfg.train.batch_size * cfg.train.accumulation_steps, len(dev_ds)))
+    got = split.gather(torch.as_tensor(dev_ds.sample_indices[idxs], device="cuda"))
+    want = dev_ds.gather_batch(idxs)
+    gather_err = max(float((got[k].cpu() - torch.from_numpy(want[k])).abs().max()) for k in ("x", "y"))
+    tf_same = bool(torch.equal(got["time_features"].cpu(), torch.from_numpy(want["time_features"])))
+    resident_bytes = dev_ds.nbytes() + val_ds.nbytes()
+    del split, got
+
+    # each mode's warm epoch on a fresh trainer: a warm-up epoch, a timed one, a profiled one
+    timing = {}
+    for mode, extra in (("host", []), ("device", ["--device-data"])):
+        a = train.parse_args(argv(f"{mode}_t", *extra))
+        trainer = train.build_trainer(a, train.build_config(a))
+        trainer.train_epoch(checkpoints=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = trainer.train_epoch(checkpoints=False)
+        torch.cuda.synchronize()
+        epoch_ms = (time.perf_counter() - t0) * 1e3
+        prof = profile_call(lambda: trainer.train_epoch(checkpoints=False), top=100_000)
+        copies = sum(r["ms"] for r in prof["top"] if r["name"].startswith("Memcpy HtoD"))
+        prof["top"] = prof["top"][:8]
+        timing[mode] = {"epoch_ms": epoch_ms, "windows_per_s": stats["windows_per_sec"],
+                        "busy_share_unprofiled_wall": prof["device_ms"] / epoch_ms, "htod_ms": copies,
+                        "profile": prof}
+        del trainer
+    log(
+        f"device data: train CLI on {archive} (strides {strides}, {len(dev_ds)} train / {val_windows} val windows, "
+        f"B={cfg.train.batch_size} x accum {cfg.train.accumulation_steps}, {TRAINER_EPOCHS} epochs): host "
+        f"{runs['host']['wall_s']:.1f} s, --device-data {runs['device']['wall_s']:.1f} s; first-epoch (train, val) "
+        f"losses host {[round(runs['host']['history'][0][k], 6) for k in ('train_loss', 'val_loss')]}, device "
+        f"{[round(runs['device']['history'][0][k], 6) for k in ('train_loss', 'val_loss')]} (largest relative "
+        f"difference {rel:.3e}, tol {DEVICE_DATA_RTOL}); launches host {runs['host']['launches']}, device "
+        f"{runs['device']['launches']} (want {want_launches})"
+    )
+    log(
+        f"device data: resident {resident_bytes / 1e6:.2f} MB (train + val raw series and time features); a "
+        f"gathered fp32 batch of {len(idxs)} vs the host mirror max |diff| {gather_err:.3e} (tol 1e-6), time "
+        f"features identical {tf_same}; warm epoch host {timing['host']['windows_per_s']:.2f} windows/s (busy "
+        f"{timing['host']['busy_share_unprofiled_wall']:.2%}, HtoD {timing['host']['htod_ms']:.2f} ms), device "
+        f"{timing['device']['windows_per_s']:.2f} windows/s (busy {timing['device']['busy_share_unprofiled_wall']:.2%}, "
+        f"HtoD {timing['device']['htod_ms']:.2f} ms)"
+    )
+    if not rel <= DEVICE_DATA_RTOL or not gather_err <= 1e-6 or not tf_same:
+        raise RuntimeError(f"device data: losses {rel:.3e}, gather {gather_err:.3e}, time features {tf_same}")
+    for mode, r in runs.items():
+        if r["launches"] != want_launches or len(r["history"]) != TRAINER_EPOCHS:
+            raise RuntimeError(f"device data[{mode}]: launches {r['launches']}, want {want_launches}; {r['history']}")
+    return {
+        "strides": strides, "train_windows": len(dev_ds), "val_windows": val_windows, "val_batches": val_batches,
+        "runs": runs, "max_rel_first_epoch_loss_diff": rel, "rtol": DEVICE_DATA_RTOL,
+        "resident_bytes": resident_bytes, "gather_max_abs_err": gather_err, "timing": timing,
+        "launches": runs["device"]["launches"],
+    }
+
+
+def export_phase(args, data_dir: str) -> dict:
+    """Export phase 6's run A best_params.pt with the export CLI (phase 11):
+    the default path and the fused config, each with a symbolic batch and at
+    --batch-size 8; plus a default artifact traced on the CPU for both
+    platforms and served on the card. Each artifact's op nodes (GAT 1, and 3
+    attention and 3 MLP in a fused one; no aten.roll), its export and load
+    wall and size; 16 HTTP requests through ForecastService(artifact=...)
+    against the checkpoint service of the same flags (within
+    EXPORT_TOL_SCALED), with exactly one GAT launch per forward and 3
+    attention and 3 MLP per fused forward; and the serve CLI's --artifact
+    --bench."""
+    import contextlib
+    import io
+
+    import torch
+
+    from tec_mollm_tpu_torch import export as export_cli
+    from tec_mollm_tpu_torch import ops
+    from tec_mollm_tpu_torch import serve as serve_cli
+    from tec_mollm_tpu_torch.config import Config
+    from tec_mollm_tpu_torch.serving import ForecastService
+    from tec_mollm_tpu_torch.serving.export import artifact_ops, load_exported
+
+    cfg = Config().resolved()
+    layers = cfg.model.llm_layers
+    best = os.path.join(data_dir, "work", "checkpoints", "a", "best_params.pt")
+    out_dir = os.path.join(data_dir, "exports")
+    rng = np.random.default_rng(args.seed + 3)
+    n_windows = STEPS - cfg.train.L_in - cfg.train.L_out + 1
+    requests = [rng.integers(0, n_windows, size=int(rng.integers(1, 4))).tolist() for _ in range(REQUESTS)]
+    fused_flags = {"fused_attn": True, "use_fused_mlp": True}
+
+    def serve_http(service) -> dict:
+        ops.reset_counts()
+        forecasts, wall = drive_http(service, requests, THREADS)
+        counts = ops.launch_counts()
+        stats = service.stats()
+        full = service.datasets["test"].gather_batch(np.arange(BATCH))
+        fwd = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            service._run_padded(full, BATCH)
+            fwd.append(time.perf_counter() - t0)
+        return {"forecasts": forecasts, "launches": counts, "stats": stats, "wall_s": wall,
+                "batch_forward_ms": statistics.median(fwd) * 1e3}
+
+    # the checkpoint services the artifacts are held to, one per flag set
+    reference = {}
+    for path, flags in (("default", {}), ("fused", fused_flags)):
+        service = ForecastService(cfg, data_dir, checkpoint=best, max_batch=BATCH, **flags)
+        try:
+            reference[path] = serve_http(service)
+        finally:
+            service.close()
+
+    cases = {
+        "default": ([], "default"), "default_b8": (["--batch-size", str(BATCH)], "default"),
+        "fused": (["--fused"], "fused"), "fused_b8": (["--fused", "--batch-size", str(BATCH)], "fused"),
+        "cpu_traced": (["--cpu", "--platforms", "cpu", "cuda"], "default"),
+    }
+    results, failures = {}, []
+    for label, (extra, ref) in cases.items():
+        t0 = time.perf_counter()
+        art = export_cli.main(["--data-dir", data_dir, "--checkpoint", best, "--out",
+                               os.path.join(out_dir, f"{label}.pt2"), *extra])
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ep = load_exported(art, "cuda")
+        load_s = time.perf_counter() - t0
+        node_ops = artifact_ops(ep)
+        del ep
+        custom = {k: v for k, v in node_ops.items() if k.startswith("tec_mollm.")}
+        per_forward = {"gat_stencil": 1, **({"short_attention": layers, "fused_mlp": layers} if ref == "fused" else {})}
+        want_nodes = {"tec_mollm.gat_stencil": 1, **({"tec_mollm.short_attention": layers,
+                                                       "tec_mollm.fused_ln_mlp": layers} if ref == "fused" else {})}
+        service = ForecastService(cfg, data_dir, artifact=art, max_batch=BATCH)
+        try:
+            served = serve_http(service)
+            health = service.health()
+        finally:
+            service.close()
+        forwards = served["stats"]["batches"]
+        want = {k: v * forwards for k, v in per_forward.items()}
+        diff = max(float(np.abs(served["forecasts"][k] - reference[ref]["forecasts"][k]).max())
+                   for k in reference[ref]["forecasts"]) / TARGET_SCALE
+        finite = all(np.isfinite(f).all() for f in served["forecasts"].values())
+        results[label] = {
+            "export_s": export_s, "pt2_bytes": os.path.getsize(art), "load_s": load_s, "custom_op_nodes": custom,
+            "roll_nodes": node_ops.get("aten.roll", 0), "launches": served["launches"], "forwards": forwards,
+            "max_abs_diff_vs_checkpoint_scaled": diff, "batch_forward_ms": served["batch_forward_ms"],
+            "p50_ms": served["stats"].get("p50_ms"), "p95_ms": served["stats"].get("p95_ms"),
+            "wall_s": served["wall_s"], "source": health["source"], "gat_route": health["gat_route"],
+            "max_batch": health["max_batch"],
+        }
+        log(
+            f"export[{label}]: {' '.join(extra) or 'symbolic batch'}: export {export_s:.2f} s, .pt2 "
+            f"{os.path.getsize(art) / 1e6:.1f} MB, load {load_s:.2f} s; custom-op nodes {custom}, aten.roll "
+            f"{node_ops.get('aten.roll', 0)}; {len(requests)} requests in {served['wall_s']:.3f} s, p50 "
+            f"{served['stats'].get('p50_ms')} ms, p95 {served['stats'].get('p95_ms')} ms (checkpoint service "
+            f"{reference[ref]['stats'].get('p50_ms')} / {reference[ref]['stats'].get('p95_ms')} ms); full batch of "
+            f"{BATCH} {served['batch_forward_ms']:.2f} ms (checkpoint {reference[ref]['batch_forward_ms']:.2f} ms); "
+            f"{forwards} forwards, launches {served['launches']} (want {want}); max |artifact - checkpoint| "
+            f"{diff:.3e} scaled (tol {EXPORT_TOL_SCALED}); finite {finite}"
+        )
+        if custom != want_nodes or node_ops.get("aten.roll", 0):
+            failures.append(f"{label}: op nodes {custom}, roll {node_ops.get('aten.roll', 0)}, want {want_nodes}")
+        if served["launches"] != want or not forwards:
+            failures.append(f"{label}: launches {served['launches']} in {forwards} forwards, want {want}")
+        if not diff <= EXPORT_TOL_SCALED or not finite or health["source"] != "artifact":
+            failures.append(f"{label}: artifact vs checkpoint {diff}, finite {finite}, source {health['source']}")
+
+    # the serve CLI on the default artifact: a warm-up and SERVE_CLI_BENCH requests, one GAT launch each
+    ops.reset_counts()
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        serve_cli.main(["--data-dir", data_dir, "--checkpoint", best, "--artifact",
+                        os.path.join(out_dir, "default.pt2"), "--bench", str(SERVE_CLI_BENCH)])
+    cli_counts = ops.launch_counts()
+    cli_stats = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    log(f"serve --artifact --bench {SERVE_CLI_BENCH}: {cli_stats}; launches {cli_counts}")
+    if cli_counts != {"gat_stencil": SERVE_CLI_BENCH + 1} or cli_stats.get("source") != "artifact":
+        failures.append(f"serve CLI: launches {cli_counts}, stats {cli_stats}")
+    if failures:
+        raise RuntimeError(f"export phase: {failures}")
+    launches: dict[str, int] = {}
+    for r in results.values():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for p in reference.values():
+        del p["forecasts"]
+    torch.cuda.synchronize()
+    return {"artifacts": results, "checkpoint_services": reference, "serve_cli": cli_stats,
+            "serve_cli_launches": cli_counts, "launches": launches, "tol_scaled": EXPORT_TOL_SCALED}
+
+
 def read_csv(path: str) -> tuple[list[str], dict[str, np.ndarray]]:
     """(header, {first column: the row's numbers}) of a results CSV."""
     with open(path) as f:
@@ -1816,6 +2163,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     results: dict = {}
     card = gpu_line()
     log(f"device: {card}")
@@ -1847,17 +2195,27 @@ def main() -> int:
         results["train"] = train
         trainer = trainer_phase(args, graph, data_dir, train["windows_per_s"])
         results["trainer"] = trainer
+        prep = preprocess_phase(args, data_dir)
+        results["preprocess"] = prep
+        device_data = device_data_phase(args, prep["plain"]["dir"])
+        results["device_data"] = device_data
+        export = export_phase(args, data_dir)
+        results["export"] = export
         evaluation = eval_phase(args, graph, data_dir)
         results["eval"] = evaluation
     pretrain = pretrain_phase(args, graph)
     results["pretrain"] = pretrain
     runs = [p["launches"] for p in paths.values()] + [
-        train["launches"], trainer["launches"], trainer["launches_1x22"], evaluation["launches"], pretrain["launches"]]
+        train["launches"], trainer["launches"], trainer["launches_1x22"], device_data["launches"], export["launches"],
+        evaluation["launches"], pretrain["launches"]]
     for e in entries:
         # launches over the main-path runs (both serve cells, the train steps,
-        # the trainer's run A, its 1 x 22 serve, the eval phase's CLI and
-        # service runs and the pretrain steps), each counted from zero
+        # the trainer's run A, its 1 x 22 serve, the --device-data trainer, the
+        # artifacts' services, the eval phase's CLI and service runs and the
+        # pretrain steps), each counted from zero
         e["launches"] = sum(r.get(e["name"], 0) for r in runs)
+        e["launches_export"] = export["launches"].get(e["name"], 0)
+        e["launches_device_data"] = device_data["launches"].get(e["name"], 0)
         e["launches_eval"] = evaluation["launches"].get(e["name"], 0)
         e["launches_per_forward_fused"] = paths["fused"]["launches"].get(e["name"], 0) / paths["fused"]["forwards"]
         e["launches_per_train_step"] = train["launches_per_step"].get(e["name"], 0)
@@ -1873,6 +2231,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": [{k: e.get(k) for k in keys} for e in entries]}))
     print(json.dumps({

@@ -9,7 +9,9 @@ X (T, N, C), Y (T, N, L_out), time_features (T, 4).
 ``BatchLoader`` yields numpy dicts exactly as the JAX loader does (shuffle by
 ``default_rng(seed + epoch)``, strided per-shard order, padding rows marked
 ``valid=False``, a prefetch thread); pinning and the copy to the card belong to
-the caller (``training/trainer.py``).
+the caller (``training/trainer.py``). With ``index_only`` it yields the window
+starts alone, in the same order and with the same padding, for the
+device-resident archive (``data/device_data.py``).
 """
 
 from __future__ import annotations
@@ -23,27 +25,9 @@ from typing import Iterator
 import numpy as np
 
 from tec_mollm_tpu_torch.data import native_loader
+from tec_mollm_tpu_torch.data.hdf5_io import valid_window_starts
 
 logger = logging.getLogger(__name__)
-
-
-def valid_window_starts(
-    starts: np.ndarray, segment_id: np.ndarray, L_in: int, L_out: int
-) -> np.ndarray:
-    """Keep the window starts whose raw span [i, i+L_in+L_out-1] lies in one
-    segment (``segment_id`` < 0 marks a bad step and starts no window)."""
-    starts = np.asarray(starts, dtype=np.int64)
-    if not len(starts):
-        return starts
-    end = starts + L_in + L_out - 1
-    if int(end.max()) >= len(segment_id):
-        raise ValueError(
-            f"segment_id length {len(segment_id)} does not cover window end "
-            f"{int(end.max())} — pass the raw-length segment array"
-        )
-    s0 = segment_id[starts]
-    keep = (s0 >= 0) & (s0 == segment_id[end])
-    return starts[keep]
 
 
 class SlidingWindowDataset:
@@ -151,6 +135,7 @@ class BatchLoader:
         num_shards: int = 1,
         shard_index: int = 0,
         prefetch: int = 2,
+        index_only: bool = False,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -160,6 +145,10 @@ class BatchLoader:
         self.num_shards = num_shards
         self.shard_index = shard_index
         self.prefetch = prefetch
+        # index_only: yield {"starts": window starts} in place of the windows,
+        # for the device-resident archive (data/device_data.py), which gathers
+        # them on the card
+        self.index_only = index_only
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -196,6 +185,11 @@ class BatchLoader:
         n = len(self._epoch_indices()[0])
         return n // self.batch_size if self.drop_remainder else -(-n // self.batch_size)
 
+    def _gather(self, idxs: np.ndarray) -> dict[str, np.ndarray]:
+        if self.index_only:
+            return {"starts": np.asarray(self.dataset.sample_indices[idxs], dtype=np.int32)}
+        return self.dataset.gather_batch(idxs)
+
     def _batches(self, start_step: int = 0) -> Iterator[dict[str, np.ndarray]]:
         order, shard_pad = self._epoch_indices()
         valid_all = np.ones(len(order), dtype=bool)
@@ -204,15 +198,13 @@ class BatchLoader:
         n_full = len(order) // self.batch_size
         for b in range(start_step, n_full):
             sl = slice(b * self.batch_size, (b + 1) * self.batch_size)
-            batch = self.dataset.gather_batch(order[sl])
+            batch = self._gather(order[sl])
             batch["valid"] = valid_all[sl].copy()
             yield batch
         rem = len(order) - n_full * self.batch_size
         if rem and not self.drop_remainder and start_step <= n_full:
             idxs = order[n_full * self.batch_size :]
-            batch = self.dataset.gather_batch(
-                np.concatenate([idxs, np.repeat(idxs[-1:], self.batch_size - rem)])
-            )
+            batch = self._gather(np.concatenate([idxs, np.repeat(idxs[-1:], self.batch_size - rem)]))
             valid = np.zeros(self.batch_size, dtype=bool)
             valid[:rem] = valid_all[n_full * self.batch_size :]
             batch["valid"] = valid

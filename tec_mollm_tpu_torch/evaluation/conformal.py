@@ -272,12 +272,12 @@ def fit_conformal(
 ) -> ConformalOffsets:
     """Inference over a calibration split (normally val) and the offsets fit
     on it. Only the (L_out, Q, BINS) counts leave the device, once."""
-    from tec_mollm_tpu_torch.evaluation.harness import EvalExecutor
+    from tec_mollm_tpu_torch.evaluation.harness import EvalExecutor, device_dataset_of
 
     quantiles = cfg.model.quantiles
     if not quantiles:
         raise ValueError("conformal calibration needs a quantile-head model (ModelConfig.quantiles)")
-    ex = EvalExecutor(cfg, graph, state_dict, batch_size, device=device)
+    ex = EvalExecutor(cfg, graph, state_dict, batch_size, device=device, device_dataset=device_dataset_of(dataset))
     cal = ConformalCalibrator(cfg.train.L_out, quantiles, target_scaler, mode=mode, device=ex.device)
     for batch in ex.loader(dataset):
         _, preds, trues, valid = ex.run(batch)
@@ -320,13 +320,13 @@ def evaluate_adaptive_conformal(
     The loader keeps the stream's order and pads only the last batch, whose
     padded rows weigh 0. Returns the quantile metrics of the evolving offsets
     with the adaptation's record under ``adaptive``."""
-    from tec_mollm_tpu_torch.evaluation.harness import EvalExecutor
+    from tec_mollm_tpu_torch.evaluation.harness import EvalExecutor, device_dataset_of
 
     quantiles = cfg.model.quantiles
     if not quantiles:
         raise ValueError("adaptive conformal needs a quantile-head model")
     nq, l_out = len(quantiles), cfg.train.L_out
-    ex = EvalExecutor(cfg, graph, state_dict, batch_size, device=device)
+    ex = EvalExecutor(cfg, graph, state_dict, batch_size, device=device, device_dataset=device_dataset_of(dataset))
     acc = StreamingQuantileMetrics(l_out, quantiles, target_scaler, device=ex.device)
     scale, mean = scaler_affine(target_scaler)
     H = np.zeros((l_out, nq, BINS), dtype=np.float64)

@@ -19,9 +19,14 @@ in PyTorch).
   ``best_params.pt``, optionally within one run); the port's own files and
   the reference's ``.pth`` load through one importer (``models/ref_import.py``).
 
+A config with ``device_data`` evaluates on the device-resident archive
+(``data/device_data.py``): the loader yields window starts and the eval step
+gathers the windows on the card; the HA baseline reads the same windows
+through the dataset's host mirror. Without ``*_raw.npz`` it falls back to the
+host pipeline with a warning, as the JAX package does.
+
 Not ported yet, and refused: the SARIMA baseline (ROADMAP Queue A item 8) and
-multi-process evaluation (item 7). A config with ``device_data`` evaluates on
-the host pipeline, as the JAX package does when ``*_raw.npz`` is missing.
+multi-process evaluation (item 7).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 
 from tec_mollm_tpu_torch.config import Config, load_config
 from tec_mollm_tpu_torch.data.dataset import BatchLoader, SlidingWindowDataset
+from tec_mollm_tpu_torch.data.device_data import DeviceResidentDataset
 from tec_mollm_tpu_torch.data.scaler import StandardScaler
 from tec_mollm_tpu_torch.device import resolve_device
 from tec_mollm_tpu_torch.evaluation.conformal import (
@@ -75,7 +81,11 @@ def build_eval_model(
 
 class EvalExecutor:
     """The eval model, its graph and the eval step on one device; batches of
-    ``batch_size`` windows (the loader pads the last one, marked invalid)."""
+    ``batch_size`` windows (the loader pads the last one, marked invalid).
+
+    ``device_dataset`` (a ``DeviceResidentDataset``): its raw series go to the
+    device once, the loader yields window starts and the eval step gathers
+    the windows there (the JAX ``EvalExecutor``'s ``device_dataset``)."""
 
     def __init__(
         self,
@@ -84,21 +94,27 @@ class EvalExecutor:
         state_dict: Mapping[str, torch.Tensor],
         batch_size: int,
         device=None,
+        device_dataset: DeviceResidentDataset | None = None,
     ):
         self.cfg = cfg
         self.batch_size = batch_size
         self.model, self.graph, self.device = build_eval_model(cfg, graph, state_dict, device)
         self.eval_step = make_eval_step(self.model, cfg)
+        # x in the dtype the host path casts it to (put_batch)
+        self._data = None if device_dataset is None else device_dataset.device_split(
+            self.device, torch.bfloat16 if cfg.train.bf16 else torch.float32)
 
-    def loader(self, dataset: SlidingWindowDataset) -> BatchLoader:
+    def loader(self, dataset: SlidingWindowDataset | DeviceResidentDataset) -> BatchLoader:
         """The dataset in order, in batches of ``batch_size`` (the last padded,
-        its padding marked invalid), gathered by a prefetch thread."""
-        return BatchLoader(dataset, batch_size=self.batch_size, drop_remainder=False, prefetch=2)
+        its padding marked invalid), gathered by a prefetch thread; window
+        starts alone with a device dataset."""
+        return BatchLoader(dataset, batch_size=self.batch_size, drop_remainder=False, prefetch=2,
+                           index_only=self._data is not None)
 
     def run(self, batch: dict[str, np.ndarray]):
         """(loss, preds, trues, valid), all on the device."""
         dev = put_batch(batch, self.device, self.cfg.train.bf16)
-        loss, preds, trues = self.eval_step(dev, self.graph)
+        loss, preds, trues = self.eval_step(dev, self.graph, self._data)
         return loss, preds, trues, dev["valid"]
 
     def stream_metrics(
@@ -134,10 +150,16 @@ class EvalExecutor:
         return result
 
 
+def device_dataset_of(dataset) -> DeviceResidentDataset | None:
+    """``dataset`` when it is device-resident, else None (the executor's
+    ``device_dataset``)."""
+    return dataset if isinstance(dataset, DeviceResidentDataset) else None
+
+
 def get_model_predictions(
     cfg: Config,
     state_dict: Mapping[str, torch.Tensor],
-    dataset: SlidingWindowDataset,
+    dataset: SlidingWindowDataset | DeviceResidentDataset,
     graph: GraphData,
     batch_size: int = 16,
     device=None,
@@ -145,7 +167,7 @@ def get_model_predictions(
     """(y_true, y_pred), each (num_samples, L_out, N, 1) scaled, of the whole
     dataset on the host (the point level of a quantile head). Prefer
     ``evaluate_model_streaming`` for metrics."""
-    ex = EvalExecutor(cfg, graph, state_dict, batch_size, device)
+    ex = EvalExecutor(cfg, graph, state_dict, batch_size, device, device_dataset_of(dataset))
     preds_all, trues_all = [], []
     for batch in ex.loader(dataset):
         _, preds, trues, _ = ex.run(batch)
@@ -158,7 +180,7 @@ def get_model_predictions(
 def evaluate_model_streaming(
     cfg: Config,
     state_dict: Mapping[str, torch.Tensor],
-    dataset: SlidingWindowDataset,
+    dataset: SlidingWindowDataset | DeviceResidentDataset,
     graph: GraphData,
     scaler: StandardScaler | None,
     batch_size: int = 16,
@@ -166,8 +188,9 @@ def evaluate_model_streaming(
     device=None,
 ) -> dict[str, Any]:
     """Inference and metrics without the predictions on the host
-    (``EvalExecutor.stream_metrics``)."""
-    ex = EvalExecutor(cfg, graph, state_dict, batch_size, device)
+    (``EvalExecutor.stream_metrics``); on the card's copy of a
+    device-resident dataset."""
+    ex = EvalExecutor(cfg, graph, state_dict, batch_size, device, device_dataset_of(dataset))
     return ex.stream_metrics(dataset, scaler, conformal_offsets)
 
 
@@ -186,15 +209,16 @@ def get_baseline_predictions(dataset: SlidingWindowDataset, L_out: int) -> np.nd
 
 
 def evaluate_baseline_streaming(
-    dataset: SlidingWindowDataset,
+    dataset: SlidingWindowDataset | DeviceResidentDataset,
     L_out: int,
     scaler: StandardScaler | None,
     batch_size: int = 64,
     device=None,
 ) -> dict[str, Any]:
     """The window-mean HA baseline, batch by batch: the window means on the
-    host (numpy, as the JAX package), the model's metric statistics on the
-    device; host memory of one batch."""
+    host (numpy, as the JAX package; a device-resident dataset through its
+    host mirror, the same windows bit for bit), the model's metric
+    statistics on the device; host memory of one batch."""
     device = resolve_device(device)
     acc = StreamingHorizonMetrics(L_out, scaler, device)
     baseline = WindowMeanBaseline()
@@ -541,6 +565,25 @@ def run_prediction(
     return {"indices": idx.tolist(), "forecast": forecast, "truth": truth, "path": out_path, "mae": mae, **extra}
 
 
+def eval_dataset(
+    cfg: Config, data_dir: str, split: str, tail_frac: float = 1.0
+) -> SlidingWindowDataset | DeviceResidentDataset:
+    """The stride-1 windows of a split: device-resident when the config has
+    ``device_data`` (the run's config.json records it, so a checkpoint
+    trained that way evaluates that way), else, or when the archive has no
+    ``*_raw.npz``, the host pipeline's."""
+    L_in, L_out = cfg.train.L_in, cfg.train.L_out
+    if cfg.train.device_data:
+        try:
+            return DeviceResidentDataset(data_dir, split, L_in, L_out, stride=1, tail_frac=tail_frac)
+        except FileNotFoundError:
+            logger.warning(
+                "config has device_data=true but %s has no *_raw.npz — falling back to the "
+                "host-streamed eval pipeline", data_dir,
+            )
+    return SlidingWindowDataset.from_dir(data_dir, split, L_in, L_out, stride=1, tail_frac=tail_frac)
+
+
 def _resolve_conformal(
     conformal: str,
     cfg: Config,
@@ -566,9 +609,7 @@ def _resolve_conformal(
         )
         return None
     if conformal == "fit":
-        val_ds = SlidingWindowDataset.from_dir(
-            data_dir, "val", cfg.train.L_in, cfg.train.L_out, stride=1, tail_frac=tail_frac
-        )
+        val_ds = eval_dataset(cfg, data_dir, "val", tail_frac)
         if len(val_ds) == 0:
             logger.warning("val split empty — cannot fit conformal offsets")
             return None
@@ -625,14 +666,7 @@ def run_evaluation(
     if "sarima" in baselines:
         raise ValueError(SARIMA_REFUSAL)
     cfg = cfg.resolved()
-    if cfg.train.device_data:
-        logger.warning(
-            "config has device_data=true: the device-resident archive is not ported yet "
-            "(ROADMAP Queue A item 8) — evaluating on the host-streamed pipeline"
-        )
-    test_ds = SlidingWindowDataset.from_dir(
-        data_dir, split, cfg.train.L_in, cfg.train.L_out, stride=1, tail_frac=tail_frac
-    )
+    test_ds = eval_dataset(cfg, data_dir, split, tail_frac)
     graph = GraphData.load(os.path.join(data_dir, "graph.npz"))
     scaler = _target_scaler(data_dir)
     ckpt_path, state_dict = _load_checkpoint(cfg, checkpoint, workdir, run_name)

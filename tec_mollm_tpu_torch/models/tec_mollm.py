@@ -65,6 +65,19 @@ def opt_in_kernel_refusal(
     return None
 
 
+def gat_route(cfg: ModelConfig, stencil_shifts: tuple[int, ...] | None, gat_kernel: bool = True) -> str:
+    """The GAT route of a model, as the service and the trainer report it: the
+    kernel on every eval call of a stencil model (its tiled form for the
+    model's 2 x 11 layout and stencils, its general form for any other), the
+    plain path in padded-gather mode, as in the JAX model."""
+    if stencil_shifts is None:
+        return "plain: padded-gather graph (no stencil)"
+    if not gat_kernel:
+        return "plain: gat_kernel=False"
+    reason = tiled_takes(stencil_shifts, cfg.spatial_heads, cfg.spatial_out_channels)
+    return "kernel" if reason is None else f"kernel, general form: {reason}"
+
+
 class TECMoLLM(nn.Module):
     def __init__(
         self,
@@ -87,18 +100,8 @@ class TECMoLLM(nn.Module):
         self.cfg = cfg
         self.stencil_shifts = None if stencil_shifts is None else tuple(int(s) for s in stencil_shifts)
         self.dtype = dtype
-        # The GAT route, reported by the service and the trainer: the kernel on
-        # every eval call of a stencil model (its tiled form for the model's
-        # 2 x 11 layout and stencils, its general form for any other), the
-        # plain path in padded-gather mode, as in the JAX model.
         self.gat_kernel = self.stencil_shifts is not None and gat_kernel
-        if self.stencil_shifts is None:
-            self.gat_route = "plain: padded-gather graph (no stencil)"
-        elif not gat_kernel:
-            self.gat_route = "plain: gat_kernel=False"
-        else:
-            reason = tiled_takes(self.stencil_shifts, cfg.spatial_heads, cfg.spatial_out_channels)
-            self.gat_route = "kernel" if reason is None else f"kernel, general form: {reason}"
+        self.gat_route = gat_route(cfg, self.stencil_shifts, gat_kernel)
         self.pad_nodes_to = pad_nodes_to
         self.spatio_temporal_embedding = SpatioTemporalEmbedding(cfg)
         self.spatial_encoder = SpatialEncoder(cfg, self.stencil_shifts)

@@ -31,6 +31,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libtec_mollm_kernels.so"
+# the namespace of the forward kernels' registered ops (torch.ops.tec_mollm.*)
+NAMESPACE = "tec_mollm"
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -147,6 +149,13 @@ def refuse_grad(name: str, hint: str, *tensors) -> None:
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name} has no backward: {hint}")
+
+
+def op_for(op, impl, t):
+    """The registered ``op``, or for a meta tensor its implementation
+    ``impl``, whose launch raises: the op's shape function would answer for
+    a meta tensor, and a tensor off the CPU goes to the kernel or raises."""
+    return impl if t.device.type == "meta" else op
 
 
 def check(name: str, err: int) -> None:

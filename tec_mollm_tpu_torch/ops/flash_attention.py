@@ -123,7 +123,10 @@ def _aligned16(a: torch.Tensor) -> torch.Tensor:
     return a.clone(memory_format=torch.contiguous_format)
 
 
-_ARGTYPES = (
+# flash_attention_forward's C signature: q, k, v, out; b, t, h, d; the batch,
+# token and head strides of q, k, v; is_bf16, causal, scale; dropout on, seed,
+# threshold, 1/(1-p); stream
+ARGTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 9
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
     + [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
@@ -141,18 +144,24 @@ def flash_attention_forward(
     _check(q, k, v)
     if q.dtype == torch.bfloat16:
         q, k, v = (_aligned16(a) for a in (q, k, v))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    fn = _build.function("flash_attention_forward", ARGTYPES)
+    _build.check(NAME, fn(*entry_args(q, k, v, out, causal, dropout_rate, seed)))
+    _build.count_launch(NAME)
+    return out
+
+
+def entry_args(q, k, v, out, causal: bool, dropout_rate: float, seed: int) -> tuple:
+    """flash_attention_forward's C arguments for checked (B, T, H, D) views on
+    one device (bf16 ones 16-byte aligned) and the (B, T, H, D) output buffer,
+    in ARGTYPES' order: the one place that marshals them."""
     b, t, h, d = q.shape
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     strides = [s for a in (q, k, v) for s in a.stride()[:3]]
-    fn = _build.function("flash_attention_forward", _ARGTYPES)
-    err = fn(
+    return (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, h, d, *strides,
         int(q.dtype == torch.bfloat16), int(bool(causal)), ctypes.c_float(1.0 / d**0.5),
         *dropout_args(dropout_rate, seed), _build.stream_handle(q.device),
     )
-    _build.check(NAME, err)
-    _build.count_launch(NAME)
-    return out
 
 
 class _FlashAttention(torch.autograd.Function):

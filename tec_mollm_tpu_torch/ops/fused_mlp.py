@@ -20,8 +20,10 @@ bound on this card is operations: 4 * rows * d * dh FLOP over 989 TFLOP/s,
 about 0.67 ms for the flagship eval batch (rows = 8*2944*3, d = 768,
 dh = 3072).
 
-``fused_ln_mlp`` is a ``torch.autograd.Function``. Its backward recomputes the
-plain version under autograd, as the JAX ``_fused_bwd`` differentiates
+The forward is the registered op ``tec_mollm::fused_ln_mlp`` (what an exported
+artifact holds); ``fused_ln_mlp`` calls it directly when no gradient is
+needed, else through a ``torch.autograd.Function`` whose backward recomputes
+the plain version under autograd, as the JAX ``_fused_bwd`` differentiates
 ``reference_ln_mlp`` (``tec_mollm_tpu/ops/fused_mlp.py:108-113``); the TPU
 package has no backward kernel for it either.
 """
@@ -116,18 +118,33 @@ def fused_ln_mlp_forward(
     return out
 
 
+def _op_impl(x, ln_w, ln_b, w1, b1, w2, b2, eps):
+    """``tec_mollm::fused_ln_mlp``: the plain version on the CPU, the kernel
+    on any other device. ``torch.export`` records the op as one node, so an
+    exported artifact launches the kernel on the card."""
+    if x.device.type == "cpu":
+        return fused_ln_mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    return fused_ln_mlp_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+
+
+fused_ln_mlp_op = torch.library.custom_op(
+    f"{_build.NAMESPACE}::fused_ln_mlp", _op_impl, mutates_args=(),
+    schema="(Tensor x, Tensor ln_w, Tensor ln_b, Tensor w1, Tensor b1, Tensor w2, Tensor b2, float eps) -> Tensor",
+)
+# the shape function, for tracing (a meta tensor goes to _op_impl: _build.op_for)
+fused_ln_mlp_op.register_fake(lambda x, ln_w, ln_b, w1, b1, w2, b2, eps: x.new_empty(x.shape))
+
+
 class _FusedLNMLP(torch.autograd.Function):
-    """Forward through the kernel (or, on the CPU, the plain version); backward
-    by recomputing the plain version under autograd, as the JAX ``_fused_bwd``
-    differentiates ``reference_ln_mlp``."""
+    """Forward through the registered op; backward by recomputing the plain
+    version under autograd, as the JAX ``_fused_bwd`` differentiates
+    ``reference_ln_mlp``."""
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps):
         ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
         ctx.eps = eps
-        if x.device.type == "cpu":
-            return fused_ln_mlp_reference(x, ln_w, ln_b, w1, b1, w2, b2, eps)
-        return fused_ln_mlp_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+        return _build.op_for(fused_ln_mlp_op, _op_impl, x)(x, ln_w, ln_b, w1, b1, w2, b2, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -149,6 +166,11 @@ def fused_ln_mlp(
     b2: torch.Tensor,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    """x + MLP(LN(x)) over (rows, d); differentiable. A CPU tensor takes the
-    plain version, a CUDA tensor launches the kernel or raises."""
-    return _FusedLNMLP.apply(x, ln_w, ln_b, w1, b1, w2, b2, float(eps))
+    """x + MLP(LN(x)) over (rows, d). A CPU tensor takes the plain version, a
+    CUDA tensor launches the kernel or raises. A call that needs no gradient
+    is one ``tec_mollm::fused_ln_mlp`` op; one that does goes through the
+    autograd function."""
+    args = (x, ln_w, ln_b, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FusedLNMLP.apply(*args, float(eps))
+    return _build.op_for(fused_ln_mlp_op, _op_impl, x)(*args, float(eps))

@@ -33,6 +33,9 @@ added by ``pad_nodes_to``) gives 0, not NaN. And the kernel counts a neighbour
 outside [0, N) as invalid, where the Pallas roll and the plain version wrap
 around the node axis; the two agree on every mask the graph builder makes,
 since it marks no such neighbour valid.
+
+The forward is the registered op ``tec_mollm::gat_stencil`` (what an exported
+artifact holds): the plain version on a CPU tensor, the launch on the card.
 """
 
 from __future__ import annotations
@@ -154,24 +157,17 @@ def entry_args(xl, xr, valid, att32, shifts: tuple[int, ...], out, negative_slop
     )
 
 
-def gat_stencil_attention(
+def _launch(
     xl: torch.Tensor,
     xr: torch.Tensor,
     valid: torch.Tensor,
     att: torch.Tensor,
     shifts: tuple[int, ...],
-    negative_slope: float = 0.2,
+    negative_slope: float,
 ) -> torch.Tensor:
-    """Forward stencil attention; (M, H*C, N) in xl's dtype. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises. Like the
-    Pallas kernel it has no backward: a call that would need one raises, on
-    every device."""
-    _build.refuse_grad(
-        "gat_stencil_attention", "call it under torch.no_grad() (the model trains through "
-        "GATv2Stencil's plain path)", xl, xr, att,
-    )
-    if xl.device.type == "cpu":
-        return gat_stencil_reference(xl, xr, valid, att, shifts, negative_slope)
+    """Check the tensors and launch the kernel (the tiled form where
+    ``tiled_takes``, else the general one); raises on what it does not take
+    and when the library does not build or the launch fails."""
     m, hc, n = xl.shape
     h, c = att.shape
     if h * c != hc:
@@ -195,3 +191,40 @@ def gat_stencil_attention(
     _build.check(NAME, fn(*entry_args(xl, xr, valid, att32, shifts, out, negative_slope)))
     _build.count_launch(NAME if tiled_takes(shifts, h, c) is None else GENERAL_NAME)
     return out
+
+
+def _op_impl(xl, xr, valid, att, shifts, negative_slope):
+    """``tec_mollm::gat_stencil``: the plain version on the CPU, the kernel on
+    any other device. ``torch.export`` records the op as one node, so an
+    exported artifact launches the kernel on the card."""
+    if xl.device.type == "cpu":
+        return gat_stencil_reference(xl, xr, valid, att, tuple(shifts), negative_slope)
+    return _launch(xl, xr, valid, att, tuple(shifts), negative_slope)
+
+
+gat_stencil_op = torch.library.custom_op(
+    f"{_build.NAMESPACE}::gat_stencil", _op_impl, mutates_args=(),
+    schema="(Tensor xl, Tensor xr, Tensor valid, Tensor att, int[] shifts, float negative_slope) -> Tensor",
+)
+# the shape function, for tracing (a meta tensor goes to _op_impl: _build.op_for)
+gat_stencil_op.register_fake(lambda xl, xr, valid, att, shifts, negative_slope: torch.empty_like(xl))
+
+
+def gat_stencil_attention(
+    xl: torch.Tensor,
+    xr: torch.Tensor,
+    valid: torch.Tensor,
+    att: torch.Tensor,
+    shifts: tuple[int, ...],
+    negative_slope: float = 0.2,
+) -> torch.Tensor:
+    """Forward stencil attention; (M, H*C, N) in xl's dtype, through
+    ``tec_mollm::gat_stencil``. A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises. Like the Pallas kernel it has no
+    backward: a call that would need one raises, on every device."""
+    _build.refuse_grad(
+        "gat_stencil_attention", "call it under torch.no_grad() (the model trains through "
+        "GATv2Stencil's plain path)", xl, xr, att,
+    )
+    call = _build.op_for(gat_stencil_op, _op_impl, xl)
+    return call(xl, xr, valid, att, [int(s) for s in shifts], float(negative_slope))

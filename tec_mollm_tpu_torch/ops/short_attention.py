@@ -23,9 +23,12 @@ Backward: q, k, v, g read and dq, dk, dv written, 7 * M*T*D elements, about
 227 us. The backward writes [dq | dk | dv] into one (M, T, 3D) tensor in the
 layout of the c_attn projection that q, k and v are views of.
 
-``short_causal_attention`` is a ``torch.autograd.Function`` that saves q, k, v
-and the seed (not the mask). A CPU tensor takes the plain forward and backward;
-a CUDA tensor launches the kernels or raises.
+The forward is the registered op ``tec_mollm::short_attention`` (what an
+exported artifact holds). ``short_causal_attention`` calls it directly when no
+gradient is needed, else through a ``torch.autograd.Function`` that saves q, k,
+v and the seed (not the mask) and whose backward is the backward kernel. A CPU
+tensor takes the plain forward and backward; a CUDA tensor launches the
+kernels or raises.
 """
 
 from __future__ import annotations
@@ -232,6 +235,23 @@ def short_attention_backward(q, k, v, g, heads: int, dropout_rate: float = 0.0, 
     return dqkv
 
 
+def _op_impl(q, k, v, heads, dropout_rate, seed):
+    """``tec_mollm::short_attention``: the plain forward on the CPU, the
+    kernel on any other device. ``torch.export`` records the op as one node,
+    so an exported artifact launches the kernel on the card."""
+    if q.device.type == "cpu":
+        return short_causal_attention_reference(q, k, v, heads, dropout_rate, seed)
+    return short_attention_forward(q, k, v, heads, dropout_rate, seed)
+
+
+short_attention_op = torch.library.custom_op(
+    f"{_build.NAMESPACE}::short_attention", _op_impl, mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, int heads, float dropout_rate, int seed) -> Tensor",
+)
+# the shape function, for tracing (a meta tensor goes to _op_impl: _build.op_for)
+short_attention_op.register_fake(lambda q, k, v, heads, dropout_rate, seed: q.new_empty(q.shape))
+
+
 def _thirds(qkv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return qkv.split(qkv.shape[-1] // 3, dim=-1)
 
@@ -244,10 +264,7 @@ class _ShortAttention(torch.autograd.Function):
     def forward(ctx, qkv: torch.Tensor, heads: int, rate: float, seed: int) -> torch.Tensor:
         ctx.save_for_backward(qkv)
         ctx.heads, ctx.rate, ctx.seed = heads, rate, seed
-        q, k, v = _thirds(qkv)
-        if qkv.device.type == "cpu":
-            return short_causal_attention_reference(q, k, v, heads, rate, seed)
-        return short_attention_forward(q, k, v, heads, rate, seed)
+        return _build.op_for(short_attention_op, _op_impl, qkv)(*_thirds(qkv), heads, rate, seed)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
@@ -291,12 +308,16 @@ def short_causal_attention(
     seed: int = 0,
 ) -> torch.Tensor:
     """Causal attention over (M, T, D) with attention dropout ``dropout_rate``
-    drawn from ``seed``; differentiable. A CPU tensor takes the plain forward
-    and backward, a CUDA tensor launches the kernels or raises. When q, k and v
-    are the thirds of one (M, T, 3D) projection, their gradient is one tensor
-    in its layout."""
+    drawn from ``seed``. A CPU tensor takes the plain forward and backward, a
+    CUDA tensor launches the kernels or raises. A call that needs no gradient
+    is one ``tec_mollm::short_attention`` op on q, k and v as they are; one
+    that does goes through the autograd function, and when q, k and v are
+    the thirds of one (M, T, 3D) projection their gradient is one tensor in
+    its layout."""
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must lie in [0, 1), got {dropout_rate}")
     if q.device.type != "cpu":
         _check(q, k, v, heads)
-    return _ShortAttention.apply(_packed(q, k, v), heads, float(dropout_rate), int(seed))
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
+        return _ShortAttention.apply(_packed(q, k, v), heads, float(dropout_rate), int(seed))
+    return _build.op_for(short_attention_op, _op_impl, q)(q, k, v, heads, float(dropout_rate), int(seed))

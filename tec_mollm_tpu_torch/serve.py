@@ -9,10 +9,12 @@ The JAX package's ``serve.py`` flags. --checkpoint is ``latest`` (the newest
 a ``best_params.pt`` or a reference ``.pth``; the config is --config, else the
 config.json beside the resolved checkpoint, else the flagship default
 (``evaluation/harness.resolve_cli_config``). A quantile model serves its bands
-calibrated by the ``conformal.npz`` beside the checkpoint. --bench N skips HTTP
-and prints latency statistics of N warm forecast calls as one JSON line. Runs
-on the GPU; --cpu asks for the CPU. --artifact is refused: exported artifacts
-are not ported yet (ROADMAP Queue A item 6).
+calibrated by the ``conformal.npz`` beside the checkpoint (or the artifact).
+--artifact serves an exported program (``python -m tec_mollm_tpu_torch.export``)
+instead of restoring the checkpoint; --config/--checkpoint still resolve the
+window config, which is cross-checked against the artifact's metadata json.
+--bench N skips HTTP and prints latency statistics of N warm forecast calls as
+one JSON line. Runs on the GPU; --cpu asks for the CPU.
 """
 
 from __future__ import annotations
@@ -24,12 +26,6 @@ import time
 
 import numpy as np
 
-ARTIFACT_REFUSAL = (
-    "--artifact: serving an exported artifact is not ported yet (ROADMAP Queue A item 6, export and the "
-    "artifact server)"
-)
-
-
 def main(argv: list[str] | None = None) -> None:
     p = argparse.ArgumentParser(description="TEC-MoLLM forecast server (PyTorch port)")
     p.add_argument("--data-dir", default="data/processed")
@@ -40,7 +36,9 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--config", default=None)
     p.add_argument("--splits", nargs="*", default=["test"])
     p.add_argument("--artifact", default=None,
-                   help="serve from an exported artifact (not ported yet: refused)")
+                   help="serve from an exported artifact (python -m tec_mollm_tpu_torch.export) instead of "
+                        "restoring the checkpoint; --config/--checkpoint still resolve the window config, "
+                        "cross-checked against the artifact's metadata json")
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--batch-window-ms", type=float, default=5.0,
                    help="coalesce concurrent requests for up to this long (0 disables)")
@@ -53,8 +51,6 @@ def main(argv: list[str] | None = None) -> None:
     args = p.parse_args(argv)
     if not args.splits:
         p.error("--splits needs at least one split name")
-    if args.artifact:
-        p.error(ARTIFACT_REFUSAL)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
 
     from tec_mollm_tpu_torch.device import resolve_device
@@ -66,8 +62,9 @@ def main(argv: list[str] | None = None) -> None:
     # a serial bench with the batching window on would add the window to every request
     window_ms = 0.0 if (args.bench and args.bench_threads == 1) else args.batch_window_ms
     service = ForecastService(
-        cfg, args.data_dir, checkpoint=checkpoint, workdir=args.workdir, run_name=args.run_name,
-        max_batch=args.max_batch, splits=tuple(args.splits), batch_window_ms=window_ms, device=device,
+        cfg, args.data_dir, checkpoint=None if args.artifact else checkpoint, workdir=args.workdir,
+        run_name=args.run_name, max_batch=args.max_batch, splits=tuple(args.splits), batch_window_ms=window_ms,
+        device=device, artifact=args.artifact,
     )
     if not args.bench:
         serve(service, args.host, args.port)

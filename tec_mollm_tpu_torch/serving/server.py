@@ -5,6 +5,13 @@
   or a reference ``.pth``, resolved and imported as the eval CLI does:
   ``evaluation/harness.py``), or from a state_dict passed in memory; the model
   runs in eval mode at bf16 when ``cfg.train.bf16``;
+* or the forward is an exported artifact (``serving/export.py``): the program
+  holds the weights and the graph tables, and its forward kernels are
+  registered ops, so it launches them as the model does. Its metadata is
+  cross-checked against the config (L_in, L_out, num_nodes: a ``ValueError``
+  names the mismatch), a fixed-batch artifact sets ``max_batch``, its dtype
+  is the metadata's (the config's without metadata), and a device outside its
+  ``platforms`` is refused;
 * the graph's stencil feeds the stencil GAT kernel, a graph without one the
   padded-gather GAT; the model's route (``TECMoLLM.gat_route``) is reported by
   ``stats()`` and ``health()``;
@@ -19,7 +26,8 @@
   when the ``conformal.npz`` that ``python -m tec_mollm_tpu_torch.test
   --conformal fit`` writes beside the checkpoint has the model's levels.
 
-Serving an exported artifact is not ported yet (ROADMAP Queue A item 6).
+``stats()`` and ``health()`` give the source ("checkpoint" or "artifact")
+and the GAT route.
 """
 
 from __future__ import annotations
@@ -165,13 +173,14 @@ class ForecastService:
         fused_attn: bool = False,
         use_fused_mlp: bool = False,
         device: str | torch.device | None = None,
+        artifact: str | None = None,
     ):
         self.device = resolve_device(device)
-        if (checkpoint is None) == (state_dict is None):
-            raise ValueError("pass exactly one of checkpoint ('latest' or a path) or state_dict")
+        if sum(a is not None for a in (checkpoint, state_dict, artifact)) != 1:
+            raise ValueError("pass exactly one of checkpoint ('latest' or a path), state_dict or artifact")
         self.cfg = cfg = cfg.resolved()
         self.dtype = torch.bfloat16 if cfg.train.bf16 else torch.float32
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and artifact is None:
             reason = opt_in_kernel_refusal(cfg.model, self.dtype, fused_attn, use_fused_mlp)
             if reason is not None:
                 raise ValueError(reason)
@@ -179,24 +188,32 @@ class ForecastService:
             s: SlidingWindowDataset.from_dir(data_dir, s, cfg.train.L_in, cfg.train.L_out, stride=1)
             for s in splits
         }
-        graph = GraphData.load(os.path.join(data_dir, "graph.npz"))
         tscaler_path = os.path.join(data_dir, "target_scaler.npz")
         self.tscaler = StandardScaler.load(tscaler_path) if os.path.exists(tscaler_path) else None
 
         self.conformal: ConformalOffsets | None = None
-        if checkpoint is not None:
-            self.ckpt_path = resolve_checkpoint(checkpoint, workdir, run_name)
-            warn_on_config_mismatch(cfg, self.ckpt_path)
-            state_dict = load_params_for_eval(cfg, self.ckpt_path)
+        self.source = "checkpoint"
+        if artifact is not None:
+            self.source = "artifact"
+            self.ckpt_path = artifact
+            max_batch = self._load_artifact(artifact, max_batch)
             self._load_conformal()
         else:
-            self.ckpt_path = "<in-memory state_dict>"
-        shifts, self.graph = graph_inputs(graph, self.device)
-        model = TECMoLLM(
-            cfg.model, shifts, dtype=self.dtype, fused_attn=fused_attn, use_fused_mlp=use_fused_mlp, seed=None
-        )
-        model.load_state_dict(state_dict)
-        self.model = model.to(self.device).eval()
+            if checkpoint is not None:
+                self.ckpt_path = resolve_checkpoint(checkpoint, workdir, run_name)
+                warn_on_config_mismatch(cfg, self.ckpt_path)
+                state_dict = load_params_for_eval(cfg, self.ckpt_path)
+                self._load_conformal()
+            else:
+                self.ckpt_path = "<in-memory state_dict>"
+            shifts, self.graph = graph_inputs(GraphData.load(os.path.join(data_dir, "graph.npz")), self.device)
+            model = TECMoLLM(
+                cfg.model, shifts, dtype=self.dtype, fused_attn=fused_attn, use_fused_mlp=use_fused_mlp, seed=None
+            )
+            model.load_state_dict(state_dict)
+            self.model = model.to(self.device).eval()
+            self._forward = lambda x, tf: self.model(x, tf, *self.graph)
+            self.gat_route = self.model.gat_route
         self.max_batch = max_batch
 
         # one lock around device work; a separate one for the counters so that
@@ -218,9 +235,45 @@ class ForecastService:
         self.warmup_s = time.perf_counter() - t0
         self._batcher = _DynamicBatcher(self, batch_window_ms) if batch_window_ms > 0 else None
         logger.info(
-            "service warm on %s: %s max_batch=%d first run %.1fs; GAT route: %s",
-            self.device, self.ckpt_path, self.max_batch, self.warmup_s, self.model.gat_route,
+            "service warm on %s: %s %s max_batch=%d first run %.1fs; GAT route: %s",
+            self.device, self.source, self.ckpt_path, self.max_batch, self.warmup_s, self.gat_route,
         )
+
+    def _load_artifact(self, path: str, max_batch: int) -> int:
+        """Load an exported artifact after checking its metadata against the
+        config and this device; returns the batch to pad to (a fixed-batch
+        artifact's own)."""
+        from tec_mollm_tpu_torch.serving.export import load_forecaster
+
+        cfg = self.cfg
+        meta: dict[str, Any] = {}
+        if os.path.exists(path + ".json"):
+            with open(path + ".json") as f:
+                meta = json.load(f)
+        mismatches = {
+            k: (meta[k], v)
+            for k, v in {"L_in": cfg.train.L_in, "L_out": cfg.train.L_out, "num_nodes": cfg.model.num_nodes}.items()
+            if k in meta and meta[k] != v
+        }
+        if mismatches:
+            raise ValueError(
+                f"artifact {path} disagrees with the config on {mismatches} (artifact vs config): export "
+                "and serving must use the same run's config"
+            )
+        platforms = meta.get("platforms")
+        if platforms is not None and self.device.type not in platforms:
+            raise ValueError(f"artifact {path} was exported for {platforms}, not for {self.device.type}")
+        if isinstance(meta.get("batch"), int) and meta["batch"] != max_batch:
+            # a fixed-batch artifact takes exactly one shape
+            logger.info("artifact has fixed batch %d; overriding max_batch=%d", meta["batch"], max_batch)
+            max_batch = meta["batch"]
+        # without metadata, the config knows the export dtype, as export_forecaster derives it
+        default = "bfloat16" if cfg.train.bf16 else "float32"
+        self.dtype = torch.bfloat16 if meta.get("dtype", default) == "bfloat16" else torch.float32
+        self._forward = load_forecaster(path, self.device)
+        self.model = None
+        self.gat_route = meta.get("gat_route") or "unknown: the artifact has no metadata"
+        return max_batch
 
     def _load_conformal(self) -> None:
         """The split-conformal offsets beside the checkpoint, when a quantile
@@ -247,9 +300,7 @@ class ForecastService:
         x = torch.from_numpy(batch["x"]).to(self.dtype)
         tf = torch.from_numpy(batch["time_features"])
         with torch.inference_mode():
-            preds = self.model(
-                x.to(self.device, non_blocking=True), tf.to(self.device, non_blocking=True), *self.graph
-            )
+            preds = self._forward(x.to(self.device, non_blocking=True), tf.to(self.device, non_blocking=True))
         out = preds[:n].cpu().numpy()
         with self._stats_lock:
             self._forward_ms.append((time.perf_counter() - t0) * 1e3)
@@ -301,7 +352,7 @@ class ForecastService:
             lat = np.asarray(self._latencies_ms)
             fwd = np.asarray(self._forward_ms)
             count = self._count
-        out: dict[str, Any] = {"requests": count, "gat_route": self.model.gat_route}
+        out: dict[str, Any] = {"requests": count, "source": self.source, "gat_route": self.gat_route}
         if lat.size:
             out.update(
                 p50_ms=round(float(np.percentile(lat, 50)), 3),
@@ -350,12 +401,13 @@ class ForecastService:
         return {
             "status": "ok",
             "device": str(self.device),
+            "source": self.source,
             "checkpoint": self.ckpt_path,
             "num_nodes": self.cfg.model.num_nodes,
             "L_in": self.cfg.train.L_in,
             "L_out": self.cfg.train.L_out,
             "max_batch": self.max_batch,
-            "gat_route": self.model.gat_route,
+            "gat_route": self.gat_route,
             "splits": {k: len(v) for k, v in self.datasets.items()},
             "warmup_s": round(self.warmup_s, 2),
         }

@@ -14,9 +14,12 @@ Checkpoints go to ``<workdir>/checkpoints/<run_name>/``, with the run's
 until the restore has succeeded); ``best_params.pt`` there is what
 ``python -m tec_mollm_tpu_torch.serve --checkpoint`` serves.
 
+``--device-data`` keeps the splits' raw series (``{split}_raw.npz``) on the
+card and gathers each microbatch's windows there (``data/device_data.py``).
+
 Refused, with the ROADMAP item that brings them: ``--multihost``,
-``--model-parallel`` above 1, ``--device-data`` and remat policies other than
-full recomputation.
+``--model-parallel`` above 1 and remat policies other than full
+recomputation.
 """
 
 from __future__ import annotations
@@ -71,7 +74,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--no-remat", action="store_true", help="force remat off (overrides --config)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
     p.add_argument("--device-data", action="store_true",
-                   help="device-resident archive (not ported yet: refused)")
+                   help="device-resident archive: keep the splits' raw series (*_raw.npz) on the card and "
+                        "gather windows there; the host ships only window-start indices")
     p.add_argument("--multihost", action="store_true", help="multi-process training (not ported yet: refused)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of one epoch (on a snapshot of the state) here")
@@ -142,6 +146,7 @@ def build_trainer(args: argparse.Namespace, cfg):
     """The Trainer over the data directory's splits, graph and scaler, with
     the run's config written beside its checkpoints."""
     from tec_mollm_tpu_torch.data.dataset import SlidingWindowDataset
+    from tec_mollm_tpu_torch.data.device_data import DeviceResidentDataset
     from tec_mollm_tpu_torch.data.scaler import StandardScaler
     from tec_mollm_tpu_torch.device import resolve_device
     from tec_mollm_tpu_torch.graph.builder import GraphData
@@ -153,10 +158,15 @@ def build_trainer(args: argparse.Namespace, cfg):
     device = resolve_device("cpu" if args.cpu else None)  # no card and no --cpu: raises
     data_dir = args.data_dir
     t = cfg.train
-    train_ds = SlidingWindowDataset.from_dir(data_dir, "train", t.L_in, t.L_out, stride=t.train_stride)
-    val_ds = SlidingWindowDataset.from_dir(
-        data_dir, "val", t.L_in, t.L_out, stride=t.val_stride, tail_frac=t.val_tail_frac
-    )
+    if t.device_data:
+        def make_ds(mode, stride, tail_frac=1.0):
+            return DeviceResidentDataset(data_dir, mode, t.L_in, t.L_out, stride=stride, tail_frac=tail_frac)
+    else:
+        def make_ds(mode, stride, tail_frac=1.0):
+            return SlidingWindowDataset.from_dir(data_dir, mode, t.L_in, t.L_out, stride=stride, tail_frac=tail_frac)
+
+    train_ds = make_ds("train", t.train_stride)
+    val_ds = make_ds("val", t.val_stride, tail_frac=t.val_tail_frac)
     if len(val_ds) == 0:
         logger.warning("validation split empty; training without validation")
         val_ds = None

@@ -163,28 +163,38 @@ def make_sum_loss_fn(model: torch.nn.Module, cfg: Config) -> Callable:
 
 
 def make_train_step(model: torch.nn.Module, cfg: Config) -> Callable:
-    """train_step(state, batch, graph) -> (state, {"loss", "grad_norm"}).
+    """train_step(state, batch, graph[, data]) -> (state, {"loss", "grad_norm"}).
 
     ``batch`` arrays have leading dim accumulation_steps * microbatch. Only the
-    trainable parameters get gradients."""
+    trainable parameters get gradients. With ``data`` (a ``DeviceSplit``, the
+    device-resident archive) ``batch`` is {"starts", "valid"} and each
+    microbatch's windows are gathered on the device right before its forward,
+    so no more than one microbatch of windows is ever materialized."""
     accum = cfg.train.accumulation_steps
     loss_fn = make_sum_loss_fn(model, cfg)
     schedule = cosine_annealing_warm_restarts(
         cfg.train.lr, cfg.train.sched_t0, cfg.train.sched_t_mult, cfg.train.sched_eta_min
     )
 
-    def train_step(state: TrainState, batch: dict[str, torch.Tensor], graph: tuple[torch.Tensor, torch.Tensor | None]):
+    def train_step(
+        state: TrainState,
+        batch: dict[str, torch.Tensor],
+        graph: tuple[torch.Tensor, torch.Tensor | None],
+        data=None,
+    ):
         model.train()
         params = list(state.trainable().values())
         for p in params:
             p.grad = None
         device = graph[0].device
         forked = [device] if device.type == "cuda" else []
-        micro = batch["x"].shape[0] // accum
+        micro = batch["starts" if data is not None else "x"].shape[0] // accum
         loss_sum = torch.zeros((), device=device)
         count_sum = torch.zeros((), device=device)
         for i in range(accum):
             mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()} if accum > 1 else batch
+            if data is not None:
+                mb = data.gather(mb["starts"], mb.get("valid"))
             with torch.random.fork_rng(devices=forked):
                 torch.manual_seed(dropout_seed(state.seed, state.step, i))
                 wsum, count = loss_fn(mb, graph)
@@ -213,12 +223,15 @@ def make_train_step(model: torch.nn.Module, cfg: Config) -> Callable:
 
 
 def make_eval_step(model: torch.nn.Module, cfg: Config) -> Callable:
-    """eval_step(batch, graph) -> (loss, preds, targets), deterministic
+    """eval_step(batch, graph[, data]) -> (loss, preds, targets), deterministic
     and under ``torch.no_grad()``; padded rows (``batch['valid']``) carry zero
-    loss weight."""
+    loss weight. With ``data`` (a ``DeviceSplit``) ``batch`` is {"starts",
+    "valid"} and the windows are gathered on the device, as in the train step."""
 
-    def eval_step(batch: dict[str, torch.Tensor], graph: tuple[torch.Tensor, torch.Tensor | None]):
+    def eval_step(batch: dict[str, torch.Tensor], graph: tuple[torch.Tensor, torch.Tensor | None], data=None):
         model.eval()
+        if data is not None:
+            batch = data.gather(batch["starts"], batch.get("valid"))
         with torch.no_grad():
             preds = model(batch["x"], batch["time_features"], *graph)
             targets = _targets(batch)

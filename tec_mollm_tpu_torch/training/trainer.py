@@ -21,9 +21,14 @@ continues from there: the epoch's batch order is a function of seed and epoch,
 and dropout is seeded from the step, so the resumed run repeats the
 uninterrupted one.
 
+With ``DeviceResidentDataset`` splits (``TrainConfig.device_data``, the train
+CLI's ``--device-data``) the raw series live on the card: the loaders yield
+window starts only (``BatchLoader(index_only=True)``) and each microbatch is
+gathered on the device right before its forward (``data/device_data.py``),
+validation's batches too.
+
 Not ported here (refused by ``unsupported``): multi-process data parallelism,
-tensor parallelism, the device-resident archive and the remat policies other
-than full recomputation.
+tensor parallelism and the remat policies other than full recomputation.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 
 from tec_mollm_tpu_torch.config import Config
 from tec_mollm_tpu_torch.data.dataset import BatchLoader, SlidingWindowDataset
+from tec_mollm_tpu_torch.data.device_data import DeviceResidentDataset
 from tec_mollm_tpu_torch.data.scaler import StandardScaler
 from tec_mollm_tpu_torch.device import resolve_device
 from tec_mollm_tpu_torch.evaluation.streaming import StreamingHorizonMetrics
@@ -68,11 +74,6 @@ def unsupported(cfg: Config) -> str | None:
             f"model_parallel={t.model_parallel}: tensor parallelism is not ported yet "
             "(ROADMAP Queue A item 7, data and tensor parallelism)"
         )
-    if t.device_data:
-        return (
-            "device_data: the device-resident archive is not ported yet "
-            "(ROADMAP Queue A, beside item 8)"
-        )
     if t.remat_policy not in (None, "full"):
         return (
             f"remat_policy={t.remat_policy!r}: the port recomputes whole GPT-2 blocks only "
@@ -85,8 +86,8 @@ class Trainer:
     def __init__(
         self,
         cfg: Config,
-        train_ds: SlidingWindowDataset,
-        val_ds: SlidingWindowDataset | None,
+        train_ds: SlidingWindowDataset | DeviceResidentDataset,
+        val_ds: SlidingWindowDataset | DeviceResidentDataset | None,
         graph: GraphData,
         target_scaler: StandardScaler | None,
         workdir: str = ".",
@@ -112,17 +113,35 @@ class Trainer:
         self.target_scaler = target_scaler
         self.ckpt = CheckpointManager(workdir, self.run_name)
 
+        # the device-resident archive: both splits on the card, the loaders
+        # yield window starts, the steps gather
+        self.device_mode = isinstance(train_ds, DeviceResidentDataset)
+        if val_ds is not None and isinstance(val_ds, DeviceResidentDataset) != self.device_mode:
+            raise TypeError("the train and validation splits must both be device-resident, or neither")
         self.macro_batch = cfg.train.accumulation_steps * cfg.train.batch_size
         # the final short macro batch is padded with loss-masked repeats, not
         # dropped: every train window contributes a gradient each epoch
         self.train_loader = BatchLoader(
             train_ds, batch_size=self.macro_batch, shuffle=cfg.train.shuffle, seed=cfg.train.seed,
-            drop_remainder=False,
+            drop_remainder=False, index_only=self.device_mode,
         )
         self.val_loader = (
-            BatchLoader(val_ds, batch_size=max(cfg.train.batch_size, 1), shuffle=False, drop_remainder=False)
+            BatchLoader(val_ds, batch_size=max(cfg.train.batch_size, 1), shuffle=False, drop_remainder=False,
+                        index_only=self.device_mode)
             if val_ds is not None else None
         )
+        self._train_data = self._val_data = None
+        if self.device_mode:
+            # x in the dtype the host path casts it to (put_batch)
+            x_dtype = torch.bfloat16 if cfg.train.bf16 else torch.float32
+            self._train_data = train_ds.device_split(self.device, x_dtype)
+            if val_ds is not None:
+                self._val_data = val_ds.device_split(self.device, x_dtype)
+            logger.info(
+                "device-resident archive: train %.1f MB%s on %s",
+                train_ds.nbytes() / 1e6,
+                f" + val {val_ds.nbytes() / 1e6:.1f} MB" if val_ds is not None else "", self.device,
+            )
 
         # trainable fp32, frozen bf16 under the bf16 policy
         self.state, _ = create_train_state(
@@ -170,7 +189,7 @@ class Trainer:
         timer = StepTimer(self.device)
         timer.start()
         for batch in self.train_loader.iter_from(start_step):
-            self.state, metrics = self._train_step(self.state, self._put(batch), self.graph)
+            self.state, metrics = self._train_step(self.state, self._put(batch), self.graph, self._train_data)
             device_losses.append(metrics["loss"])
             steps += 1
             if sync_every and steps % sync_every == 0:
@@ -208,7 +227,7 @@ class Trainer:
             for batch in self.val_loader:
                 dev_batch = self._put(batch)
                 valid = dev_batch["valid"]
-                loss, preds, trues = self._eval_step(dev_batch, self.graph)
+                loss, preds, trues = self._eval_step(dev_batch, self.graph, self._val_data)
                 loss_terms.append(torch.stack([loss.float(), valid.sum().float()]))
                 acc.update(trues, point_forecast(preds, self.cfg), valid)
                 if sync_every and len(loss_terms) % sync_every == 0:

@@ -10,8 +10,10 @@ conformal bands in ForecastService.
   ``forecast_quantiles_conformal`` equal (1e-12) to the JAX package's
   ``ConformalOffsets.apply_physical`` of the bands it returns; offsets of other
   levels are served raw, with the warning;
-* ``--artifact`` is refused, and without CUDA the CLI raises unless --cpu."""
+* ``--artifact`` serves an exported run and refuses one whose metadata
+  disagrees with the config; without CUDA the CLI raises unless --cpu."""
 
+import dataclasses
 import json
 import logging
 import os
@@ -94,10 +96,23 @@ def test_other_levels_are_served_raw_with_a_warning(proc, workdir, caplog):
     assert "serving raw bands" in caplog.text
 
 
-def test_refusals(proc, workdir, monkeypatch, capsys):
-    with pytest.raises(SystemExit):
-        serve_cli.main(["--cpu", "--data-dir", proc, "--workdir", str(workdir), "--artifact", "model.pt2"])
-    assert "ROADMAP Queue A item 6" in capsys.readouterr().err
+def test_refusals(proc, workdir, monkeypatch, capsys, tmp_path):
+    """--artifact serves an exported run (tests/test_torch_export.py holds its
+    forecasts to the checkpoint's); an artifact whose metadata disagrees with
+    the resolved config is refused, naming the field; without CUDA the CLI
+    raises unless --cpu."""
+    from tec_mollm_tpu_torch import export as export_cli
+
+    common = ["--cpu", "--data-dir", proc, "--workdir", str(workdir)]
+    art = export_cli.main(common + ["--run-name", "point", "--out", str(tmp_path / "point.pt2")])
+    capsys.readouterr()
+    serve_cli.main(common + ["--run-name", "point", "--artifact", art, "--bench", "1"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["source"] == "artifact"
+    other = tmp_path / "other.json"
+    cfg = tiny()
+    other.write_text(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, L_out=3)).to_json())
+    with pytest.raises(ValueError, match="L_out"):
+        serve_cli.main(common + ["--config", str(other), "--artifact", art, "--bench", "1"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_cli.main(["--data-dir", proc, "--workdir", str(workdir), "--bench", "1"])

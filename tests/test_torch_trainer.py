@@ -265,6 +265,22 @@ class TestCLI:
         (["--device-data"], "device-resident archive"),
     ])
     def test_refuses_what_is_not_ported(self, proc, tmp_path, flags, match, capsys):
+        if flags == ["--device-data"]:
+            # ported: the CLI trains on the device-resident archive of a dir the
+            # port's preprocess CLI wrote (tests/test_torch_device_data.py holds
+            # it to the host path); a dir without *_raw.npz is refused with the
+            # command that makes one
+            from tec_mollm_tpu_torch.data.preprocess import run_preprocess
+
+            with pytest.raises(FileNotFoundError, match="tec_mollm_tpu_torch.data.preprocess"):
+                train_cli.main(self._argv(proc, str(tmp_path / "a"), "--cpu", *flags))
+            data = str(tmp_path / "archive")
+            run_preprocess(_cfg().data, data, synthetic_steps=300, synthetic_grid=(6, 8))
+            capsys.readouterr()
+            history = train_cli.main(self._argv(data, str(tmp_path / "b"), "--cpu", *flags))
+            assert len(history) == 2 and all(np.isfinite(r["train_loss"]) for r in history)
+            assert match in capsys.readouterr().err  # the trainer's log line
+            return
         with pytest.raises(SystemExit) as e:
             train_cli.main(self._argv(proc, str(tmp_path), "--cpu", *flags))
         text = str(e.value) if match else capsys.readouterr().err
