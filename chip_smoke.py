@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--seed 0]
 
+It needs one card. Phase 12 starts this script again as the ranks of a
+torchrun group (``--ddp-rank JOB``); a user never passes that flag.
+
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: compile the kernels from csrc/ (one nvcc per source, in parallel);
@@ -126,7 +129,27 @@ Phases (any failure exits non-zero):
      per fused forward); full-batch forward ms and request p50/p95 beside the
      checkpoint service's; and python -m tec_mollm_tpu_torch.serve --artifact
      --bench SERVE_CLI_BENCH, one GAT launch per forward.
-The phases run in the order 1-6, 9-11, 8, 7; the total time is printed. The
+ 12. data parallel (after phase 8), at phase 6's width and cut: (a) torchrun
+     --standalone --nproc_per_node 1 runs this script as a rank, which joins
+     the NCCL group and calls the train CLI (train.main) with --multihost and
+     phase 6's run-A flags (bf16, dropout 0.1, a checkpoint every 2 macro
+     steps): per-epoch losses within RESUME_RTOL of run A's, the GAT kernel
+     launched once per validation batch and nothing else; then a second DDP
+     trainer's warm epoch, staged macro step and busy share (epoch_timings,
+     its profile of the card's activity alone) beside phase 6's, and its
+     staged step through DDP and without it in turns (ddp_vs_bare_step). (b)
+     DDP_RANKS ranks on the one card over gloo (init_distributed(backend=
+     "gloo")), Config() in fp32 without dropout at batch 1 a rank, against
+     one process at batch 2 (the same global macro batch): per-epoch train
+     and val losses within DDP_RTOL, validation MAE by horizon within
+     DDP_MAE_RTOL, identical on every rank, and each rank's GAT launches
+     equal to its validation batches (no launch lost to a rank). Then
+     run_evaluation and get_model_predictions on the ranks' best_params.pt:
+     every rank the same metrics and predictions, equal to one process on
+     the same checkpoint within DDP_EVAL_TOL, the predictions in window
+     order, and the GAT launches its shards need. Each rank writes its
+     launch counts to a JSON file, and the kernels line sums them.
+The phases run in the order 1-6, 9-11, 8, 12, 7; the total time is printed. The
 last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON. Details also go to chiprun_out/chip_smoke.json.
 """
@@ -252,6 +275,15 @@ PREPROCESS_STEPS, PREPROCESS_DROP = 1500, (200, 6)
 # losses of --device-data and the host pipeline (the same bf16 batches; CUDA's
 # atomics in the backward make bit equality unlikely)
 DEVICE_DATA_RTOL = 1e-3
+# data-parallel phase: the ranks of the gloo run on the one card, and the
+# relative distance allowed between their per-epoch losses and those of one
+# process at the same global macro batch (fp32, no dropout: the JAX package's
+# own 2-process bound), and between their validation MAE by horizon; their
+# eval metrics against one process on the same checkpoint (MAE and RMSE
+# relative, r and R^2 absolute), and their gathered predictions (scaled units)
+DDP_RANKS, DDP_RTOL, DDP_MAE_RTOL, DDP_EVAL_TOL = 2, 2e-4, 2e-3, 1e-5
+# the phase's time limit for one torchrun call
+DDP_TIMEOUT_S = 400
 # export phase: an artifact's forecasts against the checkpoint service of the
 # same flags, in scaled units (the same kernels and arithmetic), and the serve
 # CLI's --bench requests
@@ -857,16 +889,18 @@ def device_rows(events) -> list[tuple[float, int, str]]:
     return sorted(rows, reverse=True)
 
 
-def profile_call(fn, top: int = 12) -> dict:
+def profile_call(fn, top: int = 12, cpu_ops: bool = True) -> dict:
     """torch.profiler over one call of ``fn``: device time by kernel, the
     device's busy share of the call's wall time (kernels and copies run on one
     stream, so their times add without overlap), and the host's kernel
-    launches (cudaLaunchKernel and cuLaunchKernel calls: count and host ms)."""
+    launches (cudaLaunchKernel and cuLaunchKernel calls: count and host ms).
+    ``cpu_ops=False`` leaves the host's operators out of the trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu_ops else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1199,6 +1233,46 @@ def serve_requests(service, requests: list[list[int]]) -> tuple[dict, dict]:
     return out, ops.launch_counts()
 
 
+def epoch_timings(trainer, cpu_ops: bool = True) -> dict:
+    """A trainer's epoch times: a warm-up epoch (first calls), then an epoch
+    timed without checkpoints (a default run saves none mid-epoch), its macro
+    steps on batches already on the card, and one profiled epoch; the device
+    time the profiler records over the unprofiled epoch's wall time is the
+    busy share without the profiler's own host cost. ``cpu_ops=False``
+    records the card's activity alone (kernels, copies, runtime calls),
+    which the profiler summarises in a fraction of the time."""
+    import torch
+
+    t_start = time.perf_counter()
+    trainer.train_epoch(checkpoints=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = trainer.train_epoch(checkpoints=False)
+    torch.cuda.synchronize()
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    staged = [trainer._put(b) for b in trainer.train_loader]
+    step_ms = []
+    for _ in range(2):
+        for b in staged:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.state, _ = trainer._train_step(trainer.state, b, trainer.graph)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    del staged
+    t_profile = time.perf_counter()
+    prof = profile_call(lambda: trainer.train_epoch(checkpoints=False), top=100_000, cpu_ops=cpu_ops)
+    t_end = time.perf_counter()
+    copies = {
+        kind: sum(r["ms"] for r in prof["top"] if r["name"].startswith(f"Memcpy {kind}"))
+        for kind in ("HtoD", "DtoH")
+    }
+    prof["top"] = prof["top"][:12]
+    return {"timed": timed, "epoch_ms": epoch_ms, "step_ms_all": step_ms, "staged_step_ms": statistics.median(step_ms),
+            "profile": prof, "copies_ms": copies, "busy_unprofiled": prof["device_ms"] / epoch_ms,
+            "wall_s": {"epochs_and_steps": t_profile - t_start, "profiled_epoch": t_end - t_profile}}
+
+
 def trainer_phase(args, graph, data_dir: str, train_windows_per_s: float) -> dict:
     """The training CLI at flagship width (see the module docstring, phase 6):
     run A trains TRAINER_EPOCHS epochs; run B stops after TRAINER_STOP_AFTER
@@ -1296,38 +1370,12 @@ def trainer_phase(args, graph, data_dir: str, train_windows_per_s: float) -> dic
     if not rel <= RESUME_RTOL:
         raise RuntimeError(f"trainer[B]: losses differ from run A by {rel:.3e} > {RESUME_RTOL}")
 
-    # --- one more trainer: epoch times, validation, save and restore ---
-    # A warm-up epoch (first calls), then an epoch timed without checkpoints
-    # (a default run saves none mid-epoch), its macro steps on batches already
-    # on the card, and one profiled epoch; the device time the profiler
-    # records over the unprofiled epoch's wall time is the busy share without
-    # the profiler's own host cost.
+    # --- one more trainer: epoch times (epoch_timings), validation, save and restore ---
     args_c = train.parse_args(argv("c"))
     trainer_c = train.build_trainer(args_c, train.build_config(args_c))
-    trainer_c.train_epoch(checkpoints=False)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    timed = trainer_c.train_epoch(checkpoints=False)
-    torch.cuda.synchronize()
-    epoch_ms = (time.perf_counter() - t0) * 1e3
-    staged = [trainer_c._put(b) for b in trainer_c.train_loader]
-    step_ms = []
-    for _ in range(2):
-        for b in staged:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            trainer_c.state, _ = trainer_c._train_step(trainer_c.state, b, trainer_c.graph)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-    staged_step_ms = statistics.median(step_ms)
-    del staged
-    prof = profile_call(lambda: trainer_c.train_epoch(checkpoints=False), top=100_000)
-    copies = {
-        kind: sum(r["ms"] for r in prof["top"] if r["name"].startswith(f"Memcpy {kind}"))
-        for kind in ("HtoD", "DtoH")
-    }
-    prof["top"] = prof["top"][:12]
-    busy_unprofiled = prof["device_ms"] / epoch_ms
+    timing = epoch_timings(trainer_c)
+    timed, epoch_ms, step_ms, staged_step_ms, prof, copies, busy_unprofiled = (timing[k] for k in (
+        "timed", "epoch_ms", "step_ms_all", "staged_step_ms", "profile", "copies_ms", "busy_unprofiled"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     val_kernel = trainer_c.validate()
@@ -1729,6 +1777,318 @@ def export_phase(args, data_dir: str) -> dict:
     torch.cuda.synchronize()
     return {"artifacts": results, "checkpoint_services": reference, "serve_cli": cli_stats,
             "serve_cli_launches": cli_counts, "launches": launches, "tol_scaled": EXPORT_TOL_SCALED}
+
+
+def torchrun(job: dict, nproc: int, path: str) -> list[dict]:
+    """Run this script as ``nproc`` ranks of ``job`` under torchrun
+    (``--ddp-rank``, see ddp_rank) and return each rank's record. The ranks
+    run in a session of their own, killed whole if the call outlives
+    DDP_TIMEOUT_S; a rank that fails fails the phase."""
+    import signal
+
+    with open(path, "w") as f:
+        json.dump(job, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
+           os.path.abspath(__file__), "--ddp-rank", path]
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        output, _ = proc.communicate(timeout=DDP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        output, _ = proc.communicate()
+        raise RuntimeError(f"data parallel: torchrun outlived {DDP_TIMEOUT_S} s:\n{output[-4000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    if proc.returncode != 0:
+        raise RuntimeError(f"data parallel: torchrun exited {proc.returncode}:\n{output[-6000:]}")
+    records = []
+    for r in range(nproc):
+        with open(os.path.join(job["out"], f"rank{r}.json")) as f:
+            records.append(json.load(f))
+    return records
+
+
+def ddp_rank(job_path: str) -> int:
+    """One rank of phase 12 under torchrun: join the group (NCCL, or the
+    job's backend), train through the train CLI's functions with
+    --multihost, count this process's launches, then, as the job asks, time
+    the warm epoch of a second DDP trainer and evaluate the best checkpoint;
+    write <out>/rank<r>.json (and .npz)."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops, parallel, train
+    from tec_mollm_tpu_torch.data import SlidingWindowDataset
+    from tec_mollm_tpu_torch.evaluation import harness
+    from tec_mollm_tpu_torch.graph import GraphData
+    from tec_mollm_tpu_torch.utils.logging import setup_logging
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(job_path) as f:
+        job = json.load(f)
+    parallel.init_distributed(backend=job.get("backend"))
+    rank = parallel.rank()
+    setup_logging(process_index=rank)
+    out: dict = {"rank": rank, "world": parallel.world_size(), "device": str(parallel.local_device()),
+                 "backend": torch.distributed.get_backend()}
+    arrays = {}
+    try:
+        argv = job["argv"] + ["--multihost"]
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        if job.get("cli"):
+            out["history"] = train.main(argv)
+        else:
+            targs = train.parse_args(argv)
+            trainer = train.build_trainer(targs, train.build_config(targs))
+            out["history"] = train.run(trainer, targs, trainer.cfg)
+            out["val_batches"] = len(trainer.val_loader)
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = ops.launch_counts()
+        if not job.get("cli"):
+            val_loss, metrics = trainer.validate()
+            out["validate"] = {"val_loss": val_loss, **metrics}
+            del trainer
+        if job.get("timing"):
+            t0 = time.perf_counter()
+            targs = train.parse_args(job["timing_argv"] + ["--multihost"])
+            timed_trainer = train.build_trainer(targs, train.build_config(targs))
+            build_s = time.perf_counter() - t0
+            timing = epoch_timings(timed_trainer, cpu_ops=False)
+            out["timing"] = {k: timing[k] for k in ("epoch_ms", "staged_step_ms", "busy_unprofiled", "copies_ms",
+                                                    "wall_s")}
+            out["timing"]["wall_s"]["build_trainer"] = build_s
+            out["timing"]["ddp_vs_bare_step_ms"] = ddp_vs_bare_step(timed_trainer)
+            out["timing"]["windows_per_s"] = timing["timed"]["windows_per_sec"]
+            out["timing"]["profile"] = timing["profile"]
+        if job.get("eval"):
+            t_eval = time.perf_counter()
+            cfg, ckpt, data_dir = train.build_config(train.parse_args(job["argv"])), job["eval"]["checkpoint"], \
+                job["eval"]["data_dir"]
+            ops.reset_counts()
+            dev = parallel.local_device()
+            ev = harness.run_evaluation(cfg, data_dir, ckpt, output_dir=job["eval"]["output_dir"],
+                                        batch_size=job["eval"]["batch_size"], device=dev)
+            val = SlidingWindowDataset.from_dir(data_dir, "val", cfg.train.L_in, cfg.train.L_out, stride=1)
+            graph = GraphData.load(os.path.join(data_dir, "graph.npz"))
+            trues, preds = harness.get_model_predictions(
+                cfg, harness.load_params_for_eval(cfg, ckpt), val, graph, batch_size=job["eval"]["batch_size"],
+                device=dev)
+            torch.cuda.synchronize()
+            out["launches_eval"] = ops.launch_counts()
+            out["eval"] = ev["results"]
+            out["eval_wall_s"] = time.perf_counter() - t_eval
+            arrays = {"preds": preds, "trues": trues}
+    finally:
+        parallel.destroy()
+    os.makedirs(job["out"], exist_ok=True)
+    if arrays:
+        np.savez(os.path.join(job["out"], f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+    return 0
+
+
+def ddp_vs_bare_step(trainer) -> dict:
+    """DDP's cost on one card: the median macro step of a DDP trainer on
+    batches already on the card, through DDP and through the same model
+    without it (make_train_step on the bare module, whose DDP hooks stay
+    idle without DDP's forward), in turns ddp, bare, bare, ddp."""
+    import torch
+
+    from tec_mollm_tpu_torch.training.train_state import make_train_step
+
+    steps = {"ddp": trainer._train_step, "bare": make_train_step(trainer.model, trainer.cfg)}
+    staged = [trainer._put(b) for b in trainer.train_loader]
+    ms: dict = {"ddp": [], "bare": []}
+    for name in ("ddp", "bare", "bare", "ddp"):
+        for b in staged:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.state, _ = steps[name](trainer.state, b, trainer.graph)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in ms.items()}
+
+
+def eval_gap(got: dict, want: dict) -> tuple[float, float]:
+    """(largest relative MAE / RMSE distance, largest absolute R^2 / r
+    distance) between two run_evaluation results, over both rows."""
+    rel = max(abs(got[m][k] - want[m][k]) / abs(want[m][k]) for m in want for k in ("mae_avg", "rmse_avg"))
+    rel = max([rel] + [float(np.max(np.abs(np.asarray(got[m]["mae_by_horizon"]) - want[m]["mae_by_horizon"])
+                                     / np.abs(want[m]["mae_by_horizon"]))) for m in want])
+    absolute = max(abs(got[m][k] - want[m][k]) for m in want for k in ("r2_score_avg", "pearson_r_avg"))
+    return rel, absolute
+
+
+def data_parallel_phase(args, data_dir: str, trainer: dict) -> dict:
+    """Data parallelism at phase 6's width and cut (see the module docstring,
+    phase 12): (a) the train CLI under torchrun with --multihost, NCCL at
+    world 1, against phase 6's run A; (b) DDP_RANKS gloo ranks on the one card
+    against one process at the same global macro batch, then the evaluation
+    library on the ranks against one process on the same checkpoint."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops, train
+    from tec_mollm_tpu_torch.config import Config
+    from tec_mollm_tpu_torch.data import SlidingWindowDataset
+    from tec_mollm_tpu_torch.evaluation import harness
+    from tec_mollm_tpu_torch.graph import GraphData
+
+    phase_t0 = time.perf_counter()
+    cfg = Config().resolved()
+    work = os.path.join(data_dir, "work")
+    ddp_dir = os.path.join(data_dir, "ddp")
+    os.makedirs(ddp_dir)
+    common = ["--data-dir", data_dir, "--workdir", work, "--train-stride", "1", "--val-stride", "1",
+              "--epochs", str(TRAINER_EPOCHS), "--seed", str(args.seed)]
+    val_batches = -(-TRAINER_WINDOWS["val"] // cfg.train.batch_size)
+
+    # --- (a) NCCL, world 1: phase 6's run A flags (bf16, dropout 0.1) ---
+    job_a = {"cli": True, "out": os.path.join(ddp_dir, "a"), "timing": True,
+             "argv": common + ["--run-name", "ddp_a", "--checkpoint-every-steps", str(TRAINER_CKPT_EVERY)],
+             "timing_argv": common + ["--run-name", "ddp_a_timing"]}
+    walls = {}
+    t0 = time.perf_counter()
+    (a,) = torchrun(job_a, 1, os.path.join(ddp_dir, "a.json"))
+    walls["a"] = time.perf_counter() - t0
+    hist_a = trainer["history_a"]
+    pairs = [(g[k], w[k]) for g, w in zip(a["history"], hist_a) for k in ("train_loss", "val_loss")]
+    rel_a = max(abs(g - w) / abs(w) for g, w in pairs)
+    ta = a["timing"]
+    log(
+        f"ddp[a]: torchrun --nproc_per_node 1, train CLI --multihost on {a['backend']} ({a['device']}), "
+        f"{len(a['history'])} epochs in {a['wall_s']:.1f} s; (train, val) losses "
+        f"{[(r['train_loss'], r['val_loss']) for r in a['history']]}, largest relative difference from phase 6's "
+        f"run A {rel_a:.3e} (tol {RESUME_RTOL}); launches {a['launches']}"
+    )
+    log(
+        f"ddp[a]: windows/s by epoch {[round(r['windows_per_sec'], 2) for r in a['history']]} (run A "
+        f"{[round(w, 2) for w in trainer['windows_per_s_by_epoch']]}); a warm DDP epoch without checkpoints "
+        f"{ta['epoch_ms']:.1f} ms = {ta['windows_per_s']:.2f} windows/s (phase 6: "
+        f"{trainer['windows_per_s_no_checkpoint']:.2f}); staged macro step {ta['staged_step_ms']:.1f} ms (phase 6: "
+        f"{trainer['staged_macro_step_ms']:.1f}); busy {ta['busy_unprofiled']:.2%} over the unprofiled wall "
+        f"(phase 6: {trainer['device_busy_share_unprofiled_wall']:.2%}); {ta['profile']['host_launches']} kernel "
+        f"launches an epoch; in the rank's process, the staged macro step through DDP "
+        f"{ta['ddp_vs_bare_step_ms']['ddp']:.1f} ms and without it {ta['ddp_vs_bare_step_ms']['bare']:.1f} ms "
+        f"(medians of 8, in turns)"
+    )
+    if a["backend"] != "nccl" or len(a["history"]) != TRAINER_EPOCHS or not rel_a <= RESUME_RTOL:
+        raise RuntimeError(f"ddp[a]: backend {a['backend']}, history {a['history']}, distance {rel_a}")
+    if a["launches"].get("gat_stencil", 0) != TRAINER_EPOCHS * val_batches or set(a["launches"]) - {"gat_stencil"}:
+        raise RuntimeError(f"ddp[a]: launches {a['launches']}, want gat_stencil = {TRAINER_EPOCHS * val_batches}")
+
+    # --- (b) DDP_RANKS gloo ranks on the one card, fp32 and no dropout, against one process ---
+    m = dataclasses.replace(cfg.model, gat_dropout=0.0, lora_dropout=0.0, llm_dropout=0.0, head_dropout=0.0,
+                            post_llm_dropout=0.0)
+    fp32 = dataclasses.replace(cfg, model=m, train=dataclasses.replace(cfg.train, bf16=False))
+    cfg_path = os.path.join(ddp_dir, "fp32.json")
+    with open(cfg_path, "w") as f:
+        f.write(fp32.to_json())
+    per_rank = cfg.train.batch_size // DDP_RANKS
+    argv_b = common + ["--config", cfg_path]
+    ckpt = os.path.join(work, "checkpoints", "ddp_b", "best_params.pt")
+    eval_batch = 16
+    job_b = {"backend": "gloo", "out": os.path.join(ddp_dir, "b"), "argv": argv_b + [
+        "--run-name", "ddp_b", "--batch-size", str(per_rank)],
+        "eval": {"checkpoint": ckpt, "data_dir": data_dir, "batch_size": eval_batch,
+                 "output_dir": os.path.join(ddp_dir, "b_results")}}
+    t0 = time.perf_counter()
+    ranks = torchrun(job_b, DDP_RANKS, os.path.join(ddp_dir, "b.json"))
+    walls["b"] = time.perf_counter() - t0
+    # one process, the same global macro batch
+    t0 = time.perf_counter()
+    ops.reset_counts()
+    targs = train.parse_args(argv_b + ["--run-name", "ddp_b1", "--batch-size", str(per_rank * DDP_RANKS)])
+    one = train.build_trainer(targs, train.build_config(targs))
+    hist_1 = train.run(one, targs, one.cfg)
+    val_1 = one.validate()
+    del one
+    counts_1 = ops.launch_counts()
+    walls["b_one_process"] = time.perf_counter() - t0
+    pairs = [(g[k], w[k]) for r in ranks for g, w in zip(r["history"], hist_1) for k in ("train_loss", "val_loss")]
+    rel_b = max(abs(g - w) / abs(w) for g, w in pairs)
+    mae_b = max(float(np.max(np.abs(np.asarray(r["validate"]["mae_by_horizon"]) - val_1[1]["mae_by_horizon"])
+                             / np.abs(val_1[1]["mae_by_horizon"]))) for r in ranks)
+    gat_b = [r["launches"].get("gat_stencil", 0) for r in ranks]
+    want_gat = [TRAINER_EPOCHS * r["val_batches"] for r in ranks]
+    log(
+        f"ddp[b]: {DDP_RANKS} ranks on {ranks[0]['backend']} ({[r['device'] for r in ranks]}), Config() fp32 "
+        f"without dropout at batch {per_rank} x accumulation {cfg.train.accumulation_steps} a rank, in "
+        f"{max(r['wall_s'] for r in ranks):.1f} s; (train, val) losses {[(h['train_loss'], h['val_loss']) for h in ranks[0]['history']]} "
+        f"against one process at batch {per_rank * DDP_RANKS}: {[(h['train_loss'], h['val_loss']) for h in hist_1]}; "
+        f"largest relative difference {rel_b:.3e} (tol {DDP_RTOL}); validation MAE by horizon {mae_b:.3e} "
+        f"(tol {DDP_MAE_RTOL}); GAT launches by rank {gat_b} (want {want_gat}: {TRAINER_EPOCHS} epochs x each "
+        f"rank's validation batches, {sum(want_gat)} in all; one process {counts_1})"
+    )
+    losses = [[(h["train_loss"], h["val_loss"]) for h in r["history"]] for r in ranks]
+    if any(got != losses[0] for got in losses) or any(r["validate"] != ranks[0]["validate"] for r in ranks):
+        raise RuntimeError(f"ddp[b]: the ranks report different losses {losses}")
+    if not (rel_b <= DDP_RTOL and mae_b <= DDP_MAE_RTOL):
+        raise RuntimeError(f"ddp[b]: losses {rel_b:.3e} or MAE {mae_b:.3e} from one process")
+    if gat_b != want_gat or any(set(r["launches"]) - {"gat_stencil"} for r in ranks):
+        raise RuntimeError(f"ddp[b]: launches {[r['launches'] for r in ranks]}, want gat_stencil {want_gat}")
+    if counts_1.get("gat_stencil", 0) != TRAINER_EPOCHS * val_batches + val_batches:
+        raise RuntimeError(f"ddp[b]: the one-process run launched {counts_1}")
+
+    # --- evaluation of the ranks' best checkpoint: the ranks against one process ---
+    t0 = time.perf_counter()
+    ev_1 = harness.run_evaluation(fp32, data_dir, ckpt, output_dir=os.path.join(ddp_dir, "b1_results"),
+                                  batch_size=eval_batch)["results"]
+    val_ds = SlidingWindowDataset.from_dir(data_dir, "val", cfg.train.L_in, cfg.train.L_out, stride=1)
+    trues_1, preds_1 = harness.get_model_predictions(
+        fp32, harness.load_params_for_eval(fp32, ckpt), val_ds, GraphData.load(os.path.join(data_dir, "graph.npz")),
+        batch_size=eval_batch)
+    walls["b_eval_one_process"] = time.perf_counter() - t0
+    rank_arrays = []
+    for r in range(DDP_RANKS):
+        with np.load(os.path.join(job_b["out"], f"rank{r}.npz")) as d:
+            rank_arrays.append(dict(d))
+    same = all(r["eval"] == ranks[0]["eval"] for r in ranks) and all(
+        np.array_equal(a["preds"], rank_arrays[0]["preds"]) for a in rank_arrays)
+    rel_ev, abs_ev = eval_gap(ranks[0]["eval"], ev_1)
+    pred_diff = float(np.abs(rank_arrays[0]["preds"] - preds_1).max())
+    true_same = np.array_equal(rank_arrays[0]["trues"], trues_1)
+    test_windows = len(SlidingWindowDataset.from_dir(data_dir, "test", cfg.train.L_in, cfg.train.L_out, stride=1))
+    per = eval_batch // DDP_RANKS
+
+    def batches_a_rank(windows: int) -> int:  # a rank's strided shard, padded, in batches of per
+        return -(-(-(-windows // DDP_RANKS)) // per)
+
+    want_eval = batches_a_rank(test_windows) + batches_a_rank(len(val_ds))
+    gat_eval = [r["launches_eval"].get("gat_stencil", 0) for r in ranks]
+    log(
+        f"ddp[b] eval: run_evaluation ({test_windows} test windows, batch {eval_batch} = {DDP_RANKS} x {per}) and "
+        f"get_model_predictions ({len(val_ds)} val windows) on the ranks' best_params.pt; the ranks agree "
+        f"{same}; against one process: MAE/RMSE relative {rel_ev:.3e}, R2/r absolute {abs_ev:.3e} (tol "
+        f"{DDP_EVAL_TOL}); predictions max |diff| {pred_diff:.3e} scaled, in window order {pred_diff <= DDP_EVAL_TOL}, "
+        f"targets identical {true_same}; GAT launches by rank {gat_eval} (want {want_eval} each)"
+    )
+    if not (same and true_same and rel_ev <= DDP_EVAL_TOL and abs_ev <= DDP_EVAL_TOL and pred_diff <= DDP_EVAL_TOL):
+        raise RuntimeError("ddp[b] eval: the ranks disagree with each other or with one process")
+    if gat_eval != [want_eval] * DDP_RANKS:
+        raise RuntimeError(f"ddp[b] eval: launches {[r['launches_eval'] for r in ranks]}")
+
+    launches: dict[str, int] = {}
+    for counts in [a["launches"]] + [r["launches"] for r in ranks] + [r["launches_eval"] for r in ranks]:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    phase_s = time.perf_counter() - phase_t0
+    log(f"ddp: phase {phase_s:.1f} s (walls {({k: round(v, 1) for k, v in walls.items()})}; rank a's timing "
+        f"{({k: round(v, 1) for k, v in a['timing']['wall_s'].items()})}, ranks' eval "
+        f"{[round(r['eval_wall_s'], 1) for r in ranks]}); launches over its ranks {launches}")
+    return {
+        "phase_s": phase_s, "walls_s": walls, "launches": launches, "a": a, "a_max_rel_loss_diff_vs_run_a": rel_a,
+        "b_ranks": ranks, "b_one_process_history": hist_1, "b_max_rel_loss_diff": rel_b,
+        "b_val_mae_by_horizon_max_rel_diff": mae_b, "b_gat_launches_by_rank": gat_b,
+        "b_eval_one_process": ev_1, "b_eval_rel_diff": rel_ev, "b_eval_abs_diff_r": abs_ev,
+        "b_pred_max_abs_diff": pred_diff, "b_eval_gat_launches_by_rank": gat_eval,
+    }
 
 
 def read_csv(path: str) -> tuple[list[str], dict[str, np.ndarray]]:
@@ -2147,6 +2507,8 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=os.path.join("chiprun_out", "chip_smoke.json"))
+    p.add_argument("--ddp-rank", default=None, metavar="JOB",
+                   help="run as one rank of phase 12 under torchrun (the script starts these itself)")
     args = p.parse_args()
 
     import torch
@@ -2154,6 +2516,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.ddp_rank:
+        return ddp_rank(args.ddp_rank)
     try:
         from tec_mollm_tpu_torch.graph import build_graph, grid_coordinates
         from tec_mollm_tpu_torch.ops import _build
@@ -2203,20 +2567,24 @@ def main() -> int:
         results["export"] = export
         evaluation = eval_phase(args, graph, data_dir)
         results["eval"] = evaluation
+        ddp = data_parallel_phase(args, data_dir, trainer)
+        results["data_parallel"] = ddp
     pretrain = pretrain_phase(args, graph)
     results["pretrain"] = pretrain
     runs = [p["launches"] for p in paths.values()] + [
         train["launches"], trainer["launches"], trainer["launches_1x22"], device_data["launches"], export["launches"],
-        evaluation["launches"], pretrain["launches"]]
+        evaluation["launches"], ddp["launches"], pretrain["launches"]]
     for e in entries:
         # launches over the main-path runs (both serve cells, the train steps,
         # the trainer's run A, its 1 x 22 serve, the --device-data trainer, the
-        # artifacts' services, the eval phase's CLI and service runs and the
-        # pretrain steps), each counted from zero
+        # artifacts' services, the eval phase's CLI and service runs, the
+        # data-parallel ranks' runs and the pretrain steps), each counted from
+        # zero (a rank's in its own process)
         e["launches"] = sum(r.get(e["name"], 0) for r in runs)
         e["launches_export"] = export["launches"].get(e["name"], 0)
         e["launches_device_data"] = device_data["launches"].get(e["name"], 0)
         e["launches_eval"] = evaluation["launches"].get(e["name"], 0)
+        e["launches_ddp"] = ddp["launches"].get(e["name"], 0)
         e["launches_per_forward_fused"] = paths["fused"]["launches"].get(e["name"], 0) / paths["fused"]["forwards"]
         e["launches_per_train_step"] = train["launches_per_step"].get(e["name"], 0)
         e["launches_trainer_run"] = trainer["launches"].get(e["name"], 0)

@@ -19,6 +19,11 @@ fp32's 2^24, and batches are summed in float64.
 ``ConformalOffsets`` writes ``conformal.npz`` with the JAX package's keys, so
 each package reads the other's file. ``evaluate_adaptive_conformal`` is the
 rolling form on a chronological stream.
+
+Under data parallelism each rank histograms its own rows and the counts are
+summed over the ranks (float64, whole numbers, so the sum is exact) before
+any offset is read from them: every rank fits the same offsets and evolves
+the same adaptive state.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 from tec_mollm_tpu_torch.data.scaler import StandardScaler
 from tec_mollm_tpu_torch.evaluation.metrics import TEC_MAX, TEC_MIN
 from tec_mollm_tpu_torch.evaluation.streaming import StreamingQuantileMetrics, scaler_affine
+from tec_mollm_tpu_torch.parallel.mesh import all_reduce_sum
 
 logger = logging.getLogger(__name__)
 
@@ -246,6 +252,12 @@ class ConformalCalibrator:
             )
         self.hist += h.double()
 
+    def all_reduce(self) -> "ConformalCalibrator":
+        """Sum the histograms over the data-parallel ranks, in place (a no-op
+        without a process group)."""
+        all_reduce_sum(self.hist)
+        return self
+
     def finalize(self) -> ConformalOffsets:
         hist = self.hist.cpu().numpy()
         nq = len(self.quantiles)
@@ -282,7 +294,7 @@ def fit_conformal(
     for batch in ex.loader(dataset):
         _, preds, trues, valid = ex.run(batch)
         cal.update(trues, preds, valid)
-    off = cal.finalize()
+    off = cal.all_reduce().finalize()
     logger.info(
         "conformal offsets (%s) fit on %d windows: per-level range %s",
         mode, len(dataset),
@@ -318,8 +330,13 @@ def evaluate_adaptive_conformal(
     lag of a rolling histogram under a monotone drift; 0 disables it.
 
     The loader keeps the stream's order and pads only the last batch, whose
-    padded rows weigh 0. Returns the quantile metrics of the evolving offsets
-    with the adaptation's record under ``adaptive``."""
+    padded rows weigh 0. Under data parallelism the ranks' rows of a batch
+    are one process's batch (the strided shard), and the adaptation works on
+    whole batches: the batch's statistics and residual histogram are summed
+    over the ranks before they are read, so every rank evolves the
+    calibrator of a single process (the JAX package's replicated readbacks).
+    Returns the quantile metrics of the evolving offsets with the
+    adaptation's record under ``adaptive``."""
     from tec_mollm_tpu_torch.evaluation.harness import EvalExecutor, device_dataset_of
 
     quantiles = cfg.model.quantiles
@@ -348,16 +365,17 @@ def evaluate_adaptive_conformal(
         s = acc.update(trues, preds, valid, offsets_override=offs)
         if level_gain > 0.0:
             # this batch's realized below-rate of the adjusted forecasts
-            s_host = s.cpu().numpy().astype(np.float64)   # (L, 1 + 2Q)
+            s_host = all_reduce_sum(s.double()).cpu().numpy()   # (L, 1 + 2Q)
             n_b = max(float(s_host[:, 0].max()), 1.0)
             below_rate = s_host[:, 1 + nq :].sum(axis=0) / (n_b * l_out)
             q_eff = np.clip(q_eff + level_gain * (np.asarray(quantiles) - below_rate), 0.005, 0.995)
-        pending.append(batch_residual_hist(trues, preds, valid, scale, mean, nq).cpu().numpy().astype(np.float64))
+        hist = batch_residual_hist(trues, preds, valid, scale, mean, nq).double()
+        pending.append(all_reduce_sum(hist).cpu().numpy())
         if len(pending) > lag_batches:
             H = decay * H + pending.pop(0)
         n_batches += 1
 
-    result = acc.finalize()
+    result = acc.all_reduce().finalize()
     result["adaptive"] = {
         "decay": decay,
         "lag_batches": lag_batches,

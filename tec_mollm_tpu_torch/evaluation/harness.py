@@ -1,6 +1,6 @@
-"""Evaluation harness on one GPU: a checkpoint against the Historical-Average
-baseline on a processed split (``evaluation/harness.py`` of the JAX package,
-in PyTorch).
+"""Evaluation harness on one GPU, or one process a GPU: a checkpoint against
+the Historical-Average baseline on a processed split
+(``evaluation/harness.py`` of the JAX package, in PyTorch).
 
 * windows at stride 1, padded to the eval batch with ``valid`` flags (one
   shape on the card, so one GAT kernel configuration);
@@ -25,8 +25,15 @@ gathers the windows on the card; the HA baseline reads the same windows
 through the dataset's host mirror. Without ``*_raw.npz`` it falls back to the
 host pipeline with a warning, as the JAX package does.
 
-Not ported yet, and refused: the SARIMA baseline (ROADMAP Queue A item 8) and
-multi-process evaluation (item 7).
+Under data parallelism (a process group, ``parallel/mesh.py``) each rank
+loads its strided shard of every eval batch, the per-horizon statistics,
+conformal histograms and adaptive calibrator inputs are summed over the ranks
+(so every rank holds the metrics of the whole split), ``get_model_predictions``
+gathers the full tensor in window order on every rank, and only rank 0 writes
+files. ``run_prediction`` and the rollout compute their few windows whole on
+every rank.
+
+Not ported yet, and refused: the SARIMA baseline (ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from tec_mollm_tpu_torch.graph.builder import GraphData
 from tec_mollm_tpu_torch.models.baselines import WindowMeanBaseline
 from tec_mollm_tpu_torch.models.ref_import import load_reference_checkpoint
 from tec_mollm_tpu_torch.models.tec_mollm import TECMoLLM, graph_inputs
+from tec_mollm_tpu_torch.parallel.mesh import gather_rows, rank, world_size
 from tec_mollm_tpu_torch.training.checkpoint import find_latest_checkpoint
 from tec_mollm_tpu_torch.training.train_state import make_eval_step, point_forecast, put_batch
 
@@ -81,7 +89,8 @@ def build_eval_model(
 
 class EvalExecutor:
     """The eval model, its graph and the eval step on one device; batches of
-    ``batch_size`` windows (the loader pads the last one, marked invalid).
+    ``batch_size`` windows (the loader pads the last one, marked invalid), of
+    which each data-parallel rank loads ``batch_size // world``.
 
     ``device_dataset`` (a ``DeviceResidentDataset``): its raw series go to the
     device once, the loader yields window starts and the eval step gathers
@@ -107,9 +116,17 @@ class EvalExecutor:
     def loader(self, dataset: SlidingWindowDataset | DeviceResidentDataset) -> BatchLoader:
         """The dataset in order, in batches of ``batch_size`` (the last padded,
         its padding marked invalid), gathered by a prefetch thread; window
-        starts alone with a device dataset."""
-        return BatchLoader(dataset, batch_size=self.batch_size, drop_remainder=False, prefetch=2,
-                           index_only=self._data is not None)
+        starts alone with a device dataset. Each rank loads its strided shard
+        (``order[rank::world]``), so the ranks' rows of batch b are the windows
+        of one process's batch b."""
+        world = world_size()
+        if self.batch_size % world:
+            raise ValueError(
+                f"eval batch size {self.batch_size} must be a multiple of the {world} data-parallel ranks "
+                "(each loads batch_size // world windows of every batch)"
+            )
+        return BatchLoader(dataset, batch_size=self.batch_size // world, drop_remainder=False, prefetch=2,
+                           index_only=self._data is not None, num_shards=world, shard_index=rank())
 
     def run(self, batch: dict[str, np.ndarray]):
         """(loss, preds, trues, valid), all on the device."""
@@ -124,9 +141,9 @@ class EvalExecutor:
         conformal_offsets: ConformalOffsets | None = None,
     ) -> dict[str, Any]:
         """The point metrics of the dataset (the 0.5 level of a quantile head),
-        each batch reduced on the device; a quantile head adds
-        ``quantile_metrics``, and ``conformal_offsets`` a second accumulator
-        scoring the calibrated intervals in the same pass."""
+        each batch reduced on the device and summed over the ranks; a quantile
+        head adds ``quantile_metrics``, and ``conformal_offsets`` a second
+        accumulator scoring the calibrated intervals in the same pass."""
         cfg, quantiles = self.cfg, self.cfg.model.quantiles
         acc = StreamingHorizonMetrics(cfg.train.L_out, scaler, self.device)
         acc_q = StreamingQuantileMetrics(cfg.train.L_out, quantiles, scaler, device=self.device) if quantiles else None
@@ -142,11 +159,11 @@ class EvalExecutor:
                     acc_qc.update(trues, preds, valid)
                 preds = point_forecast(preds, cfg)
             acc.update(trues, preds, valid)
-        result = acc.finalize()
+        result = acc.all_reduce().finalize()
         if acc_q is not None:
-            result["quantile_metrics"] = acc_q.finalize()
+            result["quantile_metrics"] = acc_q.all_reduce().finalize()
         if acc_qc is not None:
-            result["quantile_metrics_conformal"] = acc_qc.finalize()
+            result["quantile_metrics_conformal"] = acc_qc.all_reduce().finalize()
         return result
 
 
@@ -165,14 +182,17 @@ def get_model_predictions(
     device=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """(y_true, y_pred), each (num_samples, L_out, N, 1) scaled, of the whole
-    dataset on the host (the point level of a quantile head). Prefer
-    ``evaluate_model_streaming`` for metrics."""
+    dataset on the host (the point level of a quantile head), in window
+    order on every data-parallel rank: each batch's rows are gathered from
+    the ranks and their strided interleave undone (``gather_rows``) before
+    the padding is dropped. Prefer ``evaluate_model_streaming`` for metrics."""
     ex = EvalExecutor(cfg, graph, state_dict, batch_size, device, device_dataset_of(dataset))
     preds_all, trues_all = [], []
     for batch in ex.loader(dataset):
-        _, preds, trues, _ = ex.run(batch)
-        valid = batch["valid"]
-        preds_all.append(point_forecast(preds, cfg).cpu().numpy()[valid])
+        _, preds, trues, valid = ex.run(batch)
+        preds, trues, valid = (gather_rows(t) for t in (point_forecast(preds, cfg).float(), trues.float(), valid))
+        valid = valid.cpu().numpy()
+        preds_all.append(preds.cpu().numpy()[valid])
         trues_all.append(trues.cpu().numpy()[valid])
     return np.concatenate(trues_all), np.concatenate(preds_all)
 
@@ -431,7 +451,8 @@ def run_rollout_eval(
     """Autoregressive rollout beyond L_out on the test split: ``num_windows``
     evenly spaced windows, each rolled ``rollout_steps`` steps with its
     forecasts fed back, scored in TECU (forecasts clipped to [0, 200])
-    against the true TEC. Writes ``rollout_results.csv``."""
+    against the true TEC. Every rank computes them all; rank 0 writes
+    ``rollout_results.csv``."""
     cfg = cfg.resolved()
     L_in, L_out = cfg.train.L_in, cfg.train.L_out
     total = -(-rollout_steps // L_out) * L_out
@@ -471,12 +492,13 @@ def run_rollout_eval(
         "mae_by_step": per_step_mae.tolist(),
         "rmse_by_step": per_step_rmse.tolist(),
     }
-    os.makedirs(output_dir, exist_ok=True)
     path = os.path.join(output_dir, "rollout_results.csv")
-    with open(path, "w") as f:
-        f.write("step,mae,rmse\n")
-        for i, (a, r) in enumerate(zip(per_step_mae, per_step_rmse), 1):
-            f.write(f"{i},{a:.6f},{r:.6f}\n")
+    if rank() == 0:
+        os.makedirs(output_dir, exist_ok=True)
+        with open(path, "w") as f:
+            f.write("step,mae,rmse\n")
+            for i, (a, r) in enumerate(zip(per_step_mae, per_step_rmse), 1):
+                f.write(f"{i},{a:.6f},{r:.6f}\n")
     logger.info(
         "rollout %d steps over %d windows: MAE %.4f RMSE %.4f (-> %s)",
         rollout_steps, len(starts), result["mae_avg"], result["rmse_avg"], path,
@@ -501,7 +523,8 @@ def run_prediction(
     {indices, forecast, truth} with (W, L_out, N) arrays, and for a quantile
     head ``forecast_quantiles`` (W, L_out, N, Q) and ``quantile_levels``, plus
     ``forecast_quantiles_conformal`` and ``conformal_offsets`` when a
-    ``conformal.npz`` of the same levels lies beside the checkpoint."""
+    ``conformal.npz`` of the same levels lies beside the checkpoint. Every
+    rank forecasts the windows; rank 0 writes the file."""
     cfg = cfg.resolved()
     ds = SlidingWindowDataset.from_dir(data_dir, split, cfg.train.L_in, cfg.train.L_out, stride=1)
     if len(ds) == 0:
@@ -556,8 +579,9 @@ def run_prediction(
                     conf_path, off.quantiles, quantiles,
                 )
     out_path = os.path.join(output_dir, "forecast.npz")
-    os.makedirs(output_dir, exist_ok=True)
-    np.savez(out_path, indices=idx, forecast=forecast, truth=truth, **extra)
+    if rank() == 0:
+        os.makedirs(output_dir, exist_ok=True)
+        np.savez(out_path, indices=idx, forecast=forecast, truth=truth, **extra)
     mae = float(np.abs(forecast - truth).mean())
     logger.info(
         "forecast %d window(s) of split '%s' -> %s (MAE vs observed: %.4f TECU)", len(idx), split, out_path, mae
@@ -614,9 +638,10 @@ def _resolve_conformal(
             logger.warning("val split empty — cannot fit conformal offsets")
             return None
         off = fit_conformal(cfg, state_dict, val_ds, graph, scaler, batch_size, mode=mode, device=device)
-        path = ConformalOffsets.path_for(ckpt_path)
-        off.save(path)
-        logger.info("conformal offsets saved to %s", path)
+        if rank() == 0:
+            path = ConformalOffsets.path_for(ckpt_path)
+            off.save(path)
+            logger.info("conformal offsets saved to %s", path)
         return off
     path = ConformalOffsets.path_for(ckpt_path) if conformal == "auto" else conformal
     if not os.path.exists(path):
@@ -702,8 +727,10 @@ def run_evaluation(
         "HistoricalAverage": evaluate_baseline_streaming(test_ds, cfg.train.L_out, scaler, device=device),
     }
     improvements = improvement_report(results["TEC-MoLLM"], results["HistoricalAverage"])
-    csv_path, txt_path = write_results(results, improvements, output_dir)
-    logger.info("results: %s, %s", csv_path, txt_path)
+    # the metrics are the whole split's on every rank; rank 0 writes them
+    if rank() == 0:
+        csv_path, txt_path = write_results(results, improvements, output_dir)
+        logger.info("results: %s, %s", csv_path, txt_path)
     for name, m in results.items():
         logger.info(
             "%s: MAE %.4f RMSE %.4f R2 %.4f r %.4f",

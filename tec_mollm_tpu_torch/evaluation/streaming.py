@@ -9,7 +9,9 @@ non-finite predictions zeroed first; after the inverse transform nan -> 0,
 +inf -> 100, -inf -> 0; predictions (not truths) clipped to [TEC_MIN, TEC_MAX].
 The batches' statistics are summed on the device in float64 and read by the
 host once, at ``finalize``, which returns the JAX package's
-``StreamingHorizonMetrics.finalize`` keys and layout.
+``StreamingHorizonMetrics.finalize`` keys and layout. Under data parallelism
+each rank sums its own rows and ``all_reduce`` adds the ranks' float64
+statistics before ``finalize``.
 
 The quantile head's forecasts reduce the same way to 1 + 2Q statistics per
 horizon (n, the pinball loss and the count of truths at or below the forecast,
@@ -27,6 +29,7 @@ import torch
 
 from tec_mollm_tpu_torch.data.scaler import StandardScaler
 from tec_mollm_tpu_torch.evaluation.metrics import TEC_MAX, TEC_MIN
+from tec_mollm_tpu_torch.parallel.mesh import all_reduce_sum
 
 NUM_STATS = 8
 
@@ -97,6 +100,12 @@ class StreamingHorizonMetrics:
         if valid is None:
             valid = torch.ones(y_true_scaled.shape[0], dtype=torch.bool, device=y_true_scaled.device)
         self.stats += batch_metric_stats(y_true_scaled, y_pred_scaled, valid, self.scale, self.mean).double()
+
+    def all_reduce(self) -> "StreamingHorizonMetrics":
+        """Sum the statistics over the data-parallel ranks, in place (a no-op
+        without a process group); every rank then finalizes the whole split."""
+        all_reduce_sum(self.stats)
+        return self
 
     def finalize(self) -> dict[str, Any]:
         stats = self.stats.cpu().numpy()
@@ -223,6 +232,12 @@ class StreamingQuantileMetrics:
         )
         self.stats += s.double()
         return s
+
+    def all_reduce(self) -> "StreamingQuantileMetrics":
+        """Sum the statistics over the data-parallel ranks, in place (a no-op
+        without a process group)."""
+        all_reduce_sum(self.stats)
+        return self
 
     def finalize(self) -> dict[str, Any]:
         stats = self.stats.cpu().numpy()

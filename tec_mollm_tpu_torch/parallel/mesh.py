@@ -1,0 +1,193 @@
+"""Data parallelism over ``torch.distributed``: one process per card
+(``parallel/mesh.py`` of the JAX package, in PyTorch).
+
+The JAX package builds a (data, model) device mesh and lets GSPMD insert the
+gradient psum. Here each process drives one card and the model is wrapped in
+``DistributedDataParallel``: NCCL between cards, gloo on the CPU. The process
+group comes from the environment ``torchrun`` sets (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), as ``jax.distributed``
+reads its coordinator from the environment.
+
+Without an initialised group every helper is the single-process identity:
+rank 0 of a world of 1, no collective.
+
+``make_mesh``, ``batch_sharding``, ``replicated_sharding``, ``shard_batch`` and
+``put_global`` have no counterpart: DDP broadcasts rank 0's parameters when it
+wraps the model, which replaces replication, and each process's
+``BatchLoader(num_shards=world, shard_index=rank)`` loads its own rows, which
+replaces placing a global batch.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+_local_device: torch.device | None = None
+
+
+def is_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    return dist.get_rank() if is_initialized() else 0
+
+
+def world_size() -> int:
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def local_device() -> torch.device | None:
+    """The device ``init_distributed`` chose for this process, or None."""
+    return _local_device
+
+
+def init_distributed(backend: str | None = None, device: str | torch.device | None = None) -> torch.device:
+    """Join the env:// process group and return this process's device.
+
+    ``device`` None is the card ``LOCAL_RANK`` (which becomes the current
+    CUDA device); ``"cpu"`` runs on the CPU. The backend defaults to NCCL on
+    a card and gloo on the CPU. NCCL takes one process per card; gloo may put
+    several on one card (a ``LOCAL_RANK`` past the host's cards wraps around),
+    which is how a one-card machine runs two ranks. A second call returns the
+    device of the first."""
+    global _local_device
+    if is_initialized():
+        if _local_device is None:
+            raise RuntimeError("a process group exists that init_distributed did not make")
+        return _local_device
+    missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT") if k not in os.environ]
+    if missing:
+        raise RuntimeError(
+            f"no process group to join: {', '.join(missing)} unset (launch with torchrun, which sets them)"
+        )
+    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    dev = torch.device(device) if device is not None else torch.device("cuda")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available: pass --cpu (gloo) to run the ranks on the CPU")
+        backend = backend or "nccl"
+        if dev.index is None:
+            count = torch.cuda.device_count()
+            if local_rank >= count and backend == "nccl":
+                raise RuntimeError(
+                    f"LOCAL_RANK {local_rank} but this host has {count} card(s): NCCL takes one process a card"
+                )
+            dev = torch.device("cuda", local_rank % count)
+        torch.cuda.set_device(dev)
+    else:
+        backend = backend or "gloo"
+    dist.init_process_group(backend=backend, init_method="env://")
+    _local_device = dev
+    return dev
+
+
+def destroy() -> None:
+    """Leave the process group (a no-op without one)."""
+    global _local_device
+    if is_initialized():
+        dist.destroy_process_group()
+    _local_device = None
+
+
+def _comm_device() -> torch.device:
+    """Where a small host value travels: the card under NCCL, else the CPU."""
+    if dist.get_backend() == "nccl":
+        return _local_device or torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def barrier(name: str = "") -> None:
+    """Every process waits here (a no-op at world 1). ``name`` documents the
+    call site, as JAX's ``sync_global_devices`` names its barriers."""
+    del name
+    if world_size() > 1:
+        dist.barrier()
+
+
+def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
+    """Sum ``tensor`` over the processes in place and return it (unchanged
+    without a group)."""
+    if is_initialized():
+        dist.all_reduce(tensor, op=dist.ReduceOp.SUM)
+    return tensor
+
+
+def broadcast_object(obj: Any) -> Any:
+    """Rank 0's ``obj`` on every process (``obj`` itself at world 1)."""
+    if world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def any_flag(flag: bool) -> bool:
+    """True on every process when it is True on any: a signal delivered to
+    one process stops them all at the same point (JAX's ``_sync_stop_flag``)."""
+    if world_size() == 1:
+        return bool(flag)
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=_comm_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def interleave_inverse(per_rank: int, world: int) -> np.ndarray:
+    """The permutation that puts the ranks' stacked rows back in window order.
+
+    ``BatchLoader(num_shards=world)`` gives rank p the windows
+    ``order[p::world]``, so in the stack [rank 0's rows | rank 1's | ...] of
+    one batch, row ``p * per_rank + i`` holds window ``i * world + p`` of the
+    batch's block; indexing the stack by the result restores the block's
+    order."""
+    p = np.repeat(np.arange(world), per_rank)
+    i = np.tile(np.arange(per_rank), world)
+    return np.argsort(i * world + p, kind="stable")
+
+
+def gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every process's rows of one loader batch, on every process, in window
+    order: ``all_gather`` of the same-shaped local tensors, then
+    ``interleave_inverse``. ``t`` itself at world 1."""
+    world = world_size()
+    if world == 1:
+        return t
+    src = t.to(torch.uint8) if t.dtype == torch.bool else t
+    parts = [torch.empty_like(src) for _ in range(world)]
+    dist.all_gather(parts, src.contiguous())
+    stacked = torch.cat(parts)
+    out = stacked[torch.as_tensor(interleave_inverse(t.shape[0], world), device=stacked.device)]
+    return out.bool() if t.dtype == torch.bool else out
+
+
+def pad_batch_to_size(batch: dict[str, Any], size: int) -> dict[str, Any]:
+    """Pad the leading dim to exactly `size` rows (repeating the last row);
+    padded rows get valid=False."""
+    b = next(iter(batch.values())).shape[0]
+    if b > size:
+        raise ValueError(f"batch of {b} rows cannot pad down to {size}")
+    if b == size:
+        return batch
+    pad = size - b
+    out = {}
+    for k, v in batch.items():
+        pad_block = np.repeat(v[-1:], pad, axis=0)
+        out[k] = np.concatenate([v, pad_block], axis=0)
+    if "valid" in out:
+        out["valid"][-pad:] = False
+    else:
+        valid = np.ones(size, dtype=bool)
+        valid[-pad:] = False
+        out["valid"] = valid
+    return out
+
+
+def pad_batch_to_multiple(batch: dict[str, Any], multiple: int) -> dict[str, Any]:
+    """Pad the leading dim up to the next multiple; padded rows get valid=False."""
+    b = next(iter(batch.values())).shape[0]
+    return pad_batch_to_size(batch, -(-b // multiple) * multiple)

@@ -1,10 +1,12 @@
 """Training CLI of the PyTorch port: ``python -m tec_mollm_tpu_torch.train``.
 
-The JAX package's ``train.py`` flags and config overrides, on one GPU:
+The JAX package's ``train.py`` flags and config overrides, on one GPU or,
+with ``--multihost`` under ``torchrun``, one process a GPU:
 
     python -m tec_mollm_tpu_torch.train --data-dir data/processed --epochs 50
     python -m tec_mollm_tpu_torch.train --config run_config.json --resume
     python -m tec_mollm_tpu_torch.train --cpu --config tiny.json --data-dir proc --epochs 2
+    torchrun --nproc_per_node 8 -m tec_mollm_tpu_torch.train --multihost --data-dir data/processed
 
 It runs on the GPU and raises without one; ``--cpu`` asks for the CPU. The
 data directory holds ``{train,val}_set.npz``, ``graph.npz`` (with or without
@@ -17,9 +19,15 @@ until the restore has succeeded); ``best_params.pt`` there is what
 ``--device-data`` keeps the splits' raw series (``{split}_raw.npz``) on the
 card and gathers each microbatch's windows there (``data/device_data.py``).
 
-Refused, with the ROADMAP item that brings them: ``--multihost``,
-``--model-parallel`` above 1 and remat policies other than full
-recomputation.
+``--multihost`` joins the process group that ``torchrun`` describes in the
+environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``): NCCL with rank r on card ``LOCAL_RANK``, or gloo with
+``--cpu``. The effective batch is ``batch_size * accumulation_steps * world``;
+rank 0 writes ``config.json``, the checkpoints and the history, and the
+other ranks log warnings only.
+
+Refused, with the ROADMAP item that brings them: ``--model-parallel`` above 1
+(tensor parallelism) and remat policies other than full recomputation.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ logger = logging.getLogger(__name__)
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description="Train TEC-MoLLM (PyTorch port, one GPU)")
+    p = argparse.ArgumentParser(description="Train TEC-MoLLM (PyTorch port: one GPU, or one process a GPU)")
     p.add_argument("--data-dir", default="data/processed")
     p.add_argument("--workdir", default=".")
     # None defaults: an unset flag keeps the config's value (the dataclass
@@ -67,7 +75,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--quantiles", type=float, nargs="+", default=None, metavar="Q",
                    help="probabilistic head with pinball loss, e.g. --quantiles 0.1 0.5 0.9 "
                         "(must include 0.5)")
-    p.add_argument("--model-parallel", type=int, default=None, help="default 1 (the only value ported)")
+    p.add_argument("--model-parallel", type=int, default=None,
+                   help="default 1, the only value ported: tensor parallelism is not ported, data parallelism "
+                        "is (--multihost)")
     p.add_argument("--no-bf16", action="store_true")
     p.add_argument("--remat", action="store_true",
                    help="recompute each GPT-2 block in the backward (torch.utils.checkpoint)")
@@ -76,7 +86,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--device-data", action="store_true",
                    help="device-resident archive: keep the splits' raw series (*_raw.npz) on the card and "
                         "gather windows there; the host ships only window-start indices")
-    p.add_argument("--multihost", action="store_true", help="multi-process training (not ported yet: refused)")
+    p.add_argument("--multihost", action="store_true",
+                   help="data parallelism, one process a card: join the process group torchrun describes in "
+                        "RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT (NCCL; gloo with --cpu)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of one epoch (on a snapshot of the state) here")
     p.add_argument("--resume", action="store_true")
@@ -89,8 +101,6 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.remat and args.no_remat:
         p.error("--remat and --no-remat are mutually exclusive")
-    if args.multihost:
-        p.error("--multihost: multi-process training is not ported yet (ROADMAP Queue A item 7, DDP over NCCL)")
     return args
 
 
@@ -150,12 +160,14 @@ def build_trainer(args: argparse.Namespace, cfg):
     from tec_mollm_tpu_torch.data.scaler import StandardScaler
     from tec_mollm_tpu_torch.device import resolve_device
     from tec_mollm_tpu_torch.graph.builder import GraphData
+    from tec_mollm_tpu_torch.parallel import local_device, rank
     from tec_mollm_tpu_torch.training.trainer import Trainer, unsupported
 
     reason = unsupported(cfg)
     if reason is not None:
         raise SystemExit(f"train: {reason}")
-    device = resolve_device("cpu" if args.cpu else None)  # no card and no --cpu: raises
+    # no card and no --cpu: raises; under --multihost the rank's own device
+    device = local_device() or resolve_device("cpu" if args.cpu else None)
     data_dir = args.data_dir
     t = cfg.train
     if t.device_data:
@@ -179,13 +191,14 @@ def build_trainer(args: argparse.Namespace, cfg):
         workdir=args.workdir, run_name=args.run_name, device=device,
     )
     logger.info(
-        "device %s | effective batch %d | GAT route: %s",
-        trainer.device, trainer.macro_batch, trainer.model.gat_route,
+        "device %s | world %d | effective batch %d | GAT route: %s",
+        trainer.device, trainer.world, trainer.macro_batch, trainer.model.gat_route,
     )
-    # written before training, so an interrupted run still leaves the config
-    # that rebuilds its model; on --resume only after the restore succeeded
+    # written before training, by rank 0, so an interrupted run still leaves
+    # the config that rebuilds its model; on --resume only after the restore
+    # succeeded
     config_path = os.path.join(trainer.ckpt.dir, "config.json")
-    if not (args.resume and os.path.exists(config_path)):
+    if rank() == 0 and not (args.resume and os.path.exists(config_path)):
         with open(config_path, "w") as f:
             f.write(cfg.to_json())
 
@@ -205,9 +218,10 @@ def run(trainer, args: argparse.Namespace, cfg) -> list[dict]:
 
         # the profiled epoch leaves no trace in training: it writes no
         # checkpoint and the state is restored from a copy afterwards, so the
-        # run trains exactly --epochs epochs (and --resume finds its own state)
+        # run trains exactly --epochs epochs (and --resume finds its own state);
+        # every rank trains it, rank 0 writes the trace
         snapshot = copy.deepcopy(capture_state(trainer.state))
-        with trace(args.profile_dir):
+        with trace(args.profile_dir if trainer.rank == 0 else None):
             trainer.epoch = 0
             trainer.train_epoch(checkpoints=False)
         load_state(trainer.state, snapshot)
@@ -215,7 +229,7 @@ def run(trainer, args: argparse.Namespace, cfg) -> list[dict]:
         logger.info("profiler trace written to %s", args.profile_dir)
 
     history = trainer.fit(resume=args.resume)
-    if args.resume:
+    if args.resume and trainer.rank == 0:
         # the restore succeeded: the resumed flags are now the run's record
         with open(os.path.join(trainer.ckpt.dir, "config.json"), "w") as f:
             f.write(cfg.to_json())
@@ -225,12 +239,21 @@ def run(trainer, args: argparse.Namespace, cfg) -> list[dict]:
 
 
 def main(argv: list[str] | None = None) -> list[dict]:
+    from tec_mollm_tpu_torch import parallel
     from tec_mollm_tpu_torch.utils.logging import setup_logging
 
     args = parse_args(argv)
-    setup_logging()
-    cfg = build_config(args)
-    return run(build_trainer(args, cfg), args, cfg)
+    # a caller that made the group itself (another backend) keeps it
+    owned = args.multihost and not parallel.is_initialized()
+    if args.multihost:
+        parallel.init_distributed(device="cpu" if args.cpu else None)
+    try:
+        setup_logging(process_index=parallel.rank())
+        cfg = build_config(args)
+        return run(build_trainer(args, cfg), args, cfg)
+    finally:
+        if owned:
+            parallel.destroy()
 
 
 if __name__ == "__main__":

@@ -17,6 +17,11 @@ from the state file, so a crash between two renames of a later save cannot
 resume a state at another position than its own. Dropout seeds derive from
 (seed, step, microbatch), so the restored step also restores the random
 stream: no generator state is saved.
+
+Under data parallelism every rank holds the same state: rank 0 alone writes,
+and every rank waits at a barrier before and after the write (the JAX
+package's collective save), so no rank reads or overwrites a file another is
+still writing. Every rank restores from the same file.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Any, Mapping
 
 import torch
 
+from tec_mollm_tpu_torch.parallel.mesh import barrier, rank
 from tec_mollm_tpu_torch.training.train_state import TrainState
 
 
@@ -88,16 +94,19 @@ class CheckpointManager:
 
     def save_state(self, state: TrainState, meta: dict[str, Any], name: str = "latest") -> str:
         """``<name>.pt`` (the train state, with meta's epoch and step_in_epoch)
-        and ``<name>.meta.json``."""
+        and ``<name>.meta.json``. Every rank calls it; rank 0 writes."""
         path = self.path(name)
-        blob = capture_state(state)
-        blob.update(epoch=meta["epoch"], step_in_epoch=meta["step_in_epoch"])
-        meta_tmp = os.path.join(self.dir, name + ".meta.json.tmp")
-        with open(meta_tmp, "w") as f:
-            json.dump(meta, f)
-        torch.save(blob, path + ".tmp")
-        os.replace(meta_tmp, os.path.join(self.dir, name + ".meta.json"))
-        os.replace(path + ".tmp", path)
+        barrier("ckpt_pre_save")
+        if rank() == 0:
+            blob = capture_state(state)
+            blob.update(epoch=meta["epoch"], step_in_epoch=meta["step_in_epoch"])
+            meta_tmp = os.path.join(self.dir, name + ".meta.json.tmp")
+            with open(meta_tmp, "w") as f:
+                json.dump(meta, f)
+            torch.save(blob, path + ".tmp")
+            os.replace(meta_tmp, os.path.join(self.dir, name + ".meta.json"))
+            os.replace(path + ".tmp", path)
+        barrier("ckpt_saved")
         return path
 
     def restore_state(self, state: TrainState, name: str = "latest") -> tuple[TrainState, dict[str, Any]]:
@@ -112,11 +121,14 @@ class CheckpointManager:
         return os.path.exists(self.path(name)) and os.path.exists(os.path.join(self.dir, name + ".meta.json"))
 
     def save_params(self, state_dict: Mapping[str, torch.Tensor], name: str = "best") -> str:
-        """``<name>_params.pt``: a model state_dict, saved as it is given."""
+        """``<name>_params.pt``: a model state_dict, saved as it is given.
+        Every rank calls it; rank 0 writes."""
         path = self.path(name + "_params")
-        _atomic_save(dict(state_dict), path)
+        barrier("params_pre_save")
+        if rank() == 0:
+            _atomic_save(dict(state_dict), path)
+        barrier("params_saved")
         return path
-
 
 
 def find_latest_checkpoint(

@@ -10,8 +10,9 @@ the scheduled rate, takes one AdamW step and updates the EMA. PyTorch updates
 in place: the step mutates the state and returns it.
 
 Dropout: every microbatch's forward runs inside ``torch.random.fork_rng`` with
-the default generators seeded from (state seed, step, microbatch), as the JAX
-step folds the step count into ``state.rng``. Every dropout site, and the seed
+the default generators seeded from (state seed, step, microbatch, and the
+data-parallel rank when it is not 0), as the JAX step folds the step count
+into ``state.rng``. Every dropout site, and the seed
 the attention kernel draws per call, comes from those generators, so a step
 re-run from the same state and batch gives the same loss.
 """
@@ -24,8 +25,11 @@ from typing import Callable, Iterator
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from tec_mollm_tpu_torch.config import Config
+from tec_mollm_tpu_torch.parallel.mesh import all_reduce_sum, world_size
+from tec_mollm_tpu_torch.parallel.mesh import rank as get_rank
 from tec_mollm_tpu_torch.training.loss import (
     huber_elementwise,
     huber_loss,
@@ -100,9 +104,12 @@ def create_train_state(
     return state, mask
 
 
-def dropout_seed(seed: int, step: int, micro: int) -> int:
-    """The default generators' seed for one microbatch of one step."""
-    return int(np.random.SeedSequence([seed, step, micro]).generate_state(1, np.uint64)[0] >> 1)
+def dropout_seed(seed: int, step: int, micro: int, rank: int = 0) -> int:
+    """The default generators' seed for one microbatch of one step on one
+    data-parallel rank: each rank draws its own masks over its own rows, and
+    rank 0 draws those of a single-process run."""
+    entropy = [seed, step, micro] + ([rank] if rank else [])
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
 
 
 def point_forecast(preds: torch.Tensor, cfg: Config) -> torch.Tensor:
@@ -169,9 +176,20 @@ def make_train_step(model: torch.nn.Module, cfg: Config) -> Callable:
     trainable parameters get gradients. With ``data`` (a ``DeviceSplit``, the
     device-resident archive) ``batch`` is {"starts", "valid"} and each
     microbatch's windows are gathered on the device right before its forward,
-    so no more than one microbatch of windows is ever materialized."""
+    so no more than one microbatch of windows is ever materialized.
+
+    ``model`` may be the ``DistributedDataParallel`` wrapper of the state's
+    model: ``batch`` is then this rank's share of the macro batch. Every
+    microbatch but the last runs under ``no_sync``, so the gradients are
+    all-reduced once a step, and DDP averages them over the ranks. One
+    all-reduce of (loss sum, weight count) gives the global count, and the
+    averaged gradient is divided by ``count / world``: the step takes the
+    gradient of the global valid-weighted mean, however the rows are split
+    over ranks and microbatches, and every rank applies the same update."""
     accum = cfg.train.accumulation_steps
     loss_fn = make_sum_loss_fn(model, cfg)
+    ddp = isinstance(model, DistributedDataParallel)
+    world, rank = (world_size(), get_rank()) if ddp else (1, 0)
     schedule = cosine_annealing_warm_restarts(
         cfg.train.lr, cfg.train.sched_t0, cfg.train.sched_t_mult, cfg.train.sched_eta_min
     )
@@ -195,18 +213,24 @@ def make_train_step(model: torch.nn.Module, cfg: Config) -> Callable:
             mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()} if accum > 1 else batch
             if data is not None:
                 mb = data.gather(mb["starts"], mb.get("valid"))
-            with torch.random.fork_rng(devices=forked):
-                torch.manual_seed(dropout_seed(state.seed, state.step, i))
-                wsum, count = loss_fn(mb, graph)
-            wsum.backward()
+            sync = model.no_sync() if ddp and i < accum - 1 else contextlib.nullcontext()
+            with sync:
+                with torch.random.fork_rng(devices=forked):
+                    torch.manual_seed(dropout_seed(state.seed, state.step, i, rank))
+                    wsum, count = loss_fn(mb, graph)
+                wsum.backward()
             loss_sum += wsum.detach()
             count_sum += count
+        if ddp:
+            totals = all_reduce_sum(torch.stack([loss_sum, count_sum]))
+            loss_sum, count_sum = totals[0], totals[1]
         denom = torch.clamp_min(count_sum, 1.0)
+        grad_denom = denom / world if world > 1 else denom
         grads = []
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-            grads.append(p.grad.div_(denom))
+            grads.append(p.grad.div_(grad_denom))
         grad_norm = clip_by_global_norm_(grads, cfg.train.clip_grad_norm)
         for group in state.optimizer.param_groups:
             group["lr"] = schedule(state.step)

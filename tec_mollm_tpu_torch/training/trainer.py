@@ -1,14 +1,15 @@
 """Trainer: epoch loop, validation, early stopping, checkpoints and resume, on
-one GPU (``training/trainer.py`` of the JAX package, in PyTorch).
+one GPU or one process a GPU (``training/trainer.py`` of the JAX package, in
+PyTorch).
 
 Per epoch: ``loader.set_epoch`` -> train epoch -> validate -> log, the best
 weights saved on a val-loss gain above ``min_delta``, early stop after
 ``patience`` epochs without one, a resumable ``latest`` checkpoint and a line
 of ``<workdir>/logs/<run_name>.jsonl`` with the JAX trainer's record keys.
 
-The macro batch is ``accumulation_steps * batch_size`` windows; the last one
-of an epoch is padded with repeats whose ``valid`` is False, so every window
-trains each epoch. Losses stay on the device and are read back every
+The macro batch is ``accumulation_steps * batch_size * world`` windows; the
+last one of an epoch is padded with repeats whose ``valid`` is False, so every
+window trains each epoch. Losses stay on the device and are read back every
 ``host_sync_every`` steps, where a non-finite loss stops the run before any
 checkpoint can overwrite ``latest``. Validation runs the deterministic eval
 step on the EMA weights when they are tracked (else the raw ones), whose
@@ -27,8 +28,21 @@ window starts only (``BatchLoader(index_only=True)``) and each microbatch is
 gathered on the device right before its forward (``data/device_data.py``),
 validation's batches too.
 
-Not ported here (refused by ``unsupported``): multi-process data parallelism,
-tensor parallelism and the remat policies other than full recomputation.
+Data parallelism (``parallel/mesh.py``): with a process group (the train
+CLI's ``--multihost`` under ``torchrun``) each rank loads its strided shard of
+every macro and validation batch (``BatchLoader(num_shards=world,
+shard_index=rank)``), the model trains wrapped in ``DistributedDataParallel``
+(``make_train_step`` divides by the global valid count, so the loss is the
+global mean however the rows are split), validation runs the unwrapped model
+and all-reduces its loss terms and metric statistics, so every rank returns
+the same numbers. Rank 0 writes the checkpoints and the history. A signal
+stops a multi-process run at the next epoch boundary, once every rank agrees
+(``any_flag``); a mid-epoch stop is a single-process feature, as in JAX. The
+device-resident archive keeps every split whole on every rank; only the
+window starts are sharded.
+
+Not ported here (refused by ``unsupported``): tensor parallelism and the remat
+policies other than full recomputation.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from tec_mollm_tpu_torch.config import Config
 from tec_mollm_tpu_torch.data.dataset import BatchLoader, SlidingWindowDataset
@@ -51,6 +66,14 @@ from tec_mollm_tpu_torch.device import resolve_device
 from tec_mollm_tpu_torch.evaluation.streaming import StreamingHorizonMetrics
 from tec_mollm_tpu_torch.graph.builder import GraphData
 from tec_mollm_tpu_torch.models.tec_mollm import TECMoLLM, graph_inputs
+from tec_mollm_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    any_flag,
+    broadcast_object,
+    is_initialized,
+    rank,
+    world_size,
+)
 from tec_mollm_tpu_torch.training.checkpoint import CheckpointManager
 from tec_mollm_tpu_torch.training.train_state import (
     create_train_state,
@@ -71,8 +94,8 @@ def unsupported(cfg: Config) -> str | None:
     t = cfg.train
     if t.model_parallel > 1:
         return (
-            f"model_parallel={t.model_parallel}: tensor parallelism is not ported yet "
-            "(ROADMAP Queue A item 7, data and tensor parallelism)"
+            f"model_parallel={t.model_parallel}: tensor parallelism is not ported yet (the port "
+            "runs data parallelism only; ROADMAP Queue A item 10, tensor parallelism)"
         )
     if t.remat_policy not in (None, "full"):
         return (
@@ -100,9 +123,10 @@ class Trainer:
             raise ValueError(reason)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.run_name = run_name or make_run_name(
+        # rank 0's name: the ranks may read the clock in different minutes
+        self.run_name = broadcast_object(run_name or make_run_name(
             cfg.train.L_in, cfg.train.train_stride, cfg.train.batch_size, cfg.train.lr, cfg.model.llm_layers,
-        )
+        ))
         stencil_shifts, self.graph = graph_inputs(graph, self.device)
         # built without the opt-in kernels (fused_attn, fused MLP), as the JAX
         # trainer builds its model
@@ -118,16 +142,21 @@ class Trainer:
         self.device_mode = isinstance(train_ds, DeviceResidentDataset)
         if val_ds is not None and isinstance(val_ds, DeviceResidentDataset) != self.device_mode:
             raise TypeError("the train and validation splits must both be device-resident, or neither")
-        self.macro_batch = cfg.train.accumulation_steps * cfg.train.batch_size
-        # the final short macro batch is padded with loss-masked repeats, not
-        # dropped: every train window contributes a gradient each epoch
+        self.world, self.rank = world_size(), rank()
+        self.macro_batch = cfg.train.accumulation_steps * cfg.train.batch_size * self.world
+        # each rank loads its strided shard (order[rank::world]), so the union
+        # of the ranks' batch b is the single-process macro batch b; the final
+        # short macro batch is padded with loss-masked repeats, not dropped:
+        # every train window contributes a gradient each epoch
+        shard = dict(num_shards=self.world, shard_index=self.rank)
         self.train_loader = BatchLoader(
-            train_ds, batch_size=self.macro_batch, shuffle=cfg.train.shuffle, seed=cfg.train.seed,
-            drop_remainder=False, index_only=self.device_mode,
+            train_ds, batch_size=self.macro_batch // self.world, shuffle=cfg.train.shuffle, seed=cfg.train.seed,
+            drop_remainder=False, index_only=self.device_mode, **shard,
         )
+        val_global_batch = max(cfg.train.batch_size * self.world, self.world)
         self.val_loader = (
-            BatchLoader(val_ds, batch_size=max(cfg.train.batch_size, 1), shuffle=False, drop_remainder=False,
-                        index_only=self.device_mode)
+            BatchLoader(val_ds, batch_size=val_global_batch // self.world, shuffle=False, drop_remainder=False,
+                        index_only=self.device_mode, **shard)
             if val_ds is not None else None
         )
         self._train_data = self._val_data = None
@@ -147,7 +176,15 @@ class Trainer:
         self.state, _ = create_train_state(
             self.model, cfg, frozen_dtype=torch.bfloat16 if cfg.train.bf16 else None,
         )
-        self._train_step = make_train_step(self.model, cfg)
+        # trained through DDP whenever a process group exists (world 1 too);
+        # validation and checkpoints use the model itself
+        trained = self.model
+        if is_initialized():
+            cuda = self.device.type == "cuda"
+            trained = DistributedDataParallel(
+                self.model, device_ids=[self.device] if cuda else None, output_device=self.device if cuda else None,
+            )
+        self._train_step = make_train_step(trained, cfg)
         self._eval_step = make_eval_step(self.model, cfg)
 
         self.epoch = 0
@@ -176,10 +213,11 @@ class Trainer:
         checkpoints: bool = True,
     ) -> dict[str, Any]:
         """One (possibly partial) training epoch from macro step ``start_step``.
-        ``stop_requested['flag']`` is polled after every macro step: when set,
-        the epoch stops there and reports ``interrupted``. ``checkpoints=False``
-        skips the periodic saves (an epoch that is not part of the run, such
-        as a profiled one, must not overwrite its 'latest')."""
+        ``stop_requested['flag']`` is polled after every macro step of a
+        single-process run: when set, the epoch stops there and reports
+        ``interrupted``. ``checkpoints=False`` skips the periodic saves (an
+        epoch that is not part of the run, such as a profiled one, must not
+        overwrite its 'latest')."""
         self.train_loader.set_epoch(self.epoch)
         device_losses = []
         steps = start_step
@@ -199,7 +237,9 @@ class Trainer:
             if ckpt_every and steps % ckpt_every == 0:
                 self._check_finite(float(metrics["loss"]), steps)
                 self._save_latest(step_in_epoch=steps)
-            if stop_requested is not None and stop_requested["flag"]:
+            # several ranks stop together at the epoch boundary instead: a
+            # lone rank leaving the step sequence would wedge the others
+            if stop_requested is not None and stop_requested["flag"] and self.world == 1:
                 interrupted = True
                 break
         total_loss = float(torch.stack(device_losses).sum()) if device_losses else 0.0
@@ -217,7 +257,8 @@ class Trainer:
     def validate(self) -> tuple[float, dict[str, Any]]:
         """Validation loss (the valid-weighted mean over the split) and the
         per-horizon metrics of the point forecast, reduced on the device and
-        read back once."""
+        read back once; summed over the ranks, so every rank returns the
+        numbers of the whole split."""
         if self.val_loader is None:
             raise RuntimeError("no validation split")
         acc = StreamingHorizonMetrics(self.cfg.train.L_out, self.target_scaler, self.device)
@@ -232,13 +273,12 @@ class Trainer:
                 acc.update(trues, point_forecast(preds, self.cfg), valid)
                 if sync_every and len(loss_terms) % sync_every == 0:
                     float(loss)  # bounds the queued batches
+        totals = torch.zeros(2, dtype=torch.float64, device=self.device)
         if loss_terms:
-            stacked = torch.stack(loss_terms).cpu().numpy().astype(np.float64)
-            total = float(np.sum(stacked[:, 0] * stacked[:, 1]))
-            count = float(np.sum(stacked[:, 1]))
-        else:
-            total = count = 0.0
-        return total / max(count, 1.0), acc.finalize()
+            stacked = torch.stack(loss_terms).double()
+            totals = torch.stack([(stacked[:, 0] * stacked[:, 1]).sum(), stacked[:, 1].sum()])
+        total, count = all_reduce_sum(totals).tolist()
+        return total / max(count, 1.0), acc.all_reduce().finalize()
 
     def _check_finite(self, loss: float, steps: int) -> None:
         """Stop on a diverged loss before any further checkpoint write: 'latest'
@@ -263,7 +303,7 @@ class Trainer:
                 "best_val_loss": self.best_val_loss,
                 "patience_counter": self.patience_counter,
                 "config": json.loads(self.cfg.to_json()),
-                "process_count": 1,
+                "process_count": self.world,
             },
             "latest",
         )
@@ -281,8 +321,8 @@ class Trainer:
             if k in saved and saved[k] != cur[k]
         }
         saved_pc = meta.get("process_count")
-        if saved_pc is not None and saved_pc != 1:
-            diffs["process_count"] = (saved_pc, 1)
+        if saved_pc is not None and saved_pc != self.world:
+            diffs["process_count"] = (saved_pc, self.world)
         if diffs:
             detail = ", ".join(f"{k}: saved {a} vs current {b}" for k, (a, b) in diffs.items())
             raise RuntimeError(
@@ -375,15 +415,18 @@ class Trainer:
                 else:
                     self.patience_counter += 1
 
+            # the validation numbers are the same on every rank, so best and
+            # patience stay in step and every rank enters the same saves
             self._save_latest(step_in_epoch=0)
             self.history.append(record)
-            with open(self._history_path, "a") as f:
-                f.write(json.dumps(record) + "\n")
+            if self.rank == 0:
+                with open(self._history_path, "a") as f:
+                    f.write(json.dumps(record) + "\n")
 
             if self.patience_counter >= cfg.train.patience:
                 logger.info("early stopping at epoch %d", epoch + 1)
                 break
-            if stop_requested["flag"]:
+            if any_flag(stop_requested["flag"]):
                 logger.warning("stopping after epoch %d on signal (resumable)", epoch)
                 break
         return self.history

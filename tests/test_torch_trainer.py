@@ -264,7 +264,28 @@ class TestCLI:
         (["--model-parallel", "2"], "tensor parallelism"),
         (["--device-data"], "device-resident archive"),
     ])
-    def test_refuses_what_is_not_ported(self, proc, tmp_path, flags, match, capsys):
+    def test_refuses_what_is_not_ported(self, proc, tmp_path, flags, match, capsys, monkeypatch):
+        if flags == ["--multihost"]:
+            # ported: without the environment torchrun sets, the CLI names what
+            # is missing; in a world of 1 on gloo it trains through DDP and
+            # leaves its process group (tests/test_torch_ddp.py runs 2 ranks)
+            import socket
+
+            with pytest.raises(RuntimeError, match="torchrun"):
+                train_cli.main(self._argv(proc, str(tmp_path / "a"), "--cpu", *flags))
+            with socket.socket() as s:
+                s.bind(("localhost", 0))
+                port = s.getsockname()[1]
+            env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+                   "MASTER_PORT": str(port)}
+            for k, v in env.items():
+                monkeypatch.setenv(k, v)
+            history = train_cli.main(self._argv(proc, str(tmp_path / "b"), "--cpu", *flags))
+            assert len(history) == 2 and all(np.isfinite(r["train_loss"]) for r in history)
+            assert not torch.distributed.is_initialized()
+            meta = json.loads((tmp_path / "b" / "checkpoints" / "r" / "latest.meta.json").read_text())
+            assert meta["process_count"] == 1
+            return
         if flags == ["--device-data"]:
             # ported: the CLI trains on the device-resident archive of a dir the
             # port's preprocess CLI wrote (tests/test_torch_device_data.py holds

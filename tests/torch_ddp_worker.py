@@ -1,0 +1,165 @@
+"""One rank of the port's data-parallel tests (tests/test_torch_ddp.py and
+tests/test_torch_ddp_jax.py), on the CPU over gloo.
+
+    python tests/torch_ddp_worker.py JOB.json RANK WORLD PORT
+
+joins the process group (the environment torchrun would set, built here),
+runs the job and writes ``<out>/rank<RANK>.json`` (and ``.npz`` for arrays).
+It imports torch and the port only: nothing of JAX. Jobs (``JOB.json``):
+
+* ``fit``: the ``Trainer`` on a processed dir (``resume``, ``epochs``), then,
+  with ``eval``, ``run_evaluation``, ``get_model_predictions`` (val),
+  ``run_prediction`` and adaptive conformal (test) on the best checkpoint.
+  ``stop_rank`` / ``stop_epoch``: that rank alone sends itself SIGTERM once
+  its trainer reaches that epoch. ``epoch_only``: one ``train_epoch`` (its
+  periodic checkpoints, no validation) in place of ``fit``.
+* ``cli``: ``python -m tec_mollm_tpu_torch.train --multihost`` with ``argv``.
+
+Every job records the files the rank opened for writing, or renamed into
+place, under its workdir (an audit hook), so a test can hold the writes to
+rank 0.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def _watch_writes(root: str) -> list[str]:
+    """Paths under ``root`` this process opens to write or renames into place."""
+    root = os.path.realpath(root)
+    seen: list[str] = []
+
+    def hook(event, args):
+        if event == "open" and args and isinstance(args[0], str):
+            mode = args[1] if len(args) > 1 and isinstance(args[1], str) else ""
+            flags = args[2] if len(args) > 2 and isinstance(args[2], int) else 0
+            writes = any(c in mode for c in "wax+") or (flags & (os.O_WRONLY | os.O_RDWR))
+            paths = [args[0]] if writes else []
+        elif event == "os.rename":
+            paths = [a for a in args[:2] if isinstance(a, str)]
+        else:
+            return
+        for p in paths:
+            if os.path.realpath(p).startswith(root + os.sep):
+                seen.append(os.path.relpath(os.path.realpath(p), root))
+
+    sys.addaudithook(hook)
+    return seen
+
+
+def _fit(job: dict, rank: int, out: dict, arrays: dict) -> None:
+    import dataclasses
+    import signal
+    import threading
+    import time
+
+    from tec_mollm_tpu_torch.config import Config
+    from tec_mollm_tpu_torch.data import SlidingWindowDataset, StandardScaler
+    from tec_mollm_tpu_torch.graph import GraphData
+    from tec_mollm_tpu_torch.training.trainer import Trainer
+
+    with open(job["config"]) as f:
+        cfg = Config.from_json(f.read())
+    if "epochs" in job:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, epochs=job["epochs"]))
+    data, t = job["data"], cfg.train
+    train = SlidingWindowDataset.from_dir(data, "train", t.L_in, t.L_out, stride=t.train_stride)
+    val = SlidingWindowDataset.from_dir(data, "val", t.L_in, t.L_out, stride=1)
+    graph = GraphData.load(os.path.join(data, "graph.npz"))
+    scaler = StandardScaler.load(os.path.join(data, "target_scaler.npz"))
+    trainer = Trainer(cfg, train, val, graph, scaler, workdir=job["workdir"], run_name="run", device="cpu")
+    if job.get("stop_rank") == rank:
+        def signal_when_reached():
+            while trainer.epoch < job["stop_epoch"]:
+                time.sleep(0.02)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+        threading.Thread(target=signal_when_reached, daemon=True).start()
+    if job.get("epoch_only"):
+        out["epoch"] = trainer.train_epoch()
+        return
+    out["history"] = trainer.fit(resume=job.get("resume", False))
+    out["final_epoch"] = trainer.epoch
+    out["best_val_loss"] = trainer.best_val_loss
+    out["updates"] = trainer.state.step
+    val_loss, metrics = trainer.validate()
+    out["validate"] = {"val_loss": val_loss, **metrics}
+    if job.get("eval"):
+        _evaluate(job, cfg, graph, scaler, out, arrays)
+
+
+def _evaluate(job: dict, cfg, graph, scaler, out: dict, arrays: dict) -> None:
+    import dataclasses
+
+    from tec_mollm_tpu_torch.data import SlidingWindowDataset
+    from tec_mollm_tpu_torch.evaluation.conformal import evaluate_adaptive_conformal
+    from tec_mollm_tpu_torch.evaluation.harness import (
+        get_model_predictions,
+        load_params_for_eval,
+        run_evaluation,
+        run_prediction,
+    )
+    from tec_mollm_tpu_torch.models import TECMoLLM
+
+    data, workdir, t = job["data"], job["workdir"], cfg.train
+    ckpt = os.path.join(workdir, "checkpoints", "run", "best_params.pt")
+    results = os.path.join(workdir, "results")
+    ev = run_evaluation(cfg, data, ckpt, output_dir=results, batch_size=4, workdir=workdir, device="cpu")
+    out["eval"] = ev["results"]
+    pred = run_prediction(cfg, data, ckpt, indices=[0, 3, 4], output_dir=results, workdir=workdir, device="cpu")
+    arrays["pred_forecast"] = pred["forecast"]
+    val = SlidingWindowDataset.from_dir(data, "val", t.L_in, t.L_out, stride=1)
+    trues, preds = get_model_predictions(cfg, load_params_for_eval(cfg, ckpt), val, graph, batch_size=4, device="cpu")
+    arrays["gmp_true"], arrays["gmp_pred"] = trues, preds
+    qcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, quantiles=(0.1, 0.5, 0.9))).resolved()
+    test = SlidingWindowDataset.from_dir(data, "test", t.L_in, t.L_out, stride=1)
+    aci = evaluate_adaptive_conformal(
+        qcfg, TECMoLLM(qcfg.model, seed=1).state_dict(), test, graph, scaler, batch_size=4,
+        min_residual_mass=100.0, device="cpu",
+    )
+    out["aci"] = {k: aci[k] for k in ("pinball_avg", "interval_coverage", "calibration_by_level")}
+    out["aci"]["final_effective_levels"] = aci["adaptive"]["final_effective_levels"]
+    out["aci"]["batches"] = aci["adaptive"]["batches"]
+
+
+def main() -> None:
+    job_path, rank, world, port = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+    with open(job_path) as f:
+        job = json.load(f)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=port)
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    writes = _watch_writes(job["workdir"])
+    out: dict = {"rank": rank, "world": world}
+    arrays: dict = {}
+    if job["kind"] == "cli":
+        from tec_mollm_tpu_torch import train
+
+        out["history"] = train.main(job["argv"] + ["--multihost", "--cpu"])
+    else:
+        from tec_mollm_tpu_torch import parallel
+
+        parallel.init_distributed(device="cpu")
+        try:
+            _fit(job, rank, out, arrays)
+        finally:
+            parallel.destroy()
+    out["writes"] = sorted(set(writes))
+    os.makedirs(job["out"], exist_ok=True)
+    if arrays:
+        np.savez(os.path.join(job["out"], f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=float)
+
+
+if __name__ == "__main__":
+    main()
