@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed 0]
 
-It needs one card. Phase 12 starts this script again as the ranks of a
-torchrun group (``--ddp-rank JOB``); a user never passes that flag.
+It needs one card. Phases 12 and 13 start this script again as the ranks of
+a torchrun group (``--ddp-rank JOB``); a user never passes that flag.
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -149,7 +149,24 @@ Phases (any failure exits non-zero):
      the same checkpoint within DDP_EVAL_TOL, the predictions in window
      order, and the GAT launches its shards need. Each rank writes its
      launch counts to a JSON file, and the kernels line sums them.
-The phases run in the order 1-6, 9-11, 8, 12, 7; the total time is printed. The
+ 13. tensor parallel (after phase 12), at phase 6's width and cut: (a)
+     TP_RANKS gloo ranks on the one card (dp 1 x mp TP_RANKS: the GPT-2
+     backbone and head split Megatron-style over the model group), Config()
+     in fp32 without dropout through the train CLI's functions with
+     --model-parallel, against phase 12's one process at the same global
+     batch: per-epoch losses within TP_RTOL, validation MAE by horizon within
+     DDP_MAE_RTOL, each rank's c_attn slice (768, 1152), every rank the same
+     numbers, the GAT kernel once per validation and eval batch on every rank;
+     their best_params.pt holds whole tensors, and run_evaluation on it gives
+     every rank the same metrics and predictions, within DDP_EVAL_TOL of one
+     process on the same file. (b) Their epoch-boundary latest resumes at mp 1
+     in one process with every parameter bit-identical; a mid-epoch latest of
+     theirs is refused at mp 1. (c) python -m tec_mollm_tpu_torch.bench under
+     torchrun --nproc_per_node 1 (NCCL, DDP at world 1) beside the bare bench.
+     (d) (a) over NCCL, one card a rank, where the host has TP_RANKS cards;
+     on one card it logs why it did not run. Each rank writes its launch
+     counts; the kernels line sums them.
+The phases run in the order 1-6, 9-11, 8, 12, 13, 7; the total time is printed. The
 last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON. Details also go to chiprun_out/chip_smoke.json.
 """
@@ -284,6 +301,11 @@ DEVICE_DATA_RTOL = 1e-3
 DDP_RANKS, DDP_RTOL, DDP_MAE_RTOL, DDP_EVAL_TOL = 2, 2e-4, 2e-3, 1e-5
 # the phase's time limit for one torchrun call
 DDP_TIMEOUT_S = 400
+# tensor-parallel phase: the ranks of the model group (dp 1 x mp TP_RANKS), and
+# the relative distance allowed between their per-epoch losses and those of
+# one process at the same global macro batch (fp32, no dropout: the JAX
+# package's own tp bound); MAE and eval tolerances are the data-parallel ones
+TP_RANKS, TP_RTOL = 2, 2e-4
 # export phase: an artifact's forecasts against the checkpoint service of the
 # same flags, in scaled units (the same kernels and arithmetic), and the serve
 # CLI's --bench requests
@@ -1799,12 +1821,12 @@ def torchrun(job: dict, nproc: int, path: str) -> list[dict]:
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         output, _ = proc.communicate()
-        raise RuntimeError(f"data parallel: torchrun outlived {DDP_TIMEOUT_S} s:\n{output[-4000:]}")
+        raise RuntimeError(f"torchrun outlived {DDP_TIMEOUT_S} s:\n{output[-4000:]}")
     finally:
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
     if proc.returncode != 0:
-        raise RuntimeError(f"data parallel: torchrun exited {proc.returncode}:\n{output[-6000:]}")
+        raise RuntimeError(f"torchrun exited {proc.returncode}:\n{output[-6000:]}")
     records = []
     for r in range(nproc):
         with open(os.path.join(job["out"], f"rank{r}.json")) as f:
@@ -1813,11 +1835,12 @@ def torchrun(job: dict, nproc: int, path: str) -> list[dict]:
 
 
 def ddp_rank(job_path: str) -> int:
-    """One rank of phase 12 under torchrun: join the group (NCCL, or the
-    job's backend), train through the train CLI's functions with
-    --multihost, count this process's launches, then, as the job asks, time
-    the warm epoch of a second DDP trainer and evaluate the best checkpoint;
-    write <out>/rank<r>.json (and .npz)."""
+    """One rank of phase 12 or 13 under torchrun: join the group (NCCL, or
+    the job's backend; the job's model_parallel), train through the train
+    CLI's functions with --multihost, count this process's launches, then, as
+    the job asks, phase 13's extras (tensor_parallel_rank), time the warm
+    epoch of a second DDP trainer and evaluate the best checkpoint; write
+    <out>/rank<r>.json (and .npz)."""
     import torch
 
     from tec_mollm_tpu_torch import ops, parallel, train
@@ -1830,7 +1853,7 @@ def ddp_rank(job_path: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     with open(job_path) as f:
         job = json.load(f)
-    parallel.init_distributed(backend=job.get("backend"))
+    parallel.init_distributed(backend=job.get("backend"), model_parallel=job.get("model_parallel", 1))
     rank = parallel.rank()
     setup_logging(process_index=rank)
     out: dict = {"rank": rank, "world": parallel.world_size(), "device": str(parallel.local_device()),
@@ -1853,6 +1876,8 @@ def ddp_rank(job_path: str) -> int:
         if not job.get("cli"):
             val_loss, metrics = trainer.validate()
             out["validate"] = {"val_loss": val_loss, **metrics}
+            if job.get("tensor_parallel"):
+                tensor_parallel_rank(trainer, job, out, arrays)
             del trainer
         if job.get("timing"):
             t0 = time.perf_counter()
@@ -1883,7 +1908,7 @@ def ddp_rank(job_path: str) -> int:
             out["launches_eval"] = ops.launch_counts()
             out["eval"] = ev["results"]
             out["eval_wall_s"] = time.perf_counter() - t_eval
-            arrays = {"preds": preds, "trues": trues}
+            arrays.update(preds=preds, trues=trues)
     finally:
         parallel.destroy()
     os.makedirs(job["out"], exist_ok=True)
@@ -1892,6 +1917,33 @@ def ddp_rank(job_path: str) -> int:
     with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f, default=str)
     return 0
+
+
+def tensor_parallel_rank(trainer, job: dict, out: dict, arrays: dict) -> None:
+    """Phase 13's extras on a rank of a split trainer: its c_attn slice's
+    shape, the whole parameters after the fit (rank 0's ``param:<name>``), a copy of
+    the epoch-boundary checkpoint (run ``<run>_epoch``) for the resume at
+    mp 1, then the last macro step of one more epoch, whose checkpoint
+    (every TRAINER_CKPT_EVERY steps) makes ``latest`` a mid-epoch checkpoint
+    of this layout."""
+    import shutil
+
+    import torch
+
+    from tec_mollm_tpu_torch import parallel
+
+    out["c_attn_shape"] = list(trainer.model.llm_backbone.model.h[0].attn.c_attn.weight.shape)
+    whole = trainer.full_state_dict()  # collective: every rank gathers
+    if parallel.rank() == 0:
+        for k, v in whole.items():
+            arrays[f"param:{k}"] = v.detach().to("cpu", torch.float32, copy=True).numpy()  # not the live tensor
+        shutil.copytree(trainer.ckpt.dir, trainer.ckpt.dir + "_epoch")
+    parallel.barrier("tp_epoch_copy")
+    steps = len(trainer.train_loader)
+    trainer.epoch += 1
+    stats = trainer.train_epoch(start_step=steps - 1)
+    torch.cuda.synchronize()
+    out["mid_epoch"] = {"steps_in_epoch": stats["steps_in_epoch"], "epoch": trainer.epoch}
 
 
 def ddp_vs_bare_step(trainer) -> dict:
@@ -2086,8 +2138,208 @@ def data_parallel_phase(args, data_dir: str, trainer: dict) -> dict:
         "phase_s": phase_s, "walls_s": walls, "launches": launches, "a": a, "a_max_rel_loss_diff_vs_run_a": rel_a,
         "b_ranks": ranks, "b_one_process_history": hist_1, "b_max_rel_loss_diff": rel_b,
         "b_val_mae_by_horizon_max_rel_diff": mae_b, "b_gat_launches_by_rank": gat_b,
+        "b_one_process_validate": {"val_loss": val_1[0], **val_1[1]}, "b_argv": argv_b, "b_config": fp32,
         "b_eval_one_process": ev_1, "b_eval_rel_diff": rel_ev, "b_eval_abs_diff_r": abs_ev,
         "b_pred_max_abs_diff": pred_diff, "b_eval_gat_launches_by_rank": gat_eval,
+    }
+
+
+def tp_job(argv: list[str], out: str, backend: str, eval_spec: dict) -> dict:
+    """A phase 13 torchrun job: the trainer split over a model group of
+    TP_RANKS, then the evaluation library on its best checkpoint."""
+    return {"backend": backend, "model_parallel": TP_RANKS, "tensor_parallel": True, "out": out,
+            "argv": argv + ["--model-parallel", str(TP_RANKS)], "eval": eval_spec}
+
+
+def check_tp_ranks(name: str, ranks: list[dict], hist_1: list[dict], val_1: dict, want_val: int,
+                   want_eval: int) -> dict:
+    """Hold the split ranks to one process (losses within TP_RTOL, validation
+    MAE by horizon within DDP_MAE_RTOL), to each other (the same numbers on
+    every rank), and count their GAT launches; raise on any miss."""
+    pairs = [(g[k], w[k]) for r in ranks for g, w in zip(r["history"], hist_1) for k in ("train_loss", "val_loss")]
+    rel = max(abs(g - w) / abs(w) for g, w in pairs)
+    mae = max(float(np.max(np.abs(np.asarray(r["validate"]["mae_by_horizon"]) - val_1["mae_by_horizon"])
+                            / np.abs(val_1["mae_by_horizon"]))) for r in ranks)
+    gat = [r["launches"].get("gat_stencil", 0) for r in ranks]
+    gat_eval = [r["launches_eval"].get("gat_stencil", 0) for r in ranks]
+    log(
+        f"tp[{name}]: {len(ranks)} ranks dp 1 x mp {TP_RANKS} on {ranks[0]['backend']} "
+        f"({[r['device'] for r in ranks]}) in {max(r['wall_s'] for r in ranks):.1f} s; c_attn slices "
+        f"{[r['c_attn_shape'] for r in ranks]}; (train, val) losses "
+        f"{[(h['train_loss'], h['val_loss']) for h in ranks[0]['history']]} against one process "
+        f"{[(h['train_loss'], h['val_loss']) for h in hist_1]}: largest relative difference {rel:.3e} (tol "
+        f"{TP_RTOL}); validation MAE by horizon {mae:.3e} (tol {DDP_MAE_RTOL}); GAT launches by rank {gat} "
+        f"(want {want_val} each) and in evaluation {gat_eval} (want {want_eval} each); windows/s by epoch "
+        f"{[round(h['windows_per_sec'], 2) for h in ranks[0]['history']]} against one process "
+        f"{[round(h['windows_per_sec'], 2) for h in hist_1]}"
+    )
+    losses = [[(h["train_loss"], h["val_loss"]) for h in r["history"]] for r in ranks]
+    if any(got != losses[0] for got in losses) or any(r["validate"] != ranks[0]["validate"] for r in ranks):
+        raise RuntimeError(f"tp[{name}]: the ranks report different losses {losses}")
+    if not (rel <= TP_RTOL and mae <= DDP_MAE_RTOL):
+        raise RuntimeError(f"tp[{name}]: losses {rel:.3e} or MAE {mae:.3e} from one process")
+    if any(r["c_attn_shape"] != [768, 3 * 768 // TP_RANKS] for r in ranks):
+        raise RuntimeError(f"tp[{name}]: c_attn slices {[r['c_attn_shape'] for r in ranks]}")
+    if gat != [want_val] * len(ranks) or gat_eval != [want_eval] * len(ranks) or any(
+            set(r["launches"]) - {"gat_stencil"} for r in ranks):
+        raise RuntimeError(f"tp[{name}]: launches {[(r['launches'], r['launches_eval']) for r in ranks]}")
+    return {"max_rel_loss_diff": rel, "val_mae_by_horizon_max_rel_diff": mae, "gat_launches_by_rank": gat,
+            "eval_gat_launches_by_rank": gat_eval,
+            "windows_per_s_by_epoch": [h["windows_per_sec"] for h in ranks[0]["history"]],
+            "one_process_windows_per_s_by_epoch": [h["windows_per_sec"] for h in hist_1]}
+
+
+def tensor_parallel_phase(args, data_dir: str, ddp: dict) -> dict:
+    """Tensor parallelism at phase 6's width and cut (see the module docstring,
+    phase 13): (a) TP_RANKS gloo ranks on the one card, dp 1 x mp TP_RANKS,
+    against phase 12's one process at the same global batch, then the
+    evaluation library on the ranks against one process on the same
+    checkpoint; (b) that checkpoint resumed at mp 1 in this process; (c) the
+    bench under torchrun at NCCL world 1 beside the bare bench; (d) (a) over
+    NCCL when the host has TP_RANKS cards."""
+    import contextlib
+    import io
+    import signal
+
+    import torch
+
+    from tec_mollm_tpu_torch import bench, train
+    from tec_mollm_tpu_torch.data import SlidingWindowDataset
+    from tec_mollm_tpu_torch.evaluation import harness
+    from tec_mollm_tpu_torch.models import TECMoLLM
+
+    phase_t0 = time.perf_counter()
+    tp_dir = os.path.join(data_dir, "tp")
+    os.makedirs(tp_dir)
+    fp32 = ddp["b_config"]
+    hist_1, val_1 = ddp["b_one_process_history"], ddp["b_one_process_validate"]
+    work = os.path.join(data_dir, "work")
+    argv = ddp["b_argv"] + ["--checkpoint-every-steps", str(TRAINER_CKPT_EVERY)]
+    eval_batch = 16
+    test_windows = len(SlidingWindowDataset.from_dir(data_dir, "test", fp32.train.L_in, fp32.train.L_out, stride=1))
+    val_windows = len(SlidingWindowDataset.from_dir(data_dir, "val", fp32.train.L_in, fp32.train.L_out, stride=1))
+    # dp 1: every rank validates and evaluates every batch
+    want_val = TRAINER_EPOCHS * -(-val_windows // fp32.train.batch_size)
+    want_eval = -(-test_windows // eval_batch) + -(-val_windows // eval_batch)
+    walls = {}
+
+    # --- (a) TP_RANKS gloo ranks on the one card, dp 1 x mp TP_RANKS ---
+    ckpt = os.path.join(work, "checkpoints", "tp_a", "best_params.pt")
+    eval_spec = {"checkpoint": ckpt, "data_dir": data_dir, "batch_size": eval_batch,
+                 "output_dir": os.path.join(tp_dir, "a_results")}
+    job_a = tp_job(argv + ["--run-name", "tp_a"], os.path.join(tp_dir, "a"), "gloo", eval_spec)
+    t0 = time.perf_counter()
+    ranks = torchrun(job_a, TP_RANKS, os.path.join(tp_dir, "a.json"))
+    walls["a"] = time.perf_counter() - t0
+    a = check_tp_ranks("a", ranks, hist_1, val_1, want_val, want_eval)
+
+    # the ranks' best checkpoint: whole tensors, and one process scores it as the ranks did
+    t0 = time.perf_counter()
+    best = torch.load(ckpt, map_location="cpu", weights_only=True)
+    with torch.device("meta"):
+        want_shapes = {k: tuple(v.shape) for k, v in TECMoLLM(fp32.model, seed=None).state_dict().items()}
+    whole = {k: tuple(v.shape) for k, v in best.items()} == want_shapes
+    ev_1 = harness.run_evaluation(fp32, data_dir, ckpt, output_dir=os.path.join(tp_dir, "one_results"),
+                                  batch_size=eval_batch)["results"]
+    same = all(r["eval"] == ranks[0]["eval"] for r in ranks)
+    rel_ev, abs_ev = eval_gap(ranks[0]["eval"], ev_1)
+    rank_arrays = []
+    for r in range(TP_RANKS):
+        with np.load(os.path.join(job_a["out"], f"rank{r}.npz")) as d:
+            rank_arrays.append(dict(d))
+    preds_same = all(np.array_equal(x["preds"], rank_arrays[0]["preds"]) for x in rank_arrays)
+    walls["a_eval_one_process"] = time.perf_counter() - t0
+    log(
+        f"tp[a] eval: best_params.pt holds whole tensors {whole} ({len(best)} tensors, c_attn "
+        f"{tuple(best['llm_backbone.model.h.0.attn.c_attn.weight'].shape)}); run_evaluation ({test_windows} test "
+        f"windows, batch {eval_batch}) on the ranks: the same metrics and predictions on every rank "
+        f"{same and preds_same}; against one process on the checkpoint: MAE/RMSE relative {rel_ev:.3e}, R2/r "
+        f"absolute {abs_ev:.3e} (tol {DDP_EVAL_TOL})"
+    )
+    if not (whole and same and preds_same and rel_ev <= DDP_EVAL_TOL and abs_ev <= DDP_EVAL_TOL):
+        raise RuntimeError("tp[a] eval: the ranks disagree with each other or with one process")
+
+    # --- (b) the epoch-boundary checkpoint resumed at mp 1 here; the mid-epoch one refused ---
+    t0 = time.perf_counter()
+    targs = train.parse_args(argv + ["--run-name", "tp_a_epoch"])
+    one = train.build_trainer(targs, train.build_config(targs))
+    one.fit(resume=True)  # the saved epoch was the last: restores and trains nothing
+    bits = all(np.array_equal(v.float().cpu().numpy(), rank_arrays[0][f"param:{k}"])
+               for k, v in one.model.state_dict().items())
+    resumed = (one.epoch, one.state.step)
+    del one
+    targs = train.parse_args(argv + ["--run-name", "tp_a"])
+    refusal = None
+    try:
+        train.build_trainer(targs, train.build_config(targs)).fit(resume=True)
+    except RuntimeError as e:
+        refusal = str(e)
+    walls["b"] = time.perf_counter() - t0
+    log(
+        f"tp[b]: the ranks' epoch-boundary latest resumed at mp 1 in one process at epoch {resumed[0]}, step "
+        f"{resumed[1]}: every parameter bit-identical to the ranks' gathered ones {bits}; their mid-epoch latest "
+        f"({ranks[0]['mid_epoch']}) refused at mp 1: {refusal is not None and 'model_parallel' in refusal}"
+    )
+    if not bits or refusal is None or "model_parallel: saved 2 vs current 1" not in refusal:
+        raise RuntimeError(f"tp[b]: bit-identical {bits}, refusal {refusal}")
+
+    # --- (c) the bench under torchrun, NCCL at world 1, beside the bare bench ---
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        bench.main(["--steps", "10"])
+    bare = json.loads(text.getvalue().strip().splitlines()[-1])
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", "-m",
+           "tec_mollm_tpu_torch.bench", "--steps", "10"]
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=DDP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    if proc.returncode != 0:
+        raise RuntimeError(f"tp[c]: the bench under torchrun exited {proc.returncode}:\n{stderr[-4000:]}")
+    ddp_line = json.loads(stdout.strip().splitlines()[-1])
+    walls["c"] = time.perf_counter() - t0
+    log(
+        f"tp[c]: python -m tec_mollm_tpu_torch.bench --steps 10: bare {bare['value']} windows/s; under torchrun "
+        f"--nproc_per_node 1 (NCCL, DDP, world {ddp_line.get('world')}) {ddp_line['value']} windows/s a card, "
+        f"{ddp_line.get('total_windows_per_sec')} in all, {ddp_line.get('windows_per_step')} windows a step"
+    )
+    if ddp_line.get("world") != 1 or ddp_line.get("windows_per_step") != 8 or not ddp_line["value"] > 0:
+        raise RuntimeError(f"tp[c]: bench line {ddp_line}")
+
+    # --- (d) NCCL across TP_RANKS cards, where the host has them ---
+    d = None
+    if torch.cuda.device_count() >= TP_RANKS:
+        t0 = time.perf_counter()
+        job_d = tp_job(argv + ["--run-name", "tp_d"], os.path.join(tp_dir, "d"), "nccl",
+                       {**eval_spec, "checkpoint": os.path.join(work, "checkpoints", "tp_d", "best_params.pt"),
+                        "output_dir": os.path.join(tp_dir, "d_results")})
+        d = check_tp_ranks("d", torchrun(job_d, TP_RANKS, os.path.join(tp_dir, "d.json")), hist_1, val_1,
+                           want_val, want_eval)
+        walls["d"] = time.perf_counter() - t0
+    else:
+        log(f"tp[d]: not run: NCCL takes one process a card and this host has {torch.cuda.device_count()} "
+            f"card(s), fewer than the {TP_RANKS} ranks of the model group")
+
+    launches: dict[str, int] = {}
+    for counts in [r["launches"] for r in ranks] + [r["launches_eval"] for r in ranks]:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    phase_s = time.perf_counter() - phase_t0
+    log(f"tp: phase {phase_s:.1f} s (walls {({k: round(v, 1) for k, v in walls.items()})}; ranks' eval "
+        f"{[round(r['eval_wall_s'], 1) for r in ranks]}); launches over its ranks {launches}")
+    return {
+        "phase_s": phase_s, "walls_s": walls, "launches": launches, "a": a, "a_ranks": ranks,
+        "a_eval_one_process": ev_1, "a_eval_rel_diff": rel_ev, "a_eval_abs_diff_r": abs_ev,
+        "b_bit_identical": bits, "b_refusal": refusal, "c_bench_bare": bare, "c_bench_torchrun": ddp_line, "d": d,
     }
 
 
@@ -2508,7 +2760,7 @@ def main() -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=os.path.join("chiprun_out", "chip_smoke.json"))
     p.add_argument("--ddp-rank", default=None, metavar="JOB",
-                   help="run as one rank of phase 12 under torchrun (the script starts these itself)")
+                   help="run as one rank of phase 12 or 13 under torchrun (the script starts these itself)")
     args = p.parse_args()
 
     import torch
@@ -2569,22 +2821,25 @@ def main() -> int:
         results["eval"] = evaluation
         ddp = data_parallel_phase(args, data_dir, trainer)
         results["data_parallel"] = ddp
+        tp = tensor_parallel_phase(args, data_dir, ddp)
+        results["tensor_parallel"] = tp
     pretrain = pretrain_phase(args, graph)
     results["pretrain"] = pretrain
     runs = [p["launches"] for p in paths.values()] + [
         train["launches"], trainer["launches"], trainer["launches_1x22"], device_data["launches"], export["launches"],
-        evaluation["launches"], ddp["launches"], pretrain["launches"]]
+        evaluation["launches"], ddp["launches"], tp["launches"], pretrain["launches"]]
     for e in entries:
         # launches over the main-path runs (both serve cells, the train steps,
         # the trainer's run A, its 1 x 22 serve, the --device-data trainer, the
         # artifacts' services, the eval phase's CLI and service runs, the
-        # data-parallel ranks' runs and the pretrain steps), each counted from
-        # zero (a rank's in its own process)
+        # data- and tensor-parallel ranks' runs and the pretrain steps), each
+        # counted from zero (a rank's in its own process)
         e["launches"] = sum(r.get(e["name"], 0) for r in runs)
         e["launches_export"] = export["launches"].get(e["name"], 0)
         e["launches_device_data"] = device_data["launches"].get(e["name"], 0)
         e["launches_eval"] = evaluation["launches"].get(e["name"], 0)
         e["launches_ddp"] = ddp["launches"].get(e["name"], 0)
+        e["launches_tp"] = tp["launches"].get(e["name"], 0)
         e["launches_per_forward_fused"] = paths["fused"]["launches"].get(e["name"], 0) / paths["fused"]["forwards"]
         e["launches_per_train_step"] = train["launches_per_step"].get(e["name"], 0)
         e["launches_trainer_run"] = trainer["launches"].get(e["name"], 0)

@@ -17,6 +17,18 @@ fastest chunk is reported as ONE JSON line::
 
 ``--quick`` runs the tiny config for 3 steps; ``--cpu`` runs on the CPU, whose
 numbers are no device metric. Without ``--cpu`` and without CUDA it raises.
+
+Under ``torchrun`` (``WORLD_SIZE`` in the environment) the bench is data
+parallel over the local cards, as the JAX bench takes every local device
+without a flag: each rank joins the group (``init_distributed``: NCCL, gloo
+with ``--cpu``), trains its own microbatches through
+``DistributedDataParallel`` (mp = 1), so the macro batch is ``batch * accum
+* world``, and rank 0 prints the line with ``windows_per_step`` (the macro
+batch), ``value`` (windows/s per card) and ``total_windows_per_sec``::
+
+    torchrun --nproc_per_node 4 -m tec_mollm_tpu_torch.bench
+
+Without a process group it is the single-card bench above.
 """
 
 from __future__ import annotations
@@ -24,6 +36,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import time
 from typing import Callable
@@ -37,6 +50,7 @@ from tec_mollm_tpu_torch.data.synthetic import synthetic_processed_split
 from tec_mollm_tpu_torch.device import resolve_device
 from tec_mollm_tpu_torch.graph import build_graph, grid_coordinates
 from tec_mollm_tpu_torch.models import TECMoLLM, graph_inputs
+from tec_mollm_tpu_torch.parallel import mesh
 from tec_mollm_tpu_torch.training import (
     TrainState,
     create_train_state,
@@ -75,10 +89,12 @@ class BenchRun:
     state: TrainState
     batch: dict[str, torch.Tensor]
     step: Callable[[], dict[str, torch.Tensor]]  # one train step (or eval forward)
+    world: int = 1  # data-parallel ranks, each stepping its own batch
 
     @property
     def windows_per_step(self) -> int:
-        return int(self.batch["x"].shape[0])
+        """The macro batch: every rank's windows."""
+        return int(self.batch["x"].shape[0]) * self.world
 
     def sync(self) -> None:
         if self.device.type == "cuda":
@@ -94,7 +110,9 @@ def setup(
     seed: int = 0,
 ) -> BenchRun:
     """Model (seeded random weights), train state, one synthetic macro batch on
-    ``device`` and the step to time."""
+    ``device`` and the step to time. With a process group the train step runs
+    through DDP and each rank takes its strided share of a macro batch of
+    ``batch_size * accumulation_steps * world`` windows."""
     m = cfg.model
     graph = build_graph(*grid_coordinates(m.grid_h, m.grid_w), distance_threshold_km=cfg.data.distance_threshold_km)
     shifts, graph_pair = graph_inputs(graph, device)
@@ -102,10 +120,12 @@ def setup(
     model = TECMoLLM(m, shifts, dtype=dtype, fused_attn=fused_attn, use_fused_mlp=fused_mlp, seed=seed).to(device)
     state, _ = create_train_state(model, cfg, frozen_dtype=torch.bfloat16 if cfg.train.bf16 else None)
 
-    macro = cfg.train.batch_size * cfg.train.accumulation_steps
+    world, rank = mesh.world_size(), mesh.rank()
+    macro = cfg.train.batch_size * cfg.train.accumulation_steps * world
     split = synthetic_processed_split(macro + 1, cfg.train.L_in, cfg.train.L_out, m.num_nodes, seed=seed)
     ds = SlidingWindowDataset(split, cfg.train.L_in, cfg.train.L_out)
-    batch = {k: torch.from_numpy(v).to(device) for k, v in ds.gather_batch(np.arange(macro) % len(ds)).items()}
+    rows = (np.arange(macro) % len(ds))[rank::world]
+    batch = {k: torch.from_numpy(v).to(device) for k, v in ds.gather_batch(rows).items()}
 
     if eval_mode:
         eval_step = make_eval_step(model, cfg)
@@ -113,12 +133,17 @@ def setup(
         def step():
             return {"loss": eval_step(batch, graph_pair)[0]}
     else:
-        train_step = make_train_step(model, cfg)
+        trained = model
+        if mesh.is_initialized():
+            cuda = device.type == "cuda"
+            trained = torch.nn.parallel.DistributedDataParallel(
+                model, device_ids=[device] if cuda else None, output_device=device if cuda else None)
+        train_step = make_train_step(trained, cfg)
 
         def step():
             return train_step(state, batch, graph_pair)[1]
 
-    return BenchRun(device, state, batch, step)
+    return BenchRun(device, state, batch, step, world)
 
 
 def time_steps(run: BenchRun, steps: int, warmup: int) -> tuple[float, int]:
@@ -152,17 +177,33 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--fused-mlp", action="store_true", help="the fused LN->MLP kernel (eval forward)")
     args = p.parse_args(argv)
 
-    device = resolve_device("cpu" if args.cpu else None)
-    cfg = bench_config(args.preset, args.quick, args.batch_size, args.accum, not args.no_bf16, args.eval)
-    run = setup(cfg, device, args.fused_attn, args.fused_mlp, args.eval)
-    best, chunk = time_steps(run, 3 if args.quick else args.steps, args.warmup)
-    kind = "eval" if args.eval else "train"
-    print(json.dumps({
-        "metric": f"{kind}_windows_per_sec_per_chip",
-        "value": round(chunk * run.windows_per_step / best, 3),
-        "unit": "windows/s/chip",
-        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-    }))
+    # under torchrun: one rank a card, data parallel (the JAX bench's mp = 1)
+    owned = "WORLD_SIZE" in os.environ and not mesh.is_initialized()
+    if owned:
+        device = mesh.init_distributed(device="cpu" if args.cpu else None)
+    else:
+        device = mesh.local_device() or resolve_device("cpu" if args.cpu else None)
+    try:
+        cfg = bench_config(args.preset, args.quick, args.batch_size, args.accum, not args.no_bf16, args.eval)
+        run = setup(cfg, device, args.fused_attn, args.fused_mlp, args.eval)
+        best, chunk = time_steps(run, 3 if args.quick else args.steps, args.warmup)
+        best = mesh.max_over_ranks(best)  # the slowest rank's chunk
+        kind = "eval" if args.eval else "train"
+        total = chunk * run.windows_per_step / best
+        if mesh.rank() == 0:
+            line = {
+                "metric": f"{kind}_windows_per_sec_per_chip",
+                "value": round(total / run.world, 3),
+                "unit": "windows/s/chip",
+                "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+            }
+            if mesh.is_initialized():
+                line.update(world=run.world, windows_per_step=run.windows_per_step,
+                            total_windows_per_sec=round(total, 3))
+            print(json.dumps(line))
+    finally:
+        if owned:
+            mesh.destroy()
     return 0
 
 

@@ -21,7 +21,7 @@ each package reads the other's file. ``evaluate_adaptive_conformal`` is the
 rolling form on a chronological stream.
 
 Under data parallelism each rank histograms its own rows and the counts are
-summed over the ranks (float64, whole numbers, so the sum is exact) before
+summed over the data group (float64, whole numbers, so the sum is exact) before
 any offset is read from them: every rank fits the same offsets and evolves
 the same adaptive state.
 """
@@ -38,7 +38,7 @@ import torch
 from tec_mollm_tpu_torch.data.scaler import StandardScaler
 from tec_mollm_tpu_torch.evaluation.metrics import TEC_MAX, TEC_MIN
 from tec_mollm_tpu_torch.evaluation.streaming import StreamingQuantileMetrics, scaler_affine
-from tec_mollm_tpu_torch.parallel.mesh import all_reduce_sum
+from tec_mollm_tpu_torch.parallel.mesh import all_reduce_sum, data_group
 
 logger = logging.getLogger(__name__)
 
@@ -253,9 +253,9 @@ class ConformalCalibrator:
         self.hist += h.double()
 
     def all_reduce(self) -> "ConformalCalibrator":
-        """Sum the histograms over the data-parallel ranks, in place (a no-op
-        without a process group)."""
-        all_reduce_sum(self.hist)
+        """Sum the histograms over the data-parallel ranks (the data group),
+        in place (a no-op without a process group)."""
+        all_reduce_sum(self.hist, data_group())
         return self
 
     def finalize(self) -> ConformalOffsets:
@@ -365,12 +365,12 @@ def evaluate_adaptive_conformal(
         s = acc.update(trues, preds, valid, offsets_override=offs)
         if level_gain > 0.0:
             # this batch's realized below-rate of the adjusted forecasts
-            s_host = all_reduce_sum(s.double()).cpu().numpy()   # (L, 1 + 2Q)
+            s_host = all_reduce_sum(s.double(), data_group()).cpu().numpy()   # (L, 1 + 2Q)
             n_b = max(float(s_host[:, 0].max()), 1.0)
             below_rate = s_host[:, 1 + nq :].sum(axis=0) / (n_b * l_out)
             q_eff = np.clip(q_eff + level_gain * (np.asarray(quantiles) - below_rate), 0.005, 0.995)
         hist = batch_residual_hist(trues, preds, valid, scale, mean, nq).double()
-        pending.append(all_reduce_sum(hist).cpu().numpy())
+        pending.append(all_reduce_sum(hist, data_group()).cpu().numpy())
         if len(pending) > lag_batches:
             H = decay * H + pending.pop(0)
         n_batches += 1

@@ -31,7 +31,11 @@ conformal histograms and adaptive calibrator inputs are summed over the ranks
 (so every rank holds the metrics of the whole split), ``get_model_predictions``
 gathers the full tensor in window order on every rank, and only rank 0 writes
 files. ``run_prediction`` and the rollout compute their few windows whole on
-every rank.
+every rank. Under tensor parallelism (``cfg.train.model_parallel`` > 1, the
+process group made with that ``model_parallel``) the eval model is split over
+the model group as the trainer splits it (``build_eval_model``), the loaders
+shard over the data group and every sum and gather above runs over the data
+group: the ranks of a model group hold the same rows.
 
 Not ported yet, and refused: the SARIMA baseline (ROADMAP Queue A item 8).
 """
@@ -62,7 +66,16 @@ from tec_mollm_tpu_torch.graph.builder import GraphData
 from tec_mollm_tpu_torch.models.baselines import WindowMeanBaseline
 from tec_mollm_tpu_torch.models.ref_import import load_reference_checkpoint
 from tec_mollm_tpu_torch.models.tec_mollm import TECMoLLM, graph_inputs
-from tec_mollm_tpu_torch.parallel.mesh import gather_rows, rank, world_size
+from tec_mollm_tpu_torch.parallel.mesh import (
+    data_rank,
+    data_world,
+    gather_rows,
+    is_initialized,
+    model_rank,
+    model_world,
+    rank,
+)
+from tec_mollm_tpu_torch.parallel.tensor_parallel import shard_model_
 from tec_mollm_tpu_torch.training.checkpoint import find_latest_checkpoint
 from tec_mollm_tpu_torch.training.train_state import make_eval_step, point_forecast, put_batch
 
@@ -79,18 +92,29 @@ def build_eval_model(
 ) -> tuple[TECMoLLM, tuple, torch.device]:
     """(model in eval mode on the device, graph tensors, device): the compute
     dtype from ``cfg.train.bf16`` and no opt-in kernel, as the JAX
-    ``EvalExecutor`` builds its model. ``device=None`` is the GPU."""
+    ``EvalExecutor`` builds its model. ``device=None`` is the GPU. With a
+    process group the model is split over the model group by
+    ``cfg.train.model_parallel`` (JAX's ``param_shardings`` on the
+    executor's mesh); ``state_dict`` holds whole tensors."""
     device = resolve_device(device)
     shifts, graph_dev = graph_inputs(graph, device)
     model = TECMoLLM(cfg.model, shifts, dtype=torch.bfloat16 if cfg.train.bf16 else torch.float32, seed=None)
     model.load_state_dict(state_dict)
-    return model.to(device).eval(), graph_dev, device
+    model = model.to(device).eval()
+    if is_initialized():
+        mp = cfg.train.model_parallel
+        if mp != model_world():
+            raise ValueError(
+                f"model_parallel={mp} but the process group was made with model_parallel={model_world()}"
+            )
+        shard_model_(model, model_rank(), mp)
+    return model, graph_dev, device
 
 
 class EvalExecutor:
     """The eval model, its graph and the eval step on one device; batches of
     ``batch_size`` windows (the loader pads the last one, marked invalid), of
-    which each data-parallel rank loads ``batch_size // world``.
+    which each data-parallel rank loads ``batch_size // dp``.
 
     ``device_dataset`` (a ``DeviceResidentDataset``): its raw series go to the
     device once, the loader yields window starts and the eval step gathers
@@ -116,17 +140,17 @@ class EvalExecutor:
     def loader(self, dataset: SlidingWindowDataset | DeviceResidentDataset) -> BatchLoader:
         """The dataset in order, in batches of ``batch_size`` (the last padded,
         its padding marked invalid), gathered by a prefetch thread; window
-        starts alone with a device dataset. Each rank loads its strided shard
-        (``order[rank::world]``), so the ranks' rows of batch b are the windows
-        of one process's batch b."""
-        world = world_size()
+        starts alone with a device dataset. Each data rank loads its strided
+        shard (``order[rank::dp]``), so the data ranks' rows of batch b are the
+        windows of one process's batch b."""
+        world = data_world()
         if self.batch_size % world:
             raise ValueError(
                 f"eval batch size {self.batch_size} must be a multiple of the {world} data-parallel ranks "
                 "(each loads batch_size // world windows of every batch)"
             )
         return BatchLoader(dataset, batch_size=self.batch_size // world, drop_remainder=False, prefetch=2,
-                           index_only=self._data is not None, num_shards=world, shard_index=rank())
+                           index_only=self._data is not None, num_shards=world, shard_index=data_rank())
 
     def run(self, batch: dict[str, np.ndarray]):
         """(loss, preds, trues, valid), all on the device."""

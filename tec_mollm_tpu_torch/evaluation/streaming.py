@@ -29,7 +29,7 @@ import torch
 
 from tec_mollm_tpu_torch.data.scaler import StandardScaler
 from tec_mollm_tpu_torch.evaluation.metrics import TEC_MAX, TEC_MIN
-from tec_mollm_tpu_torch.parallel.mesh import all_reduce_sum
+from tec_mollm_tpu_torch.parallel.mesh import all_reduce_sum, data_group
 
 NUM_STATS = 8
 
@@ -102,9 +102,10 @@ class StreamingHorizonMetrics:
         self.stats += batch_metric_stats(y_true_scaled, y_pred_scaled, valid, self.scale, self.mean).double()
 
     def all_reduce(self) -> "StreamingHorizonMetrics":
-        """Sum the statistics over the data-parallel ranks, in place (a no-op
-        without a process group); every rank then finalizes the whole split."""
-        all_reduce_sum(self.stats)
+        """Sum the statistics over the data-parallel ranks (the data group: the
+        ranks of a model group hold the same rows), in place (a no-op without
+        a process group); every rank then finalizes the whole split."""
+        all_reduce_sum(self.stats, data_group())
         return self
 
     def finalize(self) -> dict[str, Any]:
@@ -234,9 +235,9 @@ class StreamingQuantileMetrics:
         return s
 
     def all_reduce(self) -> "StreamingQuantileMetrics":
-        """Sum the statistics over the data-parallel ranks, in place (a no-op
-        without a process group)."""
-        all_reduce_sum(self.stats)
+        """Sum the statistics over the data-parallel ranks (the data group),
+        in place (a no-op without a process group)."""
+        all_reduce_sum(self.stats, data_group())
         return self
 
     def finalize(self) -> dict[str, Any]:

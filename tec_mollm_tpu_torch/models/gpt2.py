@@ -18,6 +18,12 @@ Paths, as in the JAX package:
   through the einsum branch, and the port's pretrains through the kernel);
 * ``use_fused_mlp=True`` sends ln_2 -> MLP -> residual of an eval call to the
   fused kernel, whose LayerNorm is two-pass (as ``ops/fused_mlp.py`` is).
+
+Under tensor parallelism (``parallel/tensor_parallel.shard_model_``) an
+attention runs its rank's ``heads / mp`` heads through whichever path above
+(``c_attn`` column-parallel, ``c_proj`` row-parallel) and draws its
+probability-dropout masks per rank; the MLP's ``c_fc`` is column-parallel and
+its ``c_proj`` row-parallel.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from tec_mollm_tpu_torch.models.lora import LoRADense
 from tec_mollm_tpu_torch.ops.flash_attention import flash_attention
 from tec_mollm_tpu_torch.ops.fused_mlp import fused_ln_mlp
 from tec_mollm_tpu_torch.ops.short_attention import short_causal_attention
+from tec_mollm_tpu_torch.parallel.tensor_parallel import fold_model_rank, split_dropout
 
 # Sequences up to this length use the unrolled attention (or the kernel).
 UNROLL_MAX_SEQ = 8
@@ -53,11 +60,12 @@ def fp32_layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float
 
 
 def unrolled_causal_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, dropout: float = 0.0
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, dropout: float = 0.0, split: bool = False
 ) -> torch.Tensor:
     """Causal softmax attention over (M, T, D) with the (query, key) pairs
     unrolled: q*k in the compute dtype, scores and softmax in fp32, the
-    weighted sum in the compute dtype. ``dropout`` applies to the weights."""
+    weighted sum in the compute dtype. ``dropout`` applies to the weights
+    (per model rank when the heads are ``split``)."""
     m, t, d = q.shape
     hd = d // heads
     scale = 1.0 / math.sqrt(hd)
@@ -76,7 +84,7 @@ def unrolled_causal_attention(
             mx = torch.maximum(mx, s_val)
         exps = [torch.exp(s_val - mx) for s_val in scores]
         denom = sum(exps)
-        alphas = [F.dropout(e / denom, dropout, dropout > 0.0) for e in exps]
+        alphas = [split_dropout(e / denom, dropout, dropout > 0.0, split) for e in exps]
         out_t = alphas[0].to(v.dtype)[:, :, None] * vs[0]
         for s in range(1, tq + 1):
             out_t = out_t + alphas[s].to(v.dtype)[:, :, None] * vs[s]
@@ -84,7 +92,7 @@ def unrolled_causal_attention(
     return torch.stack(outs, dim=1)
 
 
-def _einsum_causal_attention(q, k, v, heads: int, dropout: float) -> torch.Tensor:
+def _einsum_causal_attention(q, k, v, heads: int, dropout: float, split: bool = False) -> torch.Tensor:
     """fp32 scores and softmax, probabilities cast back for the PV product."""
     b, t, d = q.shape
     hd = d // heads
@@ -92,19 +100,23 @@ def _einsum_causal_attention(q, k, v, heads: int, dropout: float) -> torch.Tenso
     scores = torch.einsum("bqhd,bkhd->bhqk", q4.float(), k4.float()) / math.sqrt(hd)
     causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
     scores = scores.masked_fill(~causal, torch.finfo(torch.float32).min)
-    probs = F.dropout(torch.softmax(scores, dim=-1).to(q.dtype), dropout, dropout > 0.0)
+    probs = split_dropout(torch.softmax(scores, dim=-1).to(q.dtype), dropout, dropout > 0.0, split)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v4).reshape(b, t, d)
 
 
-def _call_seed(p: float) -> int:
-    return int(torch.randint(0, 2**31 - 1, ())) if p > 0.0 else 0
+def _call_seed(p: float, split: bool = False) -> int:
+    if p == 0.0:
+        return 0
+    seed = int(torch.randint(0, 2**31 - 1, ()))
+    return fold_model_rank(seed) if split else seed
 
 
 class GPT2Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, fused_attn: bool = False, use_flash: bool = False):
         super().__init__()
         d = cfg.d_llm
-        self.heads = cfg.llm_heads
+        self.heads = cfg.llm_heads  # this rank's heads once split
+        self.split = False  # set by tensor_parallel.shard_model_
         self.dropout = cfg.llm_dropout
         self.fused_attn = fused_attn
         self.use_flash = use_flash
@@ -112,21 +124,24 @@ class GPT2Attention(nn.Module):
         self.c_proj = LoRADense(d, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, t, d = x.shape
-        q, k, v = self.c_attn(x).split(d, dim=-1)
+        b, t, _ = x.shape
+        q, k, v = self.c_attn(x).chunk(3, dim=-1)
+        d = q.shape[-1]  # the local heads' width
         p = self.dropout if self.training else 0.0
         # a kernel's dropout seed: fresh per call from the default generator, as
         # the JAX model draws one from its dropout rng; the train step seeds
         # that generator
         if self.fused_attn and t <= UNROLL_MAX_SEQ:
-            out = short_causal_attention(q, k, v, self.heads, dropout_rate=p, seed=_call_seed(p))
+            out = short_causal_attention(q, k, v, self.heads, dropout_rate=p, seed=_call_seed(p, self.split))
         elif self.use_flash and t > 1 and t > UNROLL_MAX_SEQ:
             q4, k4, v4 = (a.reshape(b, t, self.heads, d // self.heads) for a in (q, k, v))
-            out = flash_attention(q4, k4, v4, causal=True, dropout_rate=p, seed=_call_seed(p)).reshape(b, t, d)
+            out = flash_attention(
+                q4, k4, v4, causal=True, dropout_rate=p, seed=_call_seed(p, self.split)
+            ).reshape(b, t, d)
         elif t <= UNROLL_MAX_SEQ:
-            out = unrolled_causal_attention(q, k, v, self.heads, p)
+            out = unrolled_causal_attention(q, k, v, self.heads, p, self.split)
         else:
-            out = _einsum_causal_attention(q, k, v, self.heads, p)
+            out = _einsum_causal_attention(q, k, v, self.heads, p, self.split)
         return F.dropout(self.c_proj(out), self.dropout, self.training)
 
 

@@ -1,5 +1,11 @@
 """Prediction head: flatten the LLM tokens -> Linear -> exact GELU -> Dropout ->
-Linear to L_out * num_outputs (``prediction_head.mlp.{0,3}`` in the reference)."""
+Linear to L_out * num_outputs (``prediction_head.mlp.{0,3}`` in the reference).
+
+Under tensor parallelism (``split``, set by
+``parallel/tensor_parallel.shard_model_``) fc1 is column-parallel, the
+dropout draws a per-rank mask over the rank's hidden units, and fc2 is
+row-parallel: the partial products are summed over the model group and its
+bias added once after the sum."""
 
 from __future__ import annotations
 
@@ -9,6 +15,11 @@ from torch import nn
 
 from tec_mollm_tpu_torch.config import ModelConfig
 from tec_mollm_tpu_torch.models.temporal import lecun_normal_
+from tec_mollm_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model_group,
+    reduce_from_model_group,
+    split_dropout,
+)
 
 
 class PredictionHead(nn.Module):
@@ -21,6 +32,7 @@ class PredictionHead(nn.Module):
             nn.Dropout(cfg.head_dropout),
             nn.Linear(hidden, cfg.prediction_horizon * cfg.num_outputs),
         )
+        self.split = False
 
     def reset_parameters(self, g: torch.Generator) -> None:
         for lin in (self.mlp[0], self.mlp[3]):
@@ -32,5 +44,9 @@ class PredictionHead(nn.Module):
         x = x.reshape(x.shape[0], -1)
         fc1, drop, fc2 = self.mlp[0], self.mlp[2], self.mlp[3]
         dt = x.dtype
+        if self.split:
+            x = F.gelu(F.linear(copy_to_model_group(x), fc1.weight.to(dt), fc1.bias.to(dt)))
+            x = split_dropout(x, drop.p, self.training, True)
+            return reduce_from_model_group(F.linear(x, fc2.weight.to(dt))) + fc2.bias.to(dt)
         x = F.gelu(F.linear(x, fc1.weight.to(dt), fc1.bias.to(dt)))
         return F.linear(drop(x), fc2.weight.to(dt), fc2.bias.to(dt))

@@ -6,6 +6,13 @@
 and ``lora_B.weight`` (out, r) keep peft's, so a reference state_dict loads
 without transposes. lora_A starts kaiming-uniform (bound 1/sqrt(in)), lora_B at
 zero, so the adapter starts as the identity.
+
+``parallel`` is the layer's tensor-parallel form once
+``parallel/tensor_parallel.shard_model_`` has sliced it: ``"column"`` holds
+this rank's output columns (and ``lora_B`` rows) and takes its input through
+``copy_to_model_group``; ``"row"`` holds this rank's input rows, sums the
+partial products over the model group and adds the bias once, after the sum.
+``None`` is the whole layer.
 """
 
 from __future__ import annotations
@@ -15,6 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tec_mollm_tpu_torch.parallel.tensor_parallel import copy_to_model_group, reduce_from_model_group
 
 
 class LoRADense(nn.Module):
@@ -28,6 +37,7 @@ class LoRADense(nn.Module):
     ):
         super().__init__()
         self.rank = rank
+        self.parallel: str | None = None
         self.weight = nn.Parameter(torch.empty(in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
         if rank > 0:
@@ -46,6 +56,12 @@ class LoRADense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
+        if self.parallel == "row":
+            if self.rank > 0:
+                raise ValueError("a row-parallel layer takes no LoRA adapter")
+            return reduce_from_model_group(x @ self.weight.to(dt)) + self.bias.to(dt)
+        if self.parallel == "column":
+            x = copy_to_model_group(x)
         y = x @ self.weight.to(dt) + self.bias.to(dt)
         if self.rank > 0:
             h = F.dropout(x, self.lora_dropout, self.training)

@@ -7,6 +7,7 @@ with ``--multihost`` under ``torchrun``, one process a GPU:
     python -m tec_mollm_tpu_torch.train --config run_config.json --resume
     python -m tec_mollm_tpu_torch.train --cpu --config tiny.json --data-dir proc --epochs 2
     torchrun --nproc_per_node 8 -m tec_mollm_tpu_torch.train --multihost --data-dir data/processed
+    torchrun --nproc_per_node 8 -m tec_mollm_tpu_torch.train --multihost --model-parallel 2 --data-dir data/processed
 
 It runs on the GPU and raises without one; ``--cpu`` asks for the CPU. The
 data directory holds ``{train,val}_set.npz``, ``graph.npz`` (with or without
@@ -22,12 +23,18 @@ card and gathers each microbatch's windows there (``data/device_data.py``).
 ``--multihost`` joins the process group that ``torchrun`` describes in the
 environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 ``MASTER_PORT``): NCCL with rank r on card ``LOCAL_RANK``, or gloo with
-``--cpu``. The effective batch is ``batch_size * accumulation_steps * world``;
-rank 0 writes ``config.json``, the checkpoints and the history, and the
+``--cpu``. ``--model-parallel N`` lays the world out as JAX's (data, model)
+mesh: N consecutive ranks form a model group that splits the GPT-2 backbone
+and the head Megatron-style (``parallel/tensor_parallel.py``), and
+``world / N`` data-parallel replicas train over the data groups. One process
+is one card, so without ``--multihost`` a value above 1 raises JAX's
+divisibility message. The effective batch is ``batch_size *
+accumulation_steps * world / model_parallel``; rank 0 writes
+``config.json``, the checkpoints (whole tensors) and the history, and the
 other ranks log warnings only.
 
-Refused, with the ROADMAP item that brings them: ``--model-parallel`` above 1
-(tensor parallelism) and remat policies other than full recomputation.
+Refused, with the ROADMAP item that brings them: remat policies other than
+full recomputation.
 """
 
 from __future__ import annotations
@@ -76,8 +83,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="probabilistic head with pinball loss, e.g. --quantiles 0.1 0.5 0.9 "
                         "(must include 0.5)")
     p.add_argument("--model-parallel", type=int, default=None,
-                   help="default 1, the only value ported: tensor parallelism is not ported, data parallelism "
-                        "is (--multihost)")
+                   help="tensor-parallel degree (default 1): consecutive ranks of a --multihost world split the "
+                        "GPT-2 backbone and head; the world must be a multiple of it")
     p.add_argument("--no-bf16", action="store_true")
     p.add_argument("--remat", action="store_true",
                    help="recompute each GPT-2 block in the backward (torch.utils.checkpoint)")
@@ -87,8 +94,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="device-resident archive: keep the splits' raw series (*_raw.npz) on the card and "
                         "gather windows there; the host ships only window-start indices")
     p.add_argument("--multihost", action="store_true",
-                   help="data parallelism, one process a card: join the process group torchrun describes in "
-                        "RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT (NCCL; gloo with --cpu)")
+                   help="one process a card (data parallelism, and tensor parallelism with --model-parallel): "
+                        "join the process group torchrun describes in RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR "
+                        "and MASTER_PORT (NCCL; gloo with --cpu)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of one epoch (on a snapshot of the state) here")
     p.add_argument("--resume", action="store_true")
@@ -160,12 +168,18 @@ def build_trainer(args: argparse.Namespace, cfg):
     from tec_mollm_tpu_torch.data.scaler import StandardScaler
     from tec_mollm_tpu_torch.device import resolve_device
     from tec_mollm_tpu_torch.graph.builder import GraphData
+    from tec_mollm_tpu_torch import parallel
     from tec_mollm_tpu_torch.parallel import local_device, rank
     from tec_mollm_tpu_torch.training.trainer import Trainer, unsupported
 
     reason = unsupported(cfg)
     if reason is not None:
         raise SystemExit(f"train: {reason}")
+    if not parallel.is_initialized():
+        try:  # one process is one card
+            parallel.check_model_parallel(1, cfg.train.model_parallel)
+        except ValueError as e:
+            raise SystemExit(f"train: {e} (tensor parallelism takes --multihost, one process a card)") from None
     # no card and no --cpu: raises; under --multihost the rank's own device
     device = local_device() or resolve_device("cpu" if args.cpu else None)
     data_dir = args.data_dir
@@ -191,8 +205,8 @@ def build_trainer(args: argparse.Namespace, cfg):
         workdir=args.workdir, run_name=args.run_name, device=device,
     )
     logger.info(
-        "device %s | world %d | effective batch %d | GAT route: %s",
-        trainer.device, trainer.world, trainer.macro_batch, trainer.model.gat_route,
+        "device %s | world %d = data %d x model %d | effective batch %d | GAT route: %s",
+        trainer.device, trainer.world, trainer.dp, trainer.mp, trainer.macro_batch, trainer.model.gat_route,
     )
     # written before training, by rank 0, so an interrupted run still leaves
     # the config that rebuilds its model; on --resume only after the restore
@@ -203,9 +217,14 @@ def build_trainer(args: argparse.Namespace, cfg):
             f.write(cfg.to_json())
 
     if args.gpt2_checkpoint:
+        from tec_mollm_tpu_torch.models import TECMoLLM
         from tec_mollm_tpu_torch.models.hf_import import gpt2_state_dict, load_torch_checkpoint
 
-        trainer.set_params(gpt2_state_dict(trainer.model, load_torch_checkpoint(args.gpt2_checkpoint)))
+        whole = trainer.model
+        if trainer.mp > 1:  # the import reads the whole model's names and shapes
+            whole = TECMoLLM(cfg.model, trainer.model.stencil_shifts, seed=None)
+            whole.load_state_dict(trainer.full_state_dict())
+        trainer.set_params(gpt2_state_dict(whole, load_torch_checkpoint(args.gpt2_checkpoint)))
         logger.info("imported GPT-2 weights from %s", args.gpt2_checkpoint)
     return trainer
 
@@ -243,13 +262,13 @@ def main(argv: list[str] | None = None) -> list[dict]:
     from tec_mollm_tpu_torch.utils.logging import setup_logging
 
     args = parse_args(argv)
+    cfg = build_config(args)
     # a caller that made the group itself (another backend) keeps it
     owned = args.multihost and not parallel.is_initialized()
     if args.multihost:
-        parallel.init_distributed(device="cpu" if args.cpu else None)
+        parallel.init_distributed(device="cpu" if args.cpu else None, model_parallel=cfg.train.model_parallel)
     try:
         setup_logging(process_index=parallel.rank())
-        cfg = build_config(args)
         return run(build_trainer(args, cfg), args, cfg)
     finally:
         if owned:

@@ -22,6 +22,13 @@ Under data parallelism every rank holds the same state: rank 0 alone writes,
 and every rank waits at a barrier before and after the write (the JAX
 package's collective save), so no rank reads or overwrites a file another is
 still writing. Every rank restores from the same file.
+
+Under tensor parallelism the files stay layout-free: before rank 0 writes,
+the ranks of its model group gather the whole parameters, EMA and AdamW
+moments (``layout_free``); on restore each rank slices its own part
+(``to_layout``). A ``latest.pt`` written at one ``model_parallel`` resumes at
+any other at an epoch boundary (the trainer refuses another layout
+mid-epoch), and a ``best_params.pt`` serves on one card.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ from typing import Any, Mapping
 
 import torch
 
-from tec_mollm_tpu_torch.parallel.mesh import barrier, rank
+from tec_mollm_tpu_torch.parallel.mesh import barrier, data_rank, model_rank, rank
+from tec_mollm_tpu_torch.parallel.tensor_parallel import gather_full_state_dict, shard_state_dict
 from tec_mollm_tpu_torch.training.train_state import TrainState
 
 
@@ -51,6 +59,47 @@ def capture_state(state: TrainState) -> dict[str, Any]:
         "optimizer": state.optimizer.state_dict(),
         "ema": state.ema,
     }
+
+
+def _map_tensors(blob: Mapping[str, Any], names: list[str], fn) -> dict[str, Any]:
+    """``blob`` (a ``capture_state`` dict) with ``fn`` applied to each of its
+    dicts of tensors keyed by parameter name: the parameters, the EMA and
+    each per-parameter tensor of the optimizer's state (``names`` gives the
+    trainable parameter of each optimizer index)."""
+    out = dict(blob)
+    for part in ("trainable", "frozen", "ema"):
+        if blob[part] is not None:
+            out[part] = fn(blob[part])
+    opt = blob["optimizer"]
+    per_param = {i: dict(s) for i, s in opt["state"].items()}
+    moments = sorted({k for s in per_param.values() for k, v in s.items() if torch.is_tensor(v) and v.dim() > 0})
+    for k in moments:
+        mapped = fn({names[i]: s[k] for i, s in per_param.items() if k in s})
+        for i, s in per_param.items():
+            if k in s:
+                s[k] = mapped[names[i]]
+    out["optimizer"] = {**opt, "state": per_param}
+    return out
+
+
+def layout_free(state: TrainState, blob: Mapping[str, Any]) -> dict[str, Any]:
+    """``capture_state(state)`` with whole tensors: gathered over the model
+    group when the model is split (every rank of the group calls it)."""
+    model = state.model
+    mp = getattr(model, "model_parallel", 1)
+    if mp == 1:
+        return dict(blob)
+    return _map_tensors(blob, list(state.trainable()), lambda t: gather_full_state_dict(t, model.cfg, mp))
+
+
+def to_layout(state: TrainState, saved: Mapping[str, Any]) -> dict[str, Any]:
+    """A layout-free state dict sliced to this rank's part of ``state``'s
+    split model (itself when the model is whole)."""
+    model = state.model
+    mp = getattr(model, "model_parallel", 1)
+    if mp == 1:
+        return dict(saved)
+    return _map_tensors(saved, list(state.trainable()), lambda t: shard_state_dict(t, model_rank(), mp, model.cfg))
 
 
 def load_state(state: TrainState, saved: Mapping[str, Any]) -> TrainState:
@@ -97,8 +146,9 @@ class CheckpointManager:
         and ``<name>.meta.json``. Every rank calls it; rank 0 writes."""
         path = self.path(name)
         barrier("ckpt_pre_save")
+        # the ranks of rank 0's model group gather the whole tensors
+        blob = layout_free(state, capture_state(state)) if data_rank() == 0 else None
         if rank() == 0:
-            blob = capture_state(state)
             blob.update(epoch=meta["epoch"], step_in_epoch=meta["step_in_epoch"])
             meta_tmp = os.path.join(self.dir, name + ".meta.json.tmp")
             with open(meta_tmp, "w") as f:
@@ -110,19 +160,21 @@ class CheckpointManager:
         return path
 
     def restore_state(self, state: TrainState, name: str = "latest") -> tuple[TrainState, dict[str, Any]]:
-        """Load ``<name>.pt`` into ``state`` in place; returns (state, meta)."""
+        """Load ``<name>.pt`` into ``state`` in place (this rank's slices of a
+        split model); returns (state, meta)."""
         saved = torch.load(self.path(name), map_location="cpu", weights_only=True)
         with open(os.path.join(self.dir, name + ".meta.json")) as f:
             meta = json.load(f)
         meta.update(epoch=saved["epoch"], step_in_epoch=saved["step_in_epoch"])
-        return load_state(state, saved), meta
+        return load_state(state, to_layout(state, saved)), meta
 
     def has_checkpoint(self, name: str = "latest") -> bool:
         return os.path.exists(self.path(name)) and os.path.exists(os.path.join(self.dir, name + ".meta.json"))
 
     def save_params(self, state_dict: Mapping[str, torch.Tensor], name: str = "best") -> str:
-        """``<name>_params.pt``: a model state_dict, saved as it is given.
-        Every rank calls it; rank 0 writes."""
+        """``<name>_params.pt``: a model state_dict, saved as it is given
+        (whole tensors: ``gather_full_state_dict`` of a split model). Every
+        rank calls it; rank 0 writes."""
         path = self.path(name + "_params")
         barrier("params_pre_save")
         if rank() == 0:

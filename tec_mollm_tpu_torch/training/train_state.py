@@ -14,7 +14,16 @@ the default generators seeded from (state seed, step, microbatch, and the
 data-parallel rank when it is not 0), as the JAX step folds the step count
 into ``state.rng``. Every dropout site, and the seed
 the attention kernel draws per call, comes from those generators, so a step
-re-run from the same state and batch gives the same loss.
+re-run from the same state and batch gives the same loss. The ranks of one
+model group share a data rank, so they draw the same masks over their
+replicated activations; the sites inside a split region fold the model rank
+in (``parallel/tensor_parallel.split_dropout``).
+
+Tensor parallelism (a model split by ``parallel/tensor_parallel.shard_model_``):
+the loss and count are reduced over the data group, DDP runs over the data
+group, the partial gradients of ``c_attn``'s replicated ``lora_A`` are summed
+over the model group once a macro step, and the clip's norm counts each split
+tensor's slices from every rank of the model group.
 """
 
 from __future__ import annotations
@@ -28,8 +37,14 @@ import torch
 from torch.nn.parallel import DistributedDataParallel
 
 from tec_mollm_tpu_torch.config import Config
-from tec_mollm_tpu_torch.parallel.mesh import all_reduce_sum, world_size
-from tec_mollm_tpu_torch.parallel.mesh import rank as get_rank
+from tec_mollm_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    data_group,
+    data_rank,
+    data_world,
+    model_group,
+)
+from tec_mollm_tpu_torch.parallel.tensor_parallel import partial_grad_names, split_names
 from tec_mollm_tpu_torch.training.loss import (
     huber_elementwise,
     huber_loss,
@@ -106,8 +121,9 @@ def create_train_state(
 
 def dropout_seed(seed: int, step: int, micro: int, rank: int = 0) -> int:
     """The default generators' seed for one microbatch of one step on one
-    data-parallel rank: each rank draws its own masks over its own rows, and
-    rank 0 draws those of a single-process run."""
+    data-parallel rank (``rank`` is the data rank): each data rank draws its
+    own masks over its own rows, and data rank 0 draws those of a
+    single-process run."""
     entropy = [seed, step, micro] + ([rank] if rank else [])
     return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
 
@@ -179,17 +195,20 @@ def make_train_step(model: torch.nn.Module, cfg: Config) -> Callable:
     so no more than one microbatch of windows is ever materialized.
 
     ``model`` may be the ``DistributedDataParallel`` wrapper of the state's
-    model: ``batch`` is then this rank's share of the macro batch. Every
+    model: ``batch`` is then this data rank's share of the macro batch. Every
     microbatch but the last runs under ``no_sync``, so the gradients are
-    all-reduced once a step, and DDP averages them over the ranks. One
-    all-reduce of (loss sum, weight count) gives the global count, and the
-    averaged gradient is divided by ``count / world``: the step takes the
-    gradient of the global valid-weighted mean, however the rows are split
-    over ranks and microbatches, and every rank applies the same update."""
+    all-reduced once a step, and DDP averages them over the data group. One
+    all-reduce of (loss sum, weight count) over the data group gives the
+    global count, and the averaged gradient is divided by ``count / dp``: the
+    step takes the gradient of the global valid-weighted mean, however the
+    rows are split over ranks and microbatches, and every rank applies the
+    same update."""
     accum = cfg.train.accumulation_steps
     loss_fn = make_sum_loss_fn(model, cfg)
     ddp = isinstance(model, DistributedDataParallel)
-    world, rank = (world_size(), get_rank()) if ddp else (1, 0)
+    world, rank = (data_world(), data_rank()) if ddp else (1, 0)
+    module = model.module if ddp else model
+    split, partial = split_names(module), partial_grad_names(module)
     schedule = cosine_annealing_warm_restarts(
         cfg.train.lr, cfg.train.sched_t0, cfg.train.sched_t_mult, cfg.train.sched_eta_min
     )
@@ -201,7 +220,8 @@ def make_train_step(model: torch.nn.Module, cfg: Config) -> Callable:
         data=None,
     ):
         model.train()
-        params = list(state.trainable().values())
+        trainable = state.trainable()
+        params = list(trainable.values())
         for p in params:
             p.grad = None
         device = graph[0].device
@@ -222,23 +242,27 @@ def make_train_step(model: torch.nn.Module, cfg: Config) -> Callable:
             loss_sum += wsum.detach()
             count_sum += count
         if ddp:
-            totals = all_reduce_sum(torch.stack([loss_sum, count_sum]))
+            totals = all_reduce_sum(torch.stack([loss_sum, count_sum]), data_group())
             loss_sum, count_sum = totals[0], totals[1]
         denom = torch.clamp_min(count_sum, 1.0)
         grad_denom = denom / world if world > 1 else denom
         grads = []
-        for p in params:
+        for name, p in trainable.items():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+            if name in partial:
+                all_reduce_sum(p.grad, model_group())
             grads.append(p.grad.div_(grad_denom))
-        grad_norm = clip_by_global_norm_(grads, cfg.train.clip_grad_norm)
+        grad_norm = clip_by_global_norm_(
+            grads, cfg.train.clip_grad_norm, [n in split for n in trainable] if split else None
+        )
         for group in state.optimizer.param_groups:
             group["lr"] = schedule(state.step)
         state.optimizer.step()
         if state.ema is not None:
             d = cfg.train.ema_decay
             with torch.no_grad():
-                for name, p in state.trainable().items():
+                for name, p in trainable.items():
                     state.ema[name].mul_(d).add_(p, alpha=1.0 - d)
         state.step += 1
         return state, {"loss": loss_sum / denom, "grad_norm": grad_norm}

@@ -41,8 +41,19 @@ stops a multi-process run at the next epoch boundary, once every rank agrees
 device-resident archive keeps every split whole on every rank; only the
 window starts are sharded.
 
-Not ported here (refused by ``unsupported``): tensor parallelism and the remat
-policies other than full recomputation.
+Tensor parallelism (``TrainConfig.model_parallel`` = mp > 1, the train CLI's
+``--model-parallel`` with ``--multihost``): the process group is laid out as
+JAX's (data, model) mesh (``init_distributed(model_parallel=mp)``), every rank
+builds the same seeded model and keeps its slices of the GPT-2 backbone and
+head (``parallel/tensor_parallel.shard_model_``), the loaders shard over the
+data group (the ranks of a model group load the same rows), the macro batch
+is ``accumulation_steps * batch_size * dp``, DDP and every reduction of the
+losses and metrics run over the data group, and the checkpoints hold whole
+tensors (gathered over the model group before rank 0 writes), so they resume
+on any layout at an epoch boundary and serve on one card.
+
+Not ported here (refused by ``unsupported``): the remat policies other than
+full recomputation.
 """
 
 from __future__ import annotations
@@ -70,9 +81,20 @@ from tec_mollm_tpu_torch.parallel.mesh import (
     all_reduce_sum,
     any_flag,
     broadcast_object,
+    check_model_parallel,
+    data_group,
+    data_rank,
+    data_world,
     is_initialized,
+    model_rank,
+    model_world,
     rank,
     world_size,
+)
+from tec_mollm_tpu_torch.parallel.tensor_parallel import (
+    gather_full_state_dict,
+    shard_model_,
+    shard_state_dict,
 )
 from tec_mollm_tpu_torch.training.checkpoint import CheckpointManager
 from tec_mollm_tpu_torch.training.train_state import (
@@ -92,11 +114,6 @@ def unsupported(cfg: Config) -> str | None:
     """Why the port cannot train ``cfg`` yet, naming the ROADMAP item that
     brings it, or None."""
     t = cfg.train
-    if t.model_parallel > 1:
-        return (
-            f"model_parallel={t.model_parallel}: tensor parallelism is not ported yet (the port "
-            "runs data parallelism only; ROADMAP Queue A item 10, tensor parallelism)"
-        )
     if t.remat_policy not in (None, "full"):
         return (
             f"remat_policy={t.remat_policy!r}: the port recomputes whole GPT-2 blocks only "
@@ -121,6 +138,15 @@ class Trainer:
         reason = unsupported(cfg)
         if reason is not None:
             raise ValueError(reason)
+        # one process a card: the process group's layout must be the config's
+        mp = cfg.train.model_parallel
+        if not is_initialized():
+            check_model_parallel(1, mp)
+        elif mp != model_world():
+            raise ValueError(
+                f"model_parallel={mp} but the process group was made with model_parallel={model_world()} "
+                "(init_distributed(model_parallel=...))"
+            )
         self.cfg = cfg
         self.device = resolve_device(device)
         # rank 0's name: the ranks may read the clock in different minutes
@@ -134,6 +160,8 @@ class Trainer:
             cfg.model, stencil_shifts, dtype=torch.bfloat16 if cfg.train.bf16 else torch.float32,
             remat_llm=cfg.train.remat_llm, seed=cfg.train.seed,
         ).to(self.device)
+        # every rank built the same seeded model; each keeps its slices
+        shard_model_(self.model, model_rank(), mp)
         self.target_scaler = target_scaler
         self.ckpt = CheckpointManager(workdir, self.run_name)
 
@@ -143,19 +171,21 @@ class Trainer:
         if val_ds is not None and isinstance(val_ds, DeviceResidentDataset) != self.device_mode:
             raise TypeError("the train and validation splits must both be device-resident, or neither")
         self.world, self.rank = world_size(), rank()
-        self.macro_batch = cfg.train.accumulation_steps * cfg.train.batch_size * self.world
-        # each rank loads its strided shard (order[rank::world]), so the union
-        # of the ranks' batch b is the single-process macro batch b; the final
-        # short macro batch is padded with loss-masked repeats, not dropped:
-        # every train window contributes a gradient each epoch
-        shard = dict(num_shards=self.world, shard_index=self.rank)
+        self.dp, self.mp = data_world(), mp
+        self.macro_batch = cfg.train.accumulation_steps * cfg.train.batch_size * self.dp
+        # each data rank loads its strided shard (order[rank::dp]), so the
+        # union of the data ranks' batch b is the single-process macro batch b
+        # (the ranks of a model group load the same rows); the final short
+        # macro batch is padded with loss-masked repeats, not dropped: every
+        # train window contributes a gradient each epoch
+        shard = dict(num_shards=self.dp, shard_index=data_rank())
         self.train_loader = BatchLoader(
-            train_ds, batch_size=self.macro_batch // self.world, shuffle=cfg.train.shuffle, seed=cfg.train.seed,
+            train_ds, batch_size=self.macro_batch // self.dp, shuffle=cfg.train.shuffle, seed=cfg.train.seed,
             drop_remainder=False, index_only=self.device_mode, **shard,
         )
-        val_global_batch = max(cfg.train.batch_size * self.world, self.world)
+        val_global_batch = max(cfg.train.batch_size * self.dp, self.dp)
         self.val_loader = (
-            BatchLoader(val_ds, batch_size=val_global_batch // self.world, shuffle=False, drop_remainder=False,
+            BatchLoader(val_ds, batch_size=val_global_batch // self.dp, shuffle=False, drop_remainder=False,
                         index_only=self.device_mode, **shard)
             if val_ds is not None else None
         )
@@ -183,6 +213,7 @@ class Trainer:
             cuda = self.device.type == "cuda"
             trained = DistributedDataParallel(
                 self.model, device_ids=[self.device] if cuda else None, output_device=self.device if cuda else None,
+                process_group=data_group(),
             )
         self._train_step = make_train_step(trained, cfg)
         self._eval_step = make_eval_step(self.model, cfg)
@@ -199,9 +230,14 @@ class Trainer:
     def set_params(self, state_dict: dict[str, torch.Tensor]) -> None:
         """Replace the model's parameters from a full state_dict (imported
         GPT-2 weights, another run's best), keeping each tensor's device,
-        dtype and trainable/frozen split."""
+        dtype and trainable/frozen split; a split model takes its slices."""
         with torch.no_grad():
-            self.model.load_state_dict(state_dict)
+            self.model.load_state_dict(shard_state_dict(state_dict, model_rank(), self.mp, self.cfg.model))
+
+    def full_state_dict(self) -> dict[str, torch.Tensor]:
+        """The model's whole tensors on every rank (gathered over the model
+        group when split; collective)."""
+        return gather_full_state_dict(self.model)
 
     def _put(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         return put_batch(batch, self.device, self.cfg.train.bf16)
@@ -277,7 +313,7 @@ class Trainer:
         if loss_terms:
             stacked = torch.stack(loss_terms).double()
             totals = torch.stack([(stacked[:, 0] * stacked[:, 1]).sum(), stacked[:, 1].sum()])
-        total, count = all_reduce_sum(totals).tolist()
+        total, count = all_reduce_sum(totals, data_group()).tolist()
         return total / max(count, 1.0), acc.all_reduce().finalize()
 
     def _check_finite(self, loss: float, steps: int) -> None:
@@ -311,13 +347,14 @@ class Trainer:
     def _check_resume_geometry(self, meta: dict[str, Any]) -> None:
         """Refuse a mid-epoch resume under another batch geometry: the step in
         the epoch counts macro steps of one (batch_size, accumulation_steps,
-        train_stride, seed, process_count), and skipping that many batches of
-        another would skip or repeat windows without any other error."""
+        train_stride, seed, process_count, model_parallel: the config's, which
+        is the layout's), and skipping that many batches of another would skip
+        or repeat windows without any other error."""
         saved = meta.get("config", {}).get("train", {})
         cur = json.loads(self.cfg.to_json())["train"]
         diffs = {
             k: (saved[k], cur[k])
-            for k in ("batch_size", "accumulation_steps", "train_stride", "seed")
+            for k in ("batch_size", "accumulation_steps", "train_stride", "seed", "model_parallel")
             if k in saved and saved[k] != cur[k]
         }
         saved_pc = meta.get("process_count")
@@ -410,7 +447,7 @@ class Trainer:
                     self.patience_counter = 0
                     # the weights validate just scored: the EMA ones when tracked
                     with self.state.eval_params() as model:
-                        self.ckpt.save_params(model.state_dict(), "best")
+                        self.ckpt.save_params(gather_full_state_dict(model), "best")
                     logger.info("new best model (val %.6f)", val_loss)
                 else:
                     self.patience_counter += 1

@@ -286,6 +286,14 @@ class TestCLI:
             meta = json.loads((tmp_path / "b" / "checkpoints" / "r" / "latest.meta.json").read_text())
             assert meta["process_count"] == 1
             return
+        if flags == ["--model-parallel", "2"]:
+            # ported: one process is one card, so without --multihost the CLI
+            # refuses with JAX's divisibility message (tests/test_torch_tp.py
+            # trains it on gloo ranks under torchrun's environment)
+            with pytest.raises(SystemExit) as e:
+                train_cli.main(self._argv(proc, str(tmp_path), "--cpu", *flags))
+            assert "1 devices not divisible by model_parallel=2" in str(e.value) and match in str(e.value)
+            return
         if flags == ["--device-data"]:
             # ported: the CLI trains on the device-resident archive of a dir the
             # port's preprocess CLI wrote (tests/test_torch_device_data.py holds

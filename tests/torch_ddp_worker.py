@@ -1,5 +1,6 @@
-"""One rank of the port's data-parallel tests (tests/test_torch_ddp.py and
-tests/test_torch_ddp_jax.py), on the CPU over gloo.
+"""One rank of the port's data- and tensor-parallel tests
+(tests/test_torch_ddp.py, tests/test_torch_ddp_jax.py, tests/test_torch_tp.py
+and tests/test_torch_tp_jax.py), on the CPU over gloo.
 
     python tests/torch_ddp_worker.py JOB.json RANK WORLD PORT
 
@@ -13,7 +14,16 @@ It imports torch and the port only: nothing of JAX. Jobs (``JOB.json``):
   ``stop_rank`` / ``stop_epoch``: that rank alone sends itself SIGTERM once
   its trainer reaches that epoch. ``epoch_only``: one ``train_epoch`` (its
   periodic checkpoints, no validation) in place of ``fit``.
+  ``model_parallel``: the group's and the config's tensor-parallel degree;
+  ``record_params``: also write the model's whole tensors after the fit
+  (``param:<name>`` arrays) and each rank's ``c_attn`` shape.
 * ``cli``: ``python -m tec_mollm_tpu_torch.train --multihost`` with ``argv``.
+* ``stages``: several of the above in one spawn, each in a process group of
+  its own (``world``, ``port``, ``model_parallel``; the ranks past a stage's
+  world sit it out), plus ``grad`` (two train steps of a fresh ``Trainer``:
+  the second's loss, clip norm and whole clipped gradients) and ``bench``
+  (``python -m tec_mollm_tpu_torch.bench`` with ``argv``, its printed line).
+  A stage's records go under its ``name``.
 
 Every job records the files the rank opened for writing, or renamed into
 place, under its workdir (an audit hook), so a test can hold the writes to
@@ -68,6 +78,8 @@ def _fit(job: dict, rank: int, out: dict, arrays: dict) -> None:
         cfg = Config.from_json(f.read())
     if "epochs" in job:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, epochs=job["epochs"]))
+    if "model_parallel" in job:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, model_parallel=job["model_parallel"]))
     data, t = job["data"], cfg.train
     train = SlidingWindowDataset.from_dir(data, "train", t.L_in, t.L_out, stride=t.train_stride)
     val = SlidingWindowDataset.from_dir(data, "val", t.L_in, t.L_out, stride=1)
@@ -90,6 +102,10 @@ def _fit(job: dict, rank: int, out: dict, arrays: dict) -> None:
     out["updates"] = trainer.state.step
     val_loss, metrics = trainer.validate()
     out["validate"] = {"val_loss": val_loss, **metrics}
+    if job.get("record_params"):
+        out["c_attn_shape"] = list(trainer.model.llm_backbone.model.h[0].attn.c_attn.weight.shape)
+        for k, v in trainer.full_state_dict().items():
+            arrays[f"param:{k}"] = v.numpy()
     if job.get("eval"):
         _evaluate(job, cfg, graph, scaler, out, arrays)
 
@@ -128,6 +144,76 @@ def _evaluate(job: dict, cfg, graph, scaler, out: dict, arrays: dict) -> None:
     out["aci"]["batches"] = aci["adaptive"]["batches"]
 
 
+def _grad(job: dict, out: dict, arrays: dict) -> None:
+    """Two train steps of a fresh Trainer on its first two macro batches (the
+    first moves lora_B off its zero init, so the second gives lora_A a
+    gradient): the second step's loss, global norm before the clip, and
+    whole clipped gradients."""
+    import dataclasses
+
+    from tec_mollm_tpu_torch.config import Config
+    from tec_mollm_tpu_torch.data import SlidingWindowDataset, StandardScaler
+    from tec_mollm_tpu_torch.graph import GraphData
+    from tec_mollm_tpu_torch.parallel.tensor_parallel import gather_full_state_dict
+    from tec_mollm_tpu_torch.training.trainer import Trainer
+
+    with open(job["config"]) as f:
+        cfg = Config.from_json(f.read())
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, model_parallel=job["model_parallel"]))
+    data, t = job["data"], cfg.train
+    train = SlidingWindowDataset.from_dir(data, "train", t.L_in, t.L_out, stride=t.train_stride)
+    graph = GraphData.load(os.path.join(data, "graph.npz"))
+    scaler = StandardScaler.load(os.path.join(data, "target_scaler.npz"))
+    trainer = Trainer(cfg, train, None, graph, scaler, workdir=job["workdir"], run_name="grad", device="cpu")
+    trainer.train_loader.set_epoch(0)
+    for batch in list(trainer.train_loader)[:2]:
+        trainer.state, metrics = trainer._train_step(trainer.state, trainer._put(batch), trainer.graph)
+    out["loss"], out["grad_norm"] = float(metrics["loss"]), float(metrics["grad_norm"])
+    grads = {n: p.grad for n, p in trainer.state.trainable().items()}
+    for k, v in gather_full_state_dict(grads, cfg.model, trainer.mp).items():
+        arrays[f"grad:{k}"] = v.numpy()
+
+
+def _bench(job: dict, out: dict) -> None:
+    import contextlib
+    import io
+
+    from tec_mollm_tpu_torch import bench
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        bench.main(job["argv"])
+    out["line"] = json.loads(text.getvalue()) if text.getvalue() else None
+
+
+def _stages(job: dict, rank: int, out: dict, arrays: dict) -> None:
+    from tec_mollm_tpu_torch import parallel
+
+    for stage in job["stages"]:
+        if rank >= stage["world"]:
+            continue
+        os.environ.update(WORLD_SIZE=str(stage["world"]), MASTER_PORT=str(stage["port"]))
+        rec: dict = {}
+        got: dict = {}
+        if stage["kind"] == "bench":
+            _bench(stage, rec)  # the bench joins and leaves the group itself
+        else:
+            parallel.init_distributed(device="cpu", model_parallel=stage["model_parallel"])
+            try:
+                if stage["kind"] == "grad":
+                    _grad(stage, rec, got)
+                elif stage["kind"] == "cli":
+                    from tec_mollm_tpu_torch import train
+
+                    rec["history"] = train.main(stage["argv"] + ["--multihost", "--cpu"])
+                else:
+                    _fit(stage, rank, rec, got)
+            finally:
+                parallel.destroy()
+        out[stage["name"]] = rec
+        arrays.update({f"{stage['name']}/{k}": v for k, v in got.items()})
+
+
 def main() -> None:
     job_path, rank, world, port = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     with open(job_path) as f:
@@ -145,10 +231,12 @@ def main() -> None:
         from tec_mollm_tpu_torch import train
 
         out["history"] = train.main(job["argv"] + ["--multihost", "--cpu"])
+    elif job["kind"] == "stages":
+        _stages(job, rank, out, arrays)
     else:
         from tec_mollm_tpu_torch import parallel
 
-        parallel.init_distributed(device="cpu")
+        parallel.init_distributed(device="cpu", model_parallel=job.get("model_parallel", 1))
         try:
             _fit(job, rank, out, arrays)
         finally:
