@@ -166,7 +166,26 @@ Phases (any failure exits non-zero):
      (d) (a) over NCCL, one card a rank, where the host has TP_RANKS cards;
      on one card it logs why it did not run. Each rank writes its launch
      counts; the kernels line sums them.
-The phases run in the order 1-6, 9-11, 8, 12, 13, 7; the total time is printed. The
+ 14. ablation (after phase 13): (a) the SARIMA baseline (models/sarima.py) on
+     a seeded simulated AR-dominated SARIMA series of (SARIMA_T, 2911): its
+     three kernels (csrc/sarima.cu: the CSS innovations, their adjoint, the
+     forecast of SARIMA_BATCH windows) against their plain versions at random
+     coefficients within SARIMA_RTOL, 3 Adam steps through the kernels
+     against the plain versions within SARIMA_ADAM_ATOL, each kernel timed
+     beside its plain version and its bytes bound, and one fit step's loss and
+     gradient (device time, its share of a fit step's wall); then
+     the full fit of SARIMA_FIT_STEPS steps through the kernels (its wall, ms
+     a step, one launch of each pass a step; the fitted phi's node mean within
+     SARIMA_PHI_TOL of the truth, as the JAX test asks) and a forecast batch;
+     then the test CLI with --baseline sarima on phase 8's checkpoint and
+     data: a finite SARIMA row beside the model's and the HA's, the fit's
+     launches and one forecast launch a batch of SARIMA_BATCH. (b) phase 5's
+     train step (B = 8, bf16, fused_attn) with every dropout at 0, the same
+     weights and batch under each of ARMS (the default, fuse_conv, lean_gn,
+     im2col_conv, the two-pass LayerNorm, remat 'full' and 'dots_saveable'):
+     one step's loss and gradients against the default's within GRAD_TOL,
+     then step ms and peak memory over ARM_STEPS steps.
+The phases run in the order 1-6, 9-11, 8, 12, 13, 14, 7; the total time is printed. The
 last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON. Details also go to chiprun_out/chip_smoke.json.
 """
@@ -175,6 +194,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import os
 import statistics
@@ -310,6 +330,32 @@ TP_RANKS, TP_RTOL = 2, 2e-4
 # same flags, in scaled units (the same kernels and arithmetic), and the serve
 # CLI's --bench requests
 EXPORT_TOL_SCALED, SERVE_CLI_BENCH = 1e-3, 4
+# ablation phase, SARIMA: the simulated series' steps (the eval harness's
+# fit_window), the season, Adam steps of a fit and the forecast batch (the
+# harness's); the series is AR-dominated (the JAX test's recovery case), and
+# the fitted phi's node mean must lie within SARIMA_PHI_TOL of its truth, as
+# that test asks. Kernel against plain: each output's largest difference over
+# its largest magnitude within SARIMA_RTOL (fp32 both; the kernel contracts
+# multiply-adds and sums a node's terms in time order, the plain version sums
+# with torch's reductions, and the recursion is stable with |coefficients| <
+# 0.99, so the two differ at fp32 rounding); the raw parameters after 3 Adam
+# steps within SARIMA_ADAM_ATOL. A step moves a raw parameter by lr * m / (sqrt(v)
+# + eps), about lr = 0.05 where its gradient is large; where a node's gradient
+# is near eps = 1e-8 (the loss is a mean over 2911 nodes, so a gradient is
+# ~1e-4 at most), a gradient difference d moves the step by up to lr * d /
+# (4 eps), about 4e-4 for d = 1e-6 of the largest gradient: three steps
+# stay within 1e-3, where a wrong gradient moves the parameters by ~lr.
+SARIMA_T, SARIMA_SEASON, SARIMA_FIT_STEPS, SARIMA_BATCH = 2000, 12, 400, 64
+SARIMA_TRUTH, SARIMA_PHI_TOL = (0.6, 0.0, 0.0, 0.0), 0.15
+SARIMA_RTOL, SARIMA_ADAM_ATOL = 1e-4, 1e-3
+# ablation phase, the arms of phase 5's train step: the model's arguments and
+# remat policy of each, its warm-up and timed steps
+ARMS = {
+    "default": ({}, None), "fuse_conv": ({"fuse_conv": True}, None), "lean_gn": ({"lean_gn": True}, None),
+    "im2col_conv": ({"im2col_conv": True}, None), "two_pass_ln": ({"lean_ln": False}, None),
+    "remat_full": ({}, "full"), "dots_saveable": ({}, "dots_saveable"),
+}
+ARM_WARMUP, ARM_STEPS = 2, 5
 
 
 def log(msg: str) -> None:
@@ -324,8 +370,8 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
-    """Device time of one call: the median over TIMING_RUNS of CUDA events
+def time_ms(fn, reps: int, runs: int = TIMING_RUNS) -> float:
+    """Device time of one call: the median over `runs` timings of CUDA events
     around `reps` back-to-back calls, divided by `reps`, after two warm-up
     calls. Back to back, the host issues the next call while the device runs
     this one, so a call's own host cost (Python, the launch) shows only where
@@ -336,7 +382,7 @@ def time_ms(fn, reps: int) -> float:
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(TIMING_RUNS):
+    for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
@@ -2755,6 +2801,260 @@ def pretrain_phase(args, graph) -> dict:
     return out
 
 
+def simulate_sarima(steps: int, nodes: int, season: int, coeffs: tuple, seed: int) -> np.ndarray:
+    """(steps, nodes) drawn from SARIMA(1,1,1)x(1,1,1,season) with the given
+    (phi, Phi, theta, Theta): the SARMA recursion on unit innovations, then
+    (1-B) and (1-B^s) integrated (the JAX test's simulator, over all nodes)."""
+    phi, sphi, theta, stheta = coeffs
+    eps = np.random.default_rng(seed).normal(0, 1, (steps, nodes))
+    y = np.zeros((steps, nodes))
+    for t in range(steps):
+        y[t] = eps[t]
+        if t >= 1:
+            y[t] += phi * y[t - 1] + theta * eps[t - 1]
+        if t >= season:
+            y[t] += sphi * y[t - season] + stheta * eps[t - season]
+        if t >= season + 1:
+            y[t] += -phi * sphi * y[t - season - 1] + theta * stheta * eps[t - season - 1]
+    x1 = np.cumsum(y, axis=0)
+    x = np.zeros_like(x1)
+    for t in range(steps):
+        x[t] = x1[t] + (x[t - season] if t >= season else 0.0)
+    return x
+
+
+def sarima_phase(args, data_dir: str) -> dict:
+    """The SARIMA baseline at flagship width (phase 14 (a)): its three kernels
+    against their plain versions on a simulated (SARIMA_T, 2911) series, 3
+    Adam steps kernel against plain, the full fit through the kernels, and the
+    test CLI with --baseline sarima on phase 8's checkpoint and data."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops, test
+    from tec_mollm_tpu_torch.config import Config
+    from tec_mollm_tpu_torch.data.dataset import SlidingWindowDataset
+    from tec_mollm_tpu_torch.evaluation import harness
+    from tec_mollm_tpu_torch.models import sarima
+    from tec_mollm_tpu_torch.ops import sarima as sops
+
+    phase_t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = Config().resolved()
+    n, s, L_in, L_out = cfg.model.num_nodes, SARIMA_SEASON, cfg.train.L_in, cfg.train.L_out
+    series = simulate_sarima(SARIMA_T, n, s, SARIMA_TRUTH, args.seed)
+    y = sarima.scaled_difference(series, s, dev)
+    steps_t = y.shape[0]
+    raw = torch.randn(4, n, generator=torch.Generator(device=dev).manual_seed(args.seed), device=dev) * 0.5
+    coeffs = (0.99 * torch.tanh(raw)).contiguous()
+    scale = 2.0 / ((steps_t - s - 1) * n)
+    starts = np.linspace(0, SARIMA_T - L_in, SARIMA_BATCH).astype(np.int64)
+    wins = torch.tensor(np.stack([series[a : a + L_in] for a in starts]), dtype=torch.float32, device=dev)
+
+    def rel(got, want) -> tuple[float, float]:
+        diff = float((got - want).abs().max())
+        return diff, diff / float(want.abs().max())
+
+    e_k, part_k = sops.css_forward(y, coeffs, s)
+    e_p, part_p = sops.css_forward_reference(y, coeffs, s)
+    g_k = sops.css_backward(y, e_k, coeffs, s, scale)
+    g_p = sops.css_backward_reference(y, e_p, coeffs, s, scale)
+    f_k, f_p = sops.forecast(wins, coeffs, L_out, s), sops.forecast_reference(wins, coeffs, L_out, s)
+    (loss_k, graw_k), (loss_p, graw_p) = sops.css_loss_and_grad(raw, y, s), sops.css_loss_and_grad_reference(raw, y, s)
+    torch.cuda.synchronize()
+    errs = {"e": rel(e_k, e_p), "partial": rel(part_k, part_p), "grad": rel(g_k, g_p), "forecast": rel(f_k, f_p),
+            "loss": rel(loss_k, loss_p), "grad_raw": rel(graw_k, graw_p)}
+    raw3_k = sarima.adam_fit(y, s, 3)
+    raw3_p = sarima.adam_fit(y, s, 3, loss_and_grad=sops.css_loss_and_grad_reference)
+    adam_err = float((raw3_k - raw3_p).abs().max())
+    log(
+        f"sarima: y ({steps_t}, {n}) fp32, season {s}; kernel vs plain, largest difference / largest magnitude: "
+        + ", ".join(f"{k} {r:.3e}" for k, (_, r) in errs.items())
+        + f" (tol {SARIMA_RTOL}); raw after 3 Adam steps differ by {adam_err:.3e} (tol {SARIMA_ADAM_ATOL})"
+    )
+    failures = [k for k, (_, r) in errs.items() if not r <= SARIMA_RTOL]
+    if not adam_err <= SARIMA_ADAM_ATOL:
+        failures.append("adam")
+
+    # the kernels' entries of the kernels line: times, bounds (bytes: each
+    # input read once, each output written once)
+    arr = steps_t * n * 4
+    entries = []
+    for name, shape, fn, plain, bytes_moved, flops, err in (
+        (sops.FORWARD, f"y ({steps_t},{n}) fp32, coeffs (4,{n}) -> e, partial",
+         lambda: sops.css_forward(y, coeffs, s), lambda: sops.css_forward_reference(y, coeffs, s),
+         2 * arr + 20 * n, 14 * steps_t * n, errs["e"]),
+        (sops.BACKWARD, f"y, e ({steps_t},{n}) fp32, coeffs (4,{n}) -> grad (4,{n})",
+         lambda: sops.css_backward(y, e_k, coeffs, s, scale),
+         lambda: sops.css_backward_reference(y, e_k, coeffs, s, scale), 2 * arr + 32 * n, 20 * steps_t * n,
+         errs["grad"]),
+        (sops.FORECAST, f"windows ({SARIMA_BATCH},{L_in},{n}) fp32 -> ({SARIMA_BATCH},{L_out},{n})",
+         lambda: sops.forecast(wins, coeffs, L_out, s), lambda: sops.forecast_reference(wins, coeffs, L_out, s),
+         SARIMA_BATCH * (L_in + L_out) * n * 4 + 16 * n, SARIMA_BATCH * n * (16 * L_in + 16 * L_out), errs["forecast"]),
+    ):
+        e = {"name": name, "route": "cuda", "source": "tec_mollm_tpu_torch/csrc/sarima.cu",
+             "replaces": "tec_mollm_tpu/models/sarima.py:61", "shape": shape, "bytes": bytes_moved, "flops": flops,
+             "max_abs_err": err[0], "max_rel_err": err[1], "tol_rel": SARIMA_RTOL,
+             "ms": time_ms(fn, REPS), "plain_ms": time_ms(plain, 1, runs=2), "library_ms": None}
+        e["bound_ms"], e["bound_by"] = bound(bytes_moved, flops, PEAK_FLOPS["fp32"])
+        log(f"kernel {name}: {shape}: max_abs {err[0]:.3e} max_rel {err[1]:.3e}; kernel {e['ms']:.4f} ms, "
+            f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+        entries.append(e)
+    step_ms = time_ms(lambda: sops.css_loss_and_grad(raw, y, s), REPS)
+
+    # the main path: the full fit and one forecast batch, then the test CLI
+    launches: dict[str, int] = {}
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    params = sarima.fit_sarima(series, season=s, steps=SARIMA_FIT_STEPS, device=dev)
+    fit_wall = time.perf_counter() - t0
+    preds = sarima.forecast_windows(params, wins, L_out, season=s)
+    torch.cuda.synchronize()
+    fit_counts = ops.launch_counts()
+    phi_mean = float(params.phi.mean())
+    log(
+        f"sarima: fit of {SARIMA_FIT_STEPS} Adam steps on ({SARIMA_T}, {n}): {fit_wall:.3f} s, "
+        f"{fit_wall / SARIMA_FIT_STEPS * 1e3:.3f} ms a step (loss and gradient alone {step_ms:.4f} ms on the "
+        f"device, {step_ms / (fit_wall / SARIMA_FIT_STEPS * 1e3):.2%} of the step); forecast {entries[2]['ms']:.4f} ms a batch of {SARIMA_BATCH}; phi mean {phi_mean:.4f} "
+        f"(truth {SARIMA_TRUTH[0]} +- {SARIMA_PHI_TOL}); launches {fit_counts}"
+    )
+    want = {sops.FORWARD: SARIMA_FIT_STEPS, sops.BACKWARD: SARIMA_FIT_STEPS, sops.FORECAST: 1}
+    if fit_counts != want:
+        failures.append(f"fit launches {fit_counts}, want {want}")
+    if not abs(phi_mean - SARIMA_TRUTH[0]) <= SARIMA_PHI_TOL or not bool(preds.isfinite().all()):
+        failures.append(f"fit: phi mean {phi_mean}, or a forecast not finite")
+    for k, v in fit_counts.items():
+        launches[k] = launches.get(k, 0) + v
+
+    work, out = os.path.join(data_dir, "work"), os.path.join(data_dir, "eval", "sarima")
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    res = test.main(["--data-dir", data_dir, "--workdir", work, "--checkpoint", "latest", "--baseline", "sarima",
+                     "--sarima-season", str(s), "--output-dir", out])
+    torch.cuda.synchronize()
+    cli_wall = time.perf_counter() - t0
+    cli_counts = ops.launch_counts()
+    for k, v in cli_counts.items():
+        launches[k] = launches.get(k, 0) + v
+    _, rows = read_csv(os.path.join(out, "evaluation_results.csv"))
+    batches = -(-len(SlidingWindowDataset.from_dir(data_dir, "test", L_in, L_out)) // SARIMA_BATCH)
+    cli_steps = inspect.signature(harness.evaluate_sarima_streaming).parameters["fit_steps"].default
+    finite = all(np.isfinite(r).all() for r in rows.values())
+    sar = res["results"]["SARIMA"]
+    log(
+        f"sarima[test CLI --baseline sarima]: {cli_wall:.2f} s; rows {list(rows)}, finite {finite}; SARIMA MAE "
+        f"{sar['mae_avg']:.4f} RMSE {sar['rmse_avg']:.4f} TECU against HA MAE "
+        f"{res['results']['HistoricalAverage']['mae_avg']:.4f}; launches {cli_counts}"
+    )
+    if list(rows) != ["TEC-MoLLM", "HistoricalAverage", "SARIMA"] or not finite:
+        failures.append(f"test CLI rows {list(rows)}, finite {finite}")
+    if (cli_counts.get(sops.FORWARD), cli_counts.get(sops.BACKWARD), cli_counts.get(sops.FORECAST)) != (
+            cli_steps, cli_steps, batches):
+        failures.append(f"test CLI launches {cli_counts}")
+    if failures:
+        raise RuntimeError(f"sarima: {failures}")
+    wall = time.perf_counter() - phase_t0
+    return {
+        "entries": entries, "launches": launches, "errors": errs, "adam_3_steps_max_abs": adam_err,
+        "fit_wall_s": fit_wall, "fit_ms_a_step": fit_wall / SARIMA_FIT_STEPS, "loss_and_grad_ms": step_ms,
+        "forecast_ms_a_batch": entries[2]["ms"], "phi_mean": phi_mean, "fit_launches": fit_counts,
+        "cli_wall_s": cli_wall, "cli_launches": cli_counts, "cli_results": res["results"], "wall_s": wall,
+    }
+
+
+def arms_phase(args) -> dict:
+    """Phase 5's flagship train step (the bench's, B = 8, bf16, fused_attn)
+    with every dropout at 0, the same seeded weights (lora_B redrawn) and the
+    same batch under each of ARMS (phase 14 (b)): the loss and gradients of
+    one step against the default arm's within GRAD_TOL, then ARM_STEPS steps
+    after ARM_WARMUP: step ms and peak memory."""
+    import torch
+
+    from tec_mollm_tpu_torch import bench, ops
+    from tec_mollm_tpu_torch.graph import build_graph, grid_coordinates
+    from tec_mollm_tpu_torch.models import graph_inputs
+    from tec_mollm_tpu_torch.training import make_sum_loss_fn
+
+    phase_t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    out: dict = {"arms": {}}
+    launches: dict[str, int] = {}
+    ref = None
+    for name, (kw, policy) in ARMS.items():
+        cfg = bench.bench_config("default", remat_policy=policy)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, gat_dropout=0.0, lora_dropout=0.0, llm_dropout=0.0, head_dropout=0.0, post_llm_dropout=0.0))
+        if ref is None:
+            m = cfg.model
+            _, graph_pair = graph_inputs(build_graph(*grid_coordinates(m.grid_h, m.grid_w)), dev)
+        run = bench.setup(cfg, dev, fused_attn=True, seed=args.seed, **kw)
+        model = run.state.model
+        gen = torch.Generator().manual_seed(args.seed + 1)
+        with torch.no_grad():
+            for pname, p in model.named_parameters():
+                if pname.endswith("lora_B.weight"):
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+        model.train()
+        ops.reset_counts()
+        wsum, count = make_sum_loss_fn(model, cfg)(run.batch, graph_pair)
+        loss = wsum / count
+        loss.backward()
+        grads = {n: p.grad.float().clone() for n, p in run.state.trainable().items()}
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(ARM_WARMUP):
+            run.step()
+        run.sync()
+        t0 = time.perf_counter()
+        for _ in range(ARM_STEPS):
+            run.step()
+        run.sync()
+        step_ms = (time.perf_counter() - t0) / ARM_STEPS * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for k, v in ops.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        rec = {"loss": float(loss.detach()), "step_ms": step_ms, "peak_memory_gb": peak,
+               "remat": cfg.train.remat_llm, "remat_policy": cfg.train.remat_policy, "kwargs": kw}
+        if ref is None:
+            ref = (rec["loss"], grads)
+        else:
+            worst = max((float((grads[n] - g).abs().max() / (g.abs().max() + 1e-12)), n) for n, g in ref[1].items())
+            rec["max_rel_grad_diff"], rec["worst_tensor"] = worst
+            rec["loss_rel_diff"] = abs(rec["loss"] - ref[0]) / abs(ref[0])
+        out["arms"][name] = rec
+        log(
+            f"arm[{name}]: loss {rec['loss']:.6f}"
+            + ("" if name == "default" else
+               f" (rel {rec['loss_rel_diff']:.3e} of the default's), largest per-tensor gradient difference "
+               f"{rec['max_rel_grad_diff']:.3e} ({rec['worst_tensor']}), tol {GRAD_TOL}")
+            + f"; step {step_ms:.2f} ms, peak memory {peak:.3f} GB"
+        )
+        del run, model, grads, loss, wsum
+        torch.cuda.empty_cache()
+    bad = [k for k, r in out["arms"].items() if k != "default" and not (
+        r["max_rel_grad_diff"] <= GRAD_TOL and r["loss_rel_diff"] <= GRAD_TOL and np.isfinite(r["loss"]))]
+    if bad:
+        raise RuntimeError(f"arms: loss or gradients off the default step's: {bad}")
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - phase_t0
+    return out
+
+
+def ablation_phase(args, data_dir: str) -> dict:
+    """Phase 14 (after phase 13): (a) the SARIMA baseline, (b) the arms."""
+    t0 = time.perf_counter()
+    out = {"sarima": sarima_phase(args, data_dir), "arms": arms_phase(args)}
+    launches: dict[str, int] = {}
+    for part in out.values():
+        for k, v in part["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 14: sarima {out['sarima']['wall_s']:.1f} s, arms {out['arms']['wall_s']:.1f} s, "
+        f"total {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--seed", type=int, default=0)
@@ -2823,23 +3123,28 @@ def main() -> int:
         results["data_parallel"] = ddp
         tp = tensor_parallel_phase(args, data_dir, ddp)
         results["tensor_parallel"] = tp
+        ablation = ablation_phase(args, data_dir)
+        results["ablation"] = ablation
+        entries += ablation["sarima"]["entries"]
     pretrain = pretrain_phase(args, graph)
     results["pretrain"] = pretrain
     runs = [p["launches"] for p in paths.values()] + [
         train["launches"], trainer["launches"], trainer["launches_1x22"], device_data["launches"], export["launches"],
-        evaluation["launches"], ddp["launches"], tp["launches"], pretrain["launches"]]
+        evaluation["launches"], ddp["launches"], tp["launches"], ablation["launches"], pretrain["launches"]]
     for e in entries:
         # launches over the main-path runs (both serve cells, the train steps,
         # the trainer's run A, its 1 x 22 serve, the --device-data trainer, the
         # artifacts' services, the eval phase's CLI and service runs, the
-        # data- and tensor-parallel ranks' runs and the pretrain steps), each
-        # counted from zero (a rank's in its own process)
+        # data- and tensor-parallel ranks' runs, phase 14's SARIMA fit, test
+        # CLI and arm steps, and the pretrain steps), each counted from zero
+        # (a rank's in its own process)
         e["launches"] = sum(r.get(e["name"], 0) for r in runs)
         e["launches_export"] = export["launches"].get(e["name"], 0)
         e["launches_device_data"] = device_data["launches"].get(e["name"], 0)
         e["launches_eval"] = evaluation["launches"].get(e["name"], 0)
         e["launches_ddp"] = ddp["launches"].get(e["name"], 0)
         e["launches_tp"] = tp["launches"].get(e["name"], 0)
+        e["launches_ablation"] = ablation["launches"].get(e["name"], 0)
         e["launches_per_forward_fused"] = paths["fused"]["launches"].get(e["name"], 0) / paths["fused"]["forwards"]
         e["launches_per_train_step"] = train["launches_per_step"].get(e["name"], 0)
         e["launches_trainer_run"] = trainer["launches"].get(e["name"], 0)

@@ -2,14 +2,20 @@
 
     python -m tec_mollm_tpu_torch.bench [--batch-size B] [--accum A] [--steps S]
         [--warmup W] [--quick] [--cpu] [--no-bf16] [--preset NAME] [--eval]
-        [--fused-attn] [--fused-mlp]
+        [--fused-attn] [--fused-mlp] [--no-remat] [--remat-policy P]
+        [--fuse-conv] [--two-pass-ln]
 
 The counterpart of the JAX package's root ``bench.py``: the full flagship train
 step (forward, backward, clip, AdamW on the trainable partition, bf16 compute
 with the frozen weights stored in bf16) on synthetic data over the real 41x71
 graph. The default preset runs B = 8 x accumulation 1; ``--eval`` times the
 deterministic forward at the preset's ``eval_batch_size``. ``--fused-attn`` and
-``--fused-mlp`` are the model's kernel arms. Steps are timed in chunks of up to
+``--fused-mlp`` are the model's kernel arms. The JAX bench's ablation flags:
+``--remat-policy`` (full, dots_saveable, nothing_saveable) recomputes the
+GPT-2 blocks under that policy (remat is on with the flag or the preset's
+``remat_llm``; ``--no-remat`` turns it off), ``--fuse-conv`` runs each conv
+block's three branches as one conv, ``--two-pass-ln`` the two-pass fp32
+LayerNorm in place of the lean one. Steps are timed in chunks of up to
 5 after the warm-up, each chunk ending in ``torch.cuda.synchronize()``, and the
 fastest chunk is reported as ONE JSON line::
 
@@ -66,10 +72,14 @@ def bench_config(
     accum: int | None = None,
     bf16: bool = True,
     eval_mode: bool = False,
+    remat_policy: str | None = None,
+    no_remat: bool = False,
 ) -> Config:
     """The measured configuration: the default preset's train step at B = 8 x
     accumulation 1, other presets at their own policy, eval at the preset's
-    eval_batch_size x 1 (the JAX bench's choices)."""
+    eval_batch_size x 1 (the JAX bench's choices). Remat is the preset's,
+    forced on by a ``remat_policy`` and off by ``no_remat``; the policy is
+    ``remat_policy`` or the preset's."""
     cfg = tiny_config() if quick else PRESETS[preset]()
     flagship = preset == "default" and not quick
     train = dataclasses.replace(
@@ -79,6 +89,8 @@ def bench_config(
         accumulation_steps=accum if accum is not None
         else 1 if flagship or eval_mode else cfg.train.accumulation_steps,
         bf16=bf16,
+        remat_llm=(cfg.train.remat_llm or remat_policy is not None) and not no_remat,
+        remat_policy=remat_policy or cfg.train.remat_policy,
     )
     return dataclasses.replace(cfg, train=train)
 
@@ -108,16 +120,22 @@ def setup(
     fused_mlp: bool = False,
     eval_mode: bool = False,
     seed: int = 0,
+    **arms,
 ) -> BenchRun:
     """Model (seeded random weights), train state, one synthetic macro batch on
-    ``device`` and the step to time. With a process group the train step runs
+    ``device`` and the step to time. ``arms`` are the model's ablation
+    arguments (``fuse_conv``, ``lean_gn``, ``im2col_conv``, ``lean_ln``); remat
+    follows ``cfg.train``. With a process group the train step runs
     through DDP and each rank takes its strided share of a macro batch of
     ``batch_size * accumulation_steps * world`` windows."""
     m = cfg.model
     graph = build_graph(*grid_coordinates(m.grid_h, m.grid_w), distance_threshold_km=cfg.data.distance_threshold_km)
     shifts, graph_pair = graph_inputs(graph, device)
     dtype = torch.bfloat16 if cfg.train.bf16 else torch.float32
-    model = TECMoLLM(m, shifts, dtype=dtype, fused_attn=fused_attn, use_fused_mlp=fused_mlp, seed=seed).to(device)
+    model = TECMoLLM(
+        m, shifts, dtype=dtype, fused_attn=fused_attn, use_fused_mlp=fused_mlp, remat_llm=cfg.train.remat_llm,
+        remat_policy=cfg.train.remat_policy, seed=seed, **arms,
+    ).to(device)
     state, _ = create_train_state(model, cfg, frozen_dtype=torch.bfloat16 if cfg.train.bf16 else None)
 
     world, rank = mesh.world_size(), mesh.rank()
@@ -175,6 +193,11 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--eval", action="store_true", help="time the deterministic eval forward instead")
     p.add_argument("--fused-attn", action="store_true", help="the short-attention kernels")
     p.add_argument("--fused-mlp", action="store_true", help="the fused LN->MLP kernel (eval forward)")
+    p.add_argument("--no-remat", action="store_true", help="disable LLM remat")
+    p.add_argument("--remat-policy", default=None, choices=["full", "dots_saveable", "nothing_saveable"],
+                   help="recompute the GPT-2 blocks under this policy (models/gpt2.REMAT_POLICIES)")
+    p.add_argument("--fuse-conv", action="store_true", help="fuse the 3 multi-scale conv branches into one conv")
+    p.add_argument("--two-pass-ln", action="store_true", help="disable lean_ln (two-pass fp32 LayerNorm)")
     args = p.parse_args(argv)
 
     # under torchrun: one rank a card, data parallel (the JAX bench's mp = 1)
@@ -184,8 +207,10 @@ def main(argv: list[str] | None = None) -> int:
     else:
         device = mesh.local_device() or resolve_device("cpu" if args.cpu else None)
     try:
-        cfg = bench_config(args.preset, args.quick, args.batch_size, args.accum, not args.no_bf16, args.eval)
-        run = setup(cfg, device, args.fused_attn, args.fused_mlp, args.eval)
+        cfg = bench_config(args.preset, args.quick, args.batch_size, args.accum, not args.no_bf16, args.eval,
+                           args.remat_policy, args.no_remat)
+        run = setup(cfg, device, args.fused_attn, args.fused_mlp, args.eval,
+                    fuse_conv=args.fuse_conv, lean_ln=not args.two_pass_ln)
         best, chunk = time_steps(run, 3 if args.quick else args.steps, args.warmup)
         best = mesh.max_over_ranks(best)  # the slowest rank's chunk
         kind = "eval" if args.eval else "train"

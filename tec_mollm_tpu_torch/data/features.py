@@ -19,7 +19,7 @@ import logging
 
 import numpy as np
 
-from tec_mollm_tpu_torch.data.hdf5_io import check_cadence, compute_segments
+from tec_mollm_tpu_torch.data.hdf5_io import check_cadence, compute_segments, load_and_split_data
 from tec_mollm_tpu_torch.data.scaler import StandardScaler
 
 logger = logging.getLogger(__name__)
@@ -81,6 +81,12 @@ def extract_time_features(times: np.ndarray, base_year: int | None = None) -> np
     year_index = years - (int(years.min()) if base_year is None else base_year)
     season = (months % 12 + 3) // 3 - 1
     return np.stack([tod, doy0, year_index, season], axis=-1).astype(np.int32)
+
+
+def create_features_and_targets(file_paths: list[str], horizon: int = 12) -> dict[str, dict[str, np.ndarray]]:
+    """The whole pipeline per split: the HDF5 files split by year, then the
+    aligned (X, Y, time_features) of each split."""
+    return build_split_tensors(load_and_split_data(file_paths), horizon)
 
 
 def build_split_tensors(

@@ -37,7 +37,9 @@ the model group as the trainer splits it (``build_eval_model``), the loaders
 shard over the data group and every sum and gather above runs over the data
 group: the ranks of a model group hold the same rows.
 
-Not ported yet, and refused: the SARIMA baseline (ROADMAP Queue A item 8).
+``baselines=("sarima",)`` adds the batched SARIMA row
+(``evaluate_sarima_streaming``): fitted once on the train split's TEC and
+scored window by window, on every rank whole, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -61,10 +63,15 @@ from tec_mollm_tpu_torch.evaluation.conformal import (
     fit_conformal,
 )
 from tec_mollm_tpu_torch.evaluation.rollout import autoregressive_rollout
-from tec_mollm_tpu_torch.evaluation.streaming import StreamingHorizonMetrics, StreamingQuantileMetrics
+from tec_mollm_tpu_torch.evaluation.streaming import (
+    StreamingHorizonMetrics,
+    StreamingQuantileMetrics,
+    scaler_affine,
+)
 from tec_mollm_tpu_torch.graph.builder import GraphData
 from tec_mollm_tpu_torch.models.baselines import WindowMeanBaseline
 from tec_mollm_tpu_torch.models.ref_import import load_reference_checkpoint
+from tec_mollm_tpu_torch.models.sarima import fit_sarima, forecast_windows
 from tec_mollm_tpu_torch.models.tec_mollm import TECMoLLM, graph_inputs
 from tec_mollm_tpu_torch.parallel.mesh import (
     data_rank,
@@ -80,11 +87,6 @@ from tec_mollm_tpu_torch.training.checkpoint import find_latest_checkpoint
 from tec_mollm_tpu_torch.training.train_state import make_eval_step, point_forecast, put_batch
 
 logger = logging.getLogger(__name__)
-
-SARIMA_REFUSAL = (
-    "--baseline sarima: the batched SARIMA baseline is not ported yet "
-    "(ROADMAP Queue A item 8, baselines and host preprocessing)"
-)
 
 
 def build_eval_model(
@@ -114,7 +116,10 @@ def build_eval_model(
 class EvalExecutor:
     """The eval model, its graph and the eval step on one device; batches of
     ``batch_size`` windows (the loader pads the last one, marked invalid), of
-    which each data-parallel rank loads ``batch_size // dp``.
+    which each data-parallel rank loads ``batch_size // dp``. A batch size
+    that the data ranks do not divide is rounded up to a multiple of them and
+    logged, as the JAX executor rounds it to tile its data axis: the padding
+    rows are invalid, and every metric is a valid-weighted sum.
 
     ``device_dataset`` (a ``DeviceResidentDataset``): its raw series go to the
     device once, the loader yields window starts and the eval step gathers
@@ -130,6 +135,11 @@ class EvalExecutor:
         device_dataset: DeviceResidentDataset | None = None,
     ):
         self.cfg = cfg
+        dp = data_world()
+        if batch_size % dp:
+            rounded = -(-batch_size // dp) * dp
+            logger.info("eval batch size %d -> %d (must tile the %d data-parallel ranks)", batch_size, rounded, dp)
+            batch_size = rounded
         self.batch_size = batch_size
         self.model, self.graph, self.device = build_eval_model(cfg, graph, state_dict, device)
         self.eval_step = make_eval_step(self.model, cfg)
@@ -144,11 +154,6 @@ class EvalExecutor:
         shard (``order[rank::dp]``), so the data ranks' rows of batch b are the
         windows of one process's batch b."""
         world = data_world()
-        if self.batch_size % world:
-            raise ValueError(
-                f"eval batch size {self.batch_size} must be a multiple of the {world} data-parallel ranks "
-                "(each loads batch_size // world windows of every batch)"
-            )
         return BatchLoader(dataset, batch_size=self.batch_size // world, drop_remainder=False, prefetch=2,
                            index_only=self._data is not None, num_shards=world, shard_index=data_rank())
 
@@ -270,6 +275,39 @@ def evaluate_baseline_streaming(
         preds = baseline.predict_batch(batch["x"][..., 0], L_out)
         trues = batch["y"].transpose(0, 2, 1)[..., None]
         acc.update(*(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (trues, preds, batch["valid"])))
+    return acc.finalize()
+
+
+def evaluate_sarima_streaming(
+    dataset: SlidingWindowDataset | DeviceResidentDataset,
+    train_series: np.ndarray,
+    L_out: int,
+    feature_scaler: StandardScaler | None,
+    target_scaler: StandardScaler | None,
+    season: int = 12,
+    batch_size: int = 64,
+    fit_steps: int = 400,
+    fit_window: int = 2000,
+    device=None,
+) -> dict[str, Any]:
+    """The batched SARIMA(1,1,1)x(1,1,1,season) baseline, scored per window.
+
+    The coefficients are fitted once on the last ``fit_window`` steps of
+    ``train_series`` (T, N), the train split's feature-scaled TEC, all nodes
+    in one CSS fit (``models/sarima.py``); each window then conditions the
+    recursion on its own L_in history and forecasts L_out steps. The
+    forecasts go from feature to physical to target units on the device, so
+    that the streaming metrics (which apply the target scaler) score in TECU."""
+    device = resolve_device(device)
+    params = fit_sarima(train_series[-fit_window:], season=season, steps=fit_steps, device=device)
+    f_scale, f_mean = scaler_affine(feature_scaler)
+    t_scale, t_mean = scaler_affine(target_scaler)
+    acc = StreamingHorizonMetrics(L_out, target_scaler, device)
+    for batch in BatchLoader(dataset, batch_size=batch_size, drop_remainder=False, prefetch=2):
+        x, y, valid = (torch.from_numpy(np.ascontiguousarray(batch[k])).to(device) for k in ("x", "y", "valid"))
+        preds_fs = forecast_windows(params, x[..., 0], L_out, season=season)  # (B, L_out, N) feature-scaled
+        preds_ts = (preds_fs * f_scale + f_mean - t_mean) / t_scale
+        acc.update(y.transpose(1, 2)[..., None], preds_ts[..., None], valid)
     return acc.finalize()
 
 
@@ -693,6 +731,7 @@ def run_evaluation(
     workdir: str = ".",
     run_name: str | None = None,
     baselines: tuple[str, ...] = (),
+    sarima_season: int = 12,
     split: str = "test",
     tail_frac: float = 1.0,
     conformal: str | None = None,
@@ -711,9 +750,8 @@ def run_evaluation(
     on the val split in ``conformal_mode`` and saves them there; a path loads
     that file. Mode 'adaptive' adds a second, chronological pass with rolling
     offsets warm-started from the static additive ones. ``baselines`` names
-    the rows beyond the HA: 'sarima' is not ported yet and is refused."""
-    if "sarima" in baselines:
-        raise ValueError(SARIMA_REFUSAL)
+    the rows beyond the HA: 'sarima' adds the SARIMA row of season
+    ``sarima_season``, computed whole on every rank."""
     cfg = cfg.resolved()
     test_ds = eval_dataset(cfg, data_dir, split, tail_frac)
     graph = GraphData.load(os.path.join(data_dir, "graph.npz"))
@@ -750,6 +788,15 @@ def run_evaluation(
         "TEC-MoLLM": model_metrics,
         "HistoricalAverage": evaluate_baseline_streaming(test_ds, cfg.train.L_out, scaler, device=device),
     }
+    if "sarima" in baselines:
+        fscaler_path = os.path.join(data_dir, "scaler.npz")
+        fscaler = StandardScaler.load(fscaler_path) if os.path.exists(fscaler_path) else None
+        with np.load(os.path.join(data_dir, "train_set.npz")) as d:
+            train_tec = d["X"][..., 0]  # (T, N) feature-scaled
+        logger.info("fitting SARIMA baseline (season=%d)", sarima_season)
+        results["SARIMA"] = evaluate_sarima_streaming(
+            test_ds, train_tec, cfg.train.L_out, fscaler, scaler, season=sarima_season, device=device
+        )
     improvements = improvement_report(results["TEC-MoLLM"], results["HistoricalAverage"])
     # the metrics are the whole split's on every rank; rank 0 writes them
     if rank() == 0:

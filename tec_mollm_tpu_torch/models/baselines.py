@@ -6,8 +6,9 @@
 * ``HistoricalAverage``: per-(node, time-of-day slot) climatology, which the
   reference defines and never wires.
 * ``SeasonalNaive``: the matching slot of the window's last full period.
-
-The batched SARIMA baseline (``--baseline sarima``) is not ported yet.
+* ``sarima_baseline``: the reference's per-node statsmodels SARIMAX, which
+  needs statsmodels; the batched first-party fit is ``models/sarima.py``
+  (``--baseline sarima`` of the test CLI).
 """
 
 from __future__ import annotations
@@ -78,3 +79,34 @@ class SeasonalNaive:
         last_period = x_window_tec[:, L_in - self.period :, :]  # (B, period, N)
         reps = -(-L_out // self.period)
         return np.tile(last_period, (1, reps, 1))[:, :L_out, :, None]
+
+
+def sarima_baseline(*args, **kwargs):
+    """Per-node SARIMAX(1,1,1)(1,1,1,12) through statsmodels, as the
+    reference defines it. Raises ``ImportError`` without statsmodels: the
+    batched first-party fit (``models/sarima.py``, ``--baseline sarima``)
+    needs no such package."""
+    try:
+        from statsmodels.tsa.statespace.sarimax import SARIMAX
+    except ImportError as e:
+        raise ImportError(
+            "statsmodels is not available in this environment; use the first-party models/sarima.py "
+            "(python -m tec_mollm_tpu_torch.test --baseline sarima), SeasonalNaive, or HistoricalAverage"
+        ) from e
+
+    class SarimaBaseline:
+        def __init__(self, order=(1, 1, 1), seasonal_order=(1, 1, 1, 12)):
+            self.models = {}
+            self.order = order
+            self.seasonal_order = seasonal_order
+
+        def fit(self, tec: np.ndarray, node_indices: list[int]):
+            for idx in node_indices:
+                self.models[idx] = SARIMAX(tec[:, idx], order=self.order, seasonal_order=self.seasonal_order).fit(
+                    disp=False)
+            return self
+
+        def predict(self, node_indices: list[int], steps: int) -> dict[int, np.ndarray]:
+            return {idx: self.models[idx].forecast(steps=steps) for idx in node_indices if idx in self.models}
+
+    return SarimaBaseline(*args, **kwargs)

@@ -17,7 +17,12 @@ Paths, as in the JAX package:
   does (JAX's own flash branch draws no mask, but its ``ByteLM`` pretrains
   through the einsum branch, and the port's pretrains through the kernel);
 * ``use_fused_mlp=True`` sends ln_2 -> MLP -> residual of an eval call to the
-  fused kernel, whose LayerNorm is two-pass (as ``ops/fused_mlp.py`` is).
+  fused kernel, whose LayerNorm is two-pass (as ``ops/fused_mlp.py`` is);
+* ``remat=True`` recomputes each block in the backward under a named policy
+  (``REMAT_POLICIES``, the JAX backbone's): None, 'full' and
+  'nothing_saveable' save nothing and recompute the whole block;
+  'dots_saveable' saves the outputs of the matrix products (``aten.mm``,
+  ``addmm``, ``bmm``) and recomputes everything else, the kernels' ops too.
 
 Under tensor parallelism (``parallel/tensor_parallel.shard_model_``) an
 attention runs its rank's ``heads / mp`` heads through whichever path above
@@ -28,12 +33,18 @@ its ``c_proj`` row-parallel.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from tec_mollm_tpu_torch.config import ModelConfig
 from tec_mollm_tpu_torch.models.lora import LoRADense
@@ -44,6 +55,24 @@ from tec_mollm_tpu_torch.parallel.tensor_parallel import fold_model_rank, split_
 
 # Sequences up to this length use the unrolled attention (or the kernel).
 UNROLL_MAX_SEQ = 8
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Save what the matrix products return, recompute the rest (JAX's
+    ``jax.checkpoint_policies.dots_saveable``)."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# The remat policies by name: the selective-checkpoint policy of each, None
+# meaning the whole block is recomputed.
+REMAT_POLICIES = {
+    None: None,
+    "full": None,
+    "dots_saveable": _dots_saveable,
+    "nothing_saveable": None,
+}
 
 
 def lean_layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5):
@@ -199,14 +228,25 @@ class GPT2Backbone(nn.Module):
         use_flash: bool = False,
         lean_ln: bool = True,
         remat: bool = False,
+        remat_policy: str | None = None,
     ):
         super().__init__()
         self.dropout = cfg.llm_dropout
         self.norm = lean_layernorm if lean_ln else fp32_layernorm
-        # recompute each block's activations in the backward (the JAX model's
-        # remat_llm with the 'full' policy); the checkpoint restores the RNG
-        # state, so the recomputed dropout masks are the forward's
+        # recompute each block's activations in the backward under the named
+        # policy (the JAX model's remat_llm and remat_policy); the checkpoint
+        # restores the RNG state, so the recomputed dropout masks are the forward's
         self.remat = remat
+        self.context_fn = noop_context_fn
+        if remat:
+            if remat_policy not in REMAT_POLICIES:
+                raise ValueError(
+                    f"unknown remat_policy {remat_policy!r}; valid values: "
+                    f"{sorted(k for k in REMAT_POLICIES if k is not None)} (or None, meaning full remat)"
+                )
+            policy = REMAT_POLICIES[remat_policy]
+            if policy is not None:
+                self.context_fn = functools.partial(create_selective_checkpoint_contexts, policy)
         self.wpe = nn.Embedding(cfg.llm_max_positions, cfg.d_llm)
         self.h = nn.ModuleList(
             GPT2Block(cfg, fused_attn, use_fused_mlp, use_flash, lean_ln)
@@ -231,7 +271,7 @@ class GPT2Backbone(nn.Module):
         x = F.dropout(inputs_embeds + self.wpe.weight[:t].to(dt)[None], self.dropout, self.training)
         for block in self.h:
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, use_reentrant=False)
+                x = checkpoint(block, x, use_reentrant=False, context_fn=self.context_fn)
             else:
                 x = block(x)
         return self.norm(x, self.ln_f.weight, self.ln_f.bias, self.ln_f.eps)

@@ -89,8 +89,18 @@ class TECMoLLM(nn.Module):
         use_flash: bool = False,
         # the JAX model's `gat_pallas`: the stencil kernel on eval calls
         gat_kernel: bool = True,
-        # torch.utils.checkpoint around each GPT-2 block in training
+        # torch.utils.checkpoint around each GPT-2 block in training, under
+        # the named policy (models/gpt2.REMAT_POLICIES)
         remat_llm: bool = False,
+        remat_policy: str | None = None,
+        # the temporal conv blocks' execution paths (models/temporal.py), all
+        # on the unfused block's parameters; off, as in the JAX model
+        fuse_conv: bool = False,
+        lean_gn: bool = False,
+        im2col_conv: bool = False,
+        # the GPT-2 LayerNorms: single-pass fp32 statistics with the affine in
+        # the compute dtype (the JAX model's default), or two-pass fp32
+        lean_ln: bool = True,
         pad_nodes_to: int = 128,
         # the initialisers' seed; None skips them, for a caller that loads
         # every tensor (the eval path: the draws take seconds at full width)
@@ -105,9 +115,10 @@ class TECMoLLM(nn.Module):
         self.pad_nodes_to = pad_nodes_to
         self.spatio_temporal_embedding = SpatioTemporalEmbedding(cfg)
         self.spatial_encoder = SpatialEncoder(cfg, self.stencil_shifts)
-        self.temporal_encoder = TemporalEncoder(cfg)
+        self.temporal_encoder = TemporalEncoder(cfg, fuse_branches=fuse_conv, lean_gn=lean_gn, im2col=im2col_conv)
         self.llm_backbone = LLMBackbone(
-            cfg, fused_attn=fused_attn, use_fused_mlp=use_fused_mlp, use_flash=use_flash, remat=remat_llm
+            cfg, fused_attn=fused_attn, use_fused_mlp=use_fused_mlp, use_flash=use_flash, lean_ln=lean_ln,
+            remat=remat_llm, remat_policy=remat_policy,
         )
         self.post_llm_dropout = nn.Dropout(cfg.post_llm_dropout)
         self.prediction_head = PredictionHead(cfg)

@@ -7,6 +7,20 @@
   2) -> 128 (stride 2), so L 48 -> 24 -> 12.
 * ``LatentPatchingProjection``: 'b (p l) d -> b p (l d)' then Linear to d_llm.
 
+The conv block has the JAX block's three other execution paths (the ablation
+arms), each on the same parameters as the unfused block, so every arm loads
+the same state_dict:
+
+* ``fuse_branches``: the branch kernels zero-padded to the largest tap count
+  and concatenated on output channels, one conv for the three branches;
+* ``im2col``: one unfold of the input into (L, kmax * C_in) windows and one
+  GEMM with that stacked kernel;
+* ``lean_gn``: the GroupNorm statistics over the full length (single pass in
+  fp32), then normalize, affine (in the compute dtype) and GELU only at the
+  positions the strided 1x1 conv reads, and the three-branch concat replaced
+  by summed per-branch matrix products. It takes precedence over the others,
+  and ``im2col`` over ``fuse_branches``, as in the JAX block.
+
 Module names follow the reference's state_dict
 (``conv_embedder.embedder.{b}.convs.{j}.{0,1}``, ``final_conv``,
 ``patcher.projection``). The public layout is the JAX package's (B, L, C).
@@ -34,9 +48,13 @@ class MultiScaleConvBlock(nn.Module):
     def __init__(
         self, in_channels: int, out_channels: int, stride: int,
         kernel_sizes: Sequence[int] = (3, 5, 7),
+        fuse_branches: bool = False,
+        lean_gn: bool = False,
+        im2col: bool = False,
     ):
         super().__init__()
         self.stride = stride
+        self.fuse_branches, self.lean_gn, self.im2col = fuse_branches, lean_gn, im2col
         self.convs = nn.ModuleList(
             nn.Sequential(
                 nn.Conv1d(in_channels, out_channels, k, padding=(k - 1) // 2),
@@ -57,23 +75,71 @@ class MultiScaleConvBlock(nn.Module):
             nn.init.zeros_(seq[1].bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, C_in, L) channels-first -> (B, C_out, L // stride)."""
+        """x: (B, C_in, L) channels-first -> (B, C_out, ceil(L / stride))."""
+        if self.lean_gn:
+            return self._lean(x)
         dt = x.dtype
+        if self.im2col:
+            h = self._im2col_convs(x)
+        elif self.fuse_branches:
+            w, b = self._stacked_kernel(dt)
+            h = F.conv1d(x, w, b, padding=w.shape[-1] // 2)
+        else:
+            h = torch.cat([F.conv1d(x, c.weight.to(dt), c.bias.to(dt), padding=c.padding)
+                           for c, _, _ in self.convs], dim=1)
         branches = []
-        for conv, norm, _ in self.convs:
-            h = F.conv1d(x, conv.weight.to(dt), conv.bias.to(dt), padding=conv.padding)
-            h = F.group_norm(h.float(), 1, norm.weight.float(), norm.bias.float(), norm.eps)
-            branches.append(F.gelu(h.to(dt)))
+        for part, (_, norm, _) in zip(h.chunk(len(self.convs), dim=1), self.convs):
+            part = F.group_norm(part.float(), 1, norm.weight.float(), norm.bias.float(), norm.eps)
+            branches.append(F.gelu(part.to(dt)))
         fc = self.final_conv
         return F.conv1d(torch.cat(branches, dim=1), fc.weight.to(dt), fc.bias.to(dt), stride=self.stride)
 
+    def _stacked_kernel(self, dt: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        """(3 * C_out, C_in, kmax), (3 * C_out,): the branch kernels padded
+        symmetrically with zero taps to kmax (a k-tap SAME conv is a kmax-tap
+        one with zeros outside its taps), concatenated on output channels."""
+        kmax = max(c.kernel_size[0] for c, _, _ in self.convs)
+        pad = [(kmax - c.kernel_size[0]) // 2 for c, _, _ in self.convs]
+        w = torch.cat([F.pad(c.weight, (p, p)) for (c, _, _), p in zip(self.convs, pad)])
+        return w.to(dt), torch.cat([c.bias for c, _, _ in self.convs]).to(dt)
+
+    def _im2col_convs(self, x: torch.Tensor) -> torch.Tensor:
+        """The three branch convs as one unfold of x (B, C_in, L) into
+        (B, L, kmax * C_in) windows and one GEMM with the stacked kernel as a
+        (kmax * C_in, 3 * C_out) matrix; (B, 3 * C_out, L)."""
+        w, b = self._stacked_kernel(x.dtype)
+        kmax = w.shape[-1]
+        windows = F.pad(x, (kmax // 2, kmax // 2)).unfold(2, kmax, 1)    # (B, C_in, L, kmax)
+        windows = windows.permute(0, 2, 3, 1).flatten(2)                 # (B, L, kmax * C_in), tap-major
+        big = w.permute(2, 1, 0).reshape(-1, w.shape[0])                 # (kmax * C_in, 3 * C_out)
+        return (windows @ big + b).transpose(1, 2)
+
+    def _lean(self, x: torch.Tensor) -> torch.Tensor:
+        """GroupNorm statistics over the full length, in fp32 from
+        E[h^2] - mu^2; normalize, affine and GELU only at every stride-th
+        position; per-branch partial products with the final kernel summed."""
+        dt = x.dtype
+        fc = self.final_conv
+        c = fc.out_channels
+        out = None
+        for i, (conv, norm, _) in enumerate(self.convs):
+            h = F.conv1d(x, conv.weight.to(dt), conv.bias.to(dt), padding=conv.padding)
+            hf = h.float()
+            mean = hf.mean(dim=(1, 2), keepdim=True)
+            var = hf.square().mean(dim=(1, 2), keepdim=True) - mean.square()
+            act = ((h[:, :, :: self.stride].float() - mean) * torch.rsqrt(var + norm.eps)).to(dt)
+            act = F.gelu(act * norm.weight.to(dt)[:, None] + norm.bias.to(dt)[:, None])
+            part = fc.weight[:, i * c : (i + 1) * c, 0].to(dt) @ act       # (B, C_out, ceil(L / stride))
+            out = part if out is None else out + part
+        return out + fc.bias.to(dt)[:, None]
+
 
 class _ConvEmbedder(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, **arms):
         super().__init__()
         chans = (cfg.spatial_channels,) + tuple(cfg.temporal_channel_list)
         self.embedder = nn.ModuleList(
-            MultiScaleConvBlock(cin, cout, s, cfg.conv_kernel_sizes)
+            MultiScaleConvBlock(cin, cout, s, cfg.conv_kernel_sizes, **arms)
             for cin, cout, s in zip(chans[:-1], chans[1:], cfg.temporal_strides)
         )
 
@@ -102,9 +168,9 @@ class LatentPatchingProjection(nn.Module):
 
 
 class TemporalEncoder(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, fuse_branches: bool = False, lean_gn: bool = False, im2col: bool = False):
         super().__init__()
-        self.conv_embedder = _ConvEmbedder(cfg)
+        self.conv_embedder = _ConvEmbedder(cfg, fuse_branches=fuse_branches, lean_gn=lean_gn, im2col=im2col)
         self.patcher = LatentPatchingProjection(
             cfg.effective_patch_len, cfg.temporal_channel_list[-1], cfg.d_llm
         )

@@ -1,0 +1,216 @@
+"""The batched SARIMA(1,1,1)x(1,1,1,s) recursions: CUDA kernels + plain versions.
+
+No TPU kernel is replaced here. The JAX package runs the conditional-sum-of-
+squares (CSS) innovations recursion as a ``lax.scan`` inside one jitted
+program (``tec_mollm_tpu/models/sarima.py:_innovations``, differentiated by
+``jax.value_and_grad`` in ``fit_sarima`` and stepped ahead in
+``_forecast_jit``). Eager PyTorch would launch a few ops for each of ~2000
+time steps, forward and backward, in each of 400 Adam steps; the kernels in
+``csrc/sarima.cu`` make each pass one launch:
+
+* ``css_forward`` (one thread a node): the innovations e (T, N) of the
+  differenced series y (T, N) under the coefficients (4, N) = (phi, Phi,
+  theta, Theta), and each node's sum of e_t^2 over t >= s + 1;
+* ``css_backward`` (one thread a node): the hand adjoint of that sum,
+  backwards in t, giving d(scale/2 * sum e^2)/d coefficients (4, N);
+* ``forecast`` (one thread a (window, node)): the recursion over each
+  window's history, then ``L_out`` steps ahead with future innovations 0 and
+  the double difference inverted.
+
+Their bound on this card is bytes (a fit step at T = 1987, N = 2911 moves
+92.6 MB, 27.6 us at 3.35 TB/s); what holds them above it is the serial chain
+of T steps each thread walks (``PERF.md``). The plain versions compute the
+same math vectorised over nodes (and windows) with a Python loop over time:
+the CPU's path, and what ``chip_smoke.py`` holds the kernels against. A CUDA
+tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tec_mollm_tpu_torch.ops import _build
+
+FORWARD, BACKWARD, FORECAST = "sarima_css", "sarima_css_bwd", "sarima_forecast"
+
+
+def lagged(y: torch.Tensor, season: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Zero-padded lag views y_{t-1}, y_{t-s}, y_{t-s-1}, aligned with y (time first)."""
+
+    def lag(k: int) -> torch.Tensor:
+        return torch.cat([y.new_zeros((k,) + y.shape[1:]), y[:-k]])
+
+    return lag(1), lag(season), lag(season + 1)
+
+
+def css_forward_reference(
+    y: torch.Tensor, coeffs: torch.Tensor, season: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(e, partial): the innovations (T, N) and each node's sum of e_t^2 over
+    t >= season + 1. Differentiable under autograd."""
+    phi, sphi, theta, stheta = coeffs
+    y1, ys, ys1 = lagged(y, season)
+    ar = y - phi * y1 - sphi * ys + phi * sphi * ys1
+    zero = torch.zeros_like(ar[0])
+    e: list[torch.Tensor] = []
+    for t in range(y.shape[0]):
+        e1 = e[t - 1] if t >= 1 else zero
+        es = e[t - season] if t >= season else zero
+        es1 = e[t - season - 1] if t >= season + 1 else zero
+        e.append(ar[t] - theta * e1 - stheta * es - theta * stheta * es1)
+    eps = torch.stack(e)
+    return eps, eps[season + 1 :].square().sum(0)
+
+
+def css_backward_reference(
+    y: torch.Tensor, e: torch.Tensor, coeffs: torch.Tensor, season: int, scale: float
+) -> torch.Tensor:
+    """(4, N): the gradient of scale/2 * sum_{t >= s+1} e_t^2 with respect to
+    (phi, Phi, theta, Theta), by the adjoint g_t = scale e_t [t >= s+1]
+    - theta g_{t+1} - Theta g_{t+s} - theta Theta g_{t+s+1} run backwards in t."""
+    phi, sphi, theta, stheta = coeffs
+    steps = y.shape[0]
+    zero = torch.zeros_like(y[0])
+    g: list[torch.Tensor | None] = [None] * steps
+
+    def later(t: int) -> torch.Tensor:
+        return g[t] if t < steps else zero
+
+    for t in reversed(range(steps)):
+        own = scale * e[t] if t >= season + 1 else zero
+        g[t] = own - theta * later(t + 1) - stheta * later(t + season) - theta * stheta * later(t + season + 1)
+    adj = torch.stack(g)
+    y1, ys, ys1 = lagged(y, season)
+    e1, es, es1 = lagged(e, season)
+    return -torch.stack([
+        (adj * (y1 - sphi * ys1)).sum(0),
+        (adj * (ys - phi * ys1)).sum(0),
+        (adj * (e1 + stheta * es1)).sum(0),
+        (adj * (es + theta * es1)).sum(0),
+    ])
+
+
+def difference(x: torch.Tensor, season: int) -> torch.Tensor:
+    """(T, ...) -> ((1-B)(1-B^s) x) of length T - season - 1."""
+    d1 = x[1:] - x[:-1]
+    return d1[season:] - d1[:-season]
+
+
+def forecast_reference(x: torch.Tensor, coeffs: torch.Tensor, horizon: int, season: int) -> torch.Tensor:
+    """x (B, L, N) raw windows -> (B, horizon, N): the recursion over each
+    window's differenced history, then ``horizon`` steps with future
+    innovations 0, inverting x_t = y_t + x_{t-1} + x_{t-s} - x_{t-s-1}."""
+    b, length, n = x.shape
+    xt = x.transpose(0, 1).reshape(length, b * n)
+    c = coeffs[:, None, :].expand(4, b, n).reshape(4, b * n)
+    phi, sphi, theta, stheta = c
+    y = difference(xt, season)
+    e, _ = css_forward_reference(y, c, season)
+    ys, es, xs = list(y), list(e), list(xt)
+    out = []
+    for _ in range(horizon):
+        y_next = (
+            phi * ys[-1] + sphi * ys[-season] - phi * sphi * ys[-season - 1]
+            + theta * es[-1] + stheta * es[-season] + theta * stheta * es[-season - 1]
+        )
+        x_next = y_next + xs[-1] + xs[-season] - xs[-season - 1]
+        ys.append(y_next)
+        es.append(torch.zeros_like(y_next))
+        xs.append(x_next)
+        out.append(x_next)
+    return torch.stack(out).reshape(horizon, b, n).transpose(0, 1)
+
+
+def _check(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous float32 tensors, got {t.dtype} (contiguous {t.is_contiguous()})")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: the tensors lie on different devices")
+
+
+def css_forward(y: torch.Tensor, coeffs: torch.Tensor, season: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(e, partial) of ``css_forward_reference``: the plain version on the
+    CPU, the kernel on the card."""
+    steps, n = y.shape
+    if tuple(coeffs.shape) != (4, n) or season < 1:
+        raise ValueError(f"coeffs {tuple(coeffs.shape)} must be (4, {n}) and season >= 1, got {season}")
+    if y.device.type == "cpu":
+        return css_forward_reference(y, coeffs, season)
+    _build.refuse_grad(FORWARD, "fit through css_loss_and_grad", y, coeffs)
+    _check(FORWARD, y, coeffs)
+    e = torch.empty_like(y)
+    partial = torch.empty(n, dtype=torch.float32, device=y.device)
+    fn = _build.function("sarima_css_forward", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    err = fn(y.data_ptr(), coeffs.data_ptr(), e.data_ptr(), partial.data_ptr(), steps, n, season,
+             _build.stream_handle(y.device))
+    _build.check(FORWARD, err)
+    _build.count_launch(FORWARD)
+    return e, partial
+
+
+def css_backward(
+    y: torch.Tensor, e: torch.Tensor, coeffs: torch.Tensor, season: int, scale: float
+) -> torch.Tensor:
+    """(4, N) of ``css_backward_reference``: the plain version on the CPU,
+    the kernel on the card."""
+    steps, n = y.shape
+    if tuple(e.shape) != (steps, n) or tuple(coeffs.shape) != (4, n):
+        raise ValueError(f"e {tuple(e.shape)} and coeffs {tuple(coeffs.shape)} do not fit y {(steps, n)}")
+    if y.device.type == "cpu":
+        return css_backward_reference(y, e, coeffs, season, scale)
+    _build.refuse_grad(BACKWARD, "fit through css_loss_and_grad", y, e, coeffs)
+    _check(BACKWARD, y, e, coeffs)
+    grad = torch.empty((4, n), dtype=torch.float32, device=y.device)
+    fn = _build.function(
+        "sarima_css_backward",
+        [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    )
+    err = fn(y.data_ptr(), e.data_ptr(), coeffs.data_ptr(), grad.data_ptr(), float(scale), steps, n, season,
+             _build.stream_handle(y.device))
+    _build.check(BACKWARD, err)
+    _build.count_launch(BACKWARD)
+    return grad
+
+
+def _loss_and_grad(raw, y, season, forward, backward) -> tuple[torch.Tensor, torch.Tensor]:
+    tanh = torch.tanh(raw)
+    coeffs = (0.99 * tanh).contiguous()
+    count = (y.shape[0] - season - 1) * y.shape[1]
+    e, partial = forward(y, coeffs, season)
+    grad = backward(y, e, coeffs, season, 2.0 / count)
+    return partial.sum() / count, grad * (0.99 * (1.0 - tanh * tanh))
+
+
+def css_loss_and_grad(raw: torch.Tensor, y: torch.Tensor, season: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(loss, d loss / d raw) of the CSS objective: the mean of e_t^2 over
+    t >= season + 1 and every node, with coefficients 0.99 tanh(raw)."""
+    return _loss_and_grad(raw, y, season, css_forward, css_backward)
+
+
+def css_loss_and_grad_reference(raw: torch.Tensor, y: torch.Tensor, season: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``css_loss_and_grad`` through the plain versions on any device."""
+    return _loss_and_grad(raw, y, season, css_forward_reference, css_backward_reference)
+
+
+def forecast(x: torch.Tensor, coeffs: torch.Tensor, horizon: int, season: int) -> torch.Tensor:
+    """(B, horizon, N) of ``forecast_reference``: the plain version on the
+    CPU, the kernel on the card."""
+    b, length, n = x.shape
+    if tuple(coeffs.shape) != (4, n):
+        raise ValueError(f"coeffs {tuple(coeffs.shape)} must be (4, {n})")
+    if length < 2 * (season + 1) or horizon < 1:
+        raise ValueError(f"windows of {length} steps and horizon {horizon} do not fit season {season}")
+    if x.device.type == "cpu":
+        return forecast_reference(x, coeffs, horizon, season)
+    _build.refuse_grad(FORECAST, "the forecast is not differentiable on the card", x, coeffs)
+    _check(FORECAST, x, coeffs)
+    out = torch.empty((b, horizon, n), dtype=torch.float32, device=x.device)
+    fn = _build.function("sarima_forecast", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    err = fn(x.data_ptr(), coeffs.data_ptr(), out.data_ptr(), b, length, n, season, horizon,
+             _build.stream_handle(x.device))
+    _build.check(FORECAST, err)
+    _build.count_launch(FORECAST)
+    return out

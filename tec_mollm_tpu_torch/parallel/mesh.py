@@ -93,10 +93,18 @@ def local_device() -> torch.device | None:
 
 
 def init_distributed(
-    backend: str | None = None, device: str | torch.device | None = None, model_parallel: int = 1
+    backend: str | None = None,
+    device: str | torch.device | None = None,
+    model_parallel: int = 1,
+    init_method: str | None = None,
 ) -> torch.device:
-    """Join the env:// process group, build the data and model groups of a
+    """Join the process group, build the data and model groups of a
     ``data x model_parallel`` layout, and return this process's device.
+
+    The rendezvous is ``init_method`` when given (for example
+    ``file:///path``, a store no other group can take), with the rank and
+    world from ``RANK`` and ``WORLD_SIZE``; else ``env://``, as ``torchrun``
+    describes it (``MASTER_ADDR``, ``MASTER_PORT`` too).
 
     ``device`` None is the card ``LOCAL_RANK`` (which becomes the current
     CUDA device); ``"cpu"`` runs on the CPU. The backend defaults to NCCL on
@@ -115,7 +123,8 @@ def init_distributed(
                 f"the process group was made with model_parallel={_model_parallel}, not {model_parallel}"
             )
         return _local_device
-    missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT") if k not in os.environ]
+    needed = ("RANK", "WORLD_SIZE") if init_method else ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+    missing = [k for k in needed if k not in os.environ]
     if missing:
         raise RuntimeError(
             f"no process group to join: {', '.join(missing)} unset (launch with torchrun, which sets them)"
@@ -137,7 +146,11 @@ def init_distributed(
         torch.cuda.set_device(dev)
     else:
         backend = backend or "gloo"
-    dist.init_process_group(backend=backend, init_method="env://")
+    if init_method:
+        dist.init_process_group(backend=backend, init_method=init_method, rank=int(os.environ["RANK"]),
+                                world_size=int(os.environ["WORLD_SIZE"]))
+    else:
+        dist.init_process_group(backend=backend, init_method="env://")
     _local_device = dev
     _init_groups(model_parallel)
     return dev

@@ -13,8 +13,9 @@ rollout::
 best_params.pt``), the port's ``best_params.pt`` or a reference ``.pth``. The
 config is --config, else the config.json beside the checkpoint, else the flag
 defaults. It runs on the GPU and raises without one; ``--cpu`` asks for the
-CPU. ``--baseline sarima`` is refused before anything loads: the SARIMA
-baseline is not ported yet (ROADMAP Queue A item 8).
+CPU. ``--baseline sarima`` adds the batched SARIMA row (``models/sarima.py``):
+fitted once on the train split's TEC with season ``--sarima-season``, its
+recursions the kernels of ``ops/sarima.py`` on the card.
 """
 
 from __future__ import annotations
@@ -42,9 +43,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="preset name or config json (e.g. checkpoints/<run>/config.json); overrides the "
                         "individual model flags")
     p.add_argument("--baseline", action="append", default=[], choices=["sarima"],
-                   help="additional baseline rows beyond the HA: 'sarima' is not ported yet and is refused")
+                   help="additional baseline rows beyond the HA (sarima: the batched CSS SARIMA fit on "
+                        "the train split)")
     p.add_argument("--sarima-season", type=int, default=12,
-                   help="seasonal period s for --baseline sarima (kept for the flag surface)")
+                   help="seasonal period s for --baseline sarima")
     p.add_argument("--split", default="test", choices=["train", "val", "test"],
                    help="which processed split to score; '--split val --tail-frac 0.3' is the shift-aware "
                         "model-selection probe")
@@ -69,12 +71,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="also run an autoregressive rollout eval this many steps beyond L_out")
     p.add_argument("--rollout-windows", type=int, default=8)
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
-    args = p.parse_args(argv)
-    if args.baseline:
-        from tec_mollm_tpu_torch.evaluation.harness import SARIMA_REFUSAL
-
-        p.error(SARIMA_REFUSAL)
-    return args
+    return p.parse_args(argv)
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -103,6 +100,8 @@ def main(argv: list[str] | None = None) -> dict:
         batch_size=args.batch_size if args.batch_size is not None else cfg.train.eval_batch_size,
         workdir=args.workdir,
         run_name=args.run_name,
+        baselines=tuple(args.baseline),
+        sarima_season=args.sarima_season,
         split=args.split,
         tail_frac=args.tail_frac,
         conformal=None if args.conformal == "off" else args.conformal,

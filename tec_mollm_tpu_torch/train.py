@@ -32,9 +32,6 @@ divisibility message. The effective batch is ``batch_size *
 accumulation_steps * world / model_parallel``; rank 0 writes
 ``config.json``, the checkpoints (whole tensors) and the history, and the
 other ranks log warnings only.
-
-Refused, with the ROADMAP item that brings them: remat policies other than
-full recomputation.
 """
 
 from __future__ import annotations
@@ -170,11 +167,8 @@ def build_trainer(args: argparse.Namespace, cfg):
     from tec_mollm_tpu_torch.graph.builder import GraphData
     from tec_mollm_tpu_torch import parallel
     from tec_mollm_tpu_torch.parallel import local_device, rank
-    from tec_mollm_tpu_torch.training.trainer import Trainer, unsupported
+    from tec_mollm_tpu_torch.training.trainer import Trainer
 
-    reason = unsupported(cfg)
-    if reason is not None:
-        raise SystemExit(f"train: {reason}")
     if not parallel.is_initialized():
         try:  # one process is one card
             parallel.check_model_parallel(1, cfg.train.model_parallel)

@@ -52,8 +52,9 @@ losses and metrics run over the data group, and the checkpoints hold whole
 tensors (gathered over the model group before rank 0 writes), so they resume
 on any layout at an epoch boundary and serve on one card.
 
-Not ported here (refused by ``unsupported``): the remat policies other than
-full recomputation.
+``remat_llm`` recomputes the GPT-2 blocks in the backward under
+``remat_policy`` (``models/gpt2.REMAT_POLICIES``: whole blocks, or
+``dots_saveable``'s saved matrix products).
 """
 
 from __future__ import annotations
@@ -110,18 +111,6 @@ from tec_mollm_tpu_torch.utils.run_name import make_run_name
 logger = logging.getLogger(__name__)
 
 
-def unsupported(cfg: Config) -> str | None:
-    """Why the port cannot train ``cfg`` yet, naming the ROADMAP item that
-    brings it, or None."""
-    t = cfg.train
-    if t.remat_policy not in (None, "full"):
-        return (
-            f"remat_policy={t.remat_policy!r}: the port recomputes whole GPT-2 blocks only "
-            "(None or 'full'); the other policies come with ROADMAP Queue A item 9"
-        )
-    return None
-
-
 class Trainer:
     def __init__(
         self,
@@ -135,9 +124,6 @@ class Trainer:
         device: str | torch.device | None = None,
     ):
         cfg = cfg.resolved()
-        reason = unsupported(cfg)
-        if reason is not None:
-            raise ValueError(reason)
         # one process a card: the process group's layout must be the config's
         mp = cfg.train.model_parallel
         if not is_initialized():
@@ -158,7 +144,7 @@ class Trainer:
         # trainer builds its model
         self.model = TECMoLLM(
             cfg.model, stencil_shifts, dtype=torch.bfloat16 if cfg.train.bf16 else torch.float32,
-            remat_llm=cfg.train.remat_llm, seed=cfg.train.seed,
+            remat_llm=cfg.train.remat_llm, remat_policy=cfg.train.remat_policy, seed=cfg.train.seed,
         ).to(self.device)
         # every rank built the same seeded model; each keeps its slices
         shard_model_(self.model, model_rank(), mp)

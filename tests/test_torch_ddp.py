@@ -19,9 +19,9 @@ import dataclasses
 import json
 import os
 import shutil
-import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -52,30 +52,50 @@ def ddp_cfg(batch_size: int, **train):
     return _cfg(dropout=False, lr=1e-3, batch_size=batch_size, accumulation_steps=2, train_stride=1, **train)
 
 
+class Ranks:
+    """``world`` worker processes (tests/torch_ddp_worker.py) running one job,
+    started at construction; ``wait`` gives their rank<r>.json records. Each rank's stdout and stderr go to
+    ``<out>/rank<r>.log``, a file, so that no rank ever blocks on a full pipe
+    while the test waits on another."""
+
+    def __init__(self, tmp, name: str, job: dict, world: int):
+        self.out = os.path.join(tmp, f"{name}_out")
+        os.makedirs(self.out, exist_ok=True)
+        path = os.path.join(tmp, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump({**job, "out": self.out}, f)
+        env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
+        self.logs = [os.path.join(self.out, f"rank{r}.log") for r in range(world)]
+        self.started = time.monotonic()
+        self.procs = []
+        for r, log in enumerate(self.logs):
+            with open(log, "w") as f:
+                self.procs.append(subprocess.Popen([sys.executable, WORKER, path, str(r), str(world)], env=env,
+                                                   stdout=f, stderr=subprocess.STDOUT))
+
+    def wait(self, timeout: float) -> list[dict]:
+        """The records, once every rank exits 0 within ``timeout`` seconds of
+        the start; else an assertion that holds each failing rank's output."""
+        try:
+            for p in self.procs:
+                p.wait(timeout=max(timeout - (time.monotonic() - self.started), 0.1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            running = [p.poll() is None for p in self.procs]
+            for p in self.procs:
+                p.kill()
+                p.wait()
+        elapsed = time.monotonic() - self.started
+        for r, (p, log, killed) in enumerate(zip(self.procs, self.logs, running)):
+            why = f"was killed at the {timeout:.0f} s limit" if killed else f"exited {p.returncode}"
+            assert not killed and p.returncode == 0, f"rank {r} {why} after {elapsed:.1f} s:\n{open(log).read()[-4000:]}"
+        return [json.load(open(os.path.join(self.out, f"rank{r}.json"))) for r in range(len(self.procs))]
+
+
 def run_ranks(tmp, name: str, job: dict, world: int = WORLD, timeout: float = 240) -> list[dict]:
     """Run ``job`` on ``world`` worker processes; their rank<r>.json records."""
-    out = os.path.join(tmp, f"{name}_out")
-    job = {**job, "out": out}
-    path = os.path.join(tmp, f"{name}.json")
-    with open(path, "w") as f:
-        json.dump(job, f)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
-    procs = [
-        subprocess.Popen([sys.executable, WORKER, path, str(r), str(world), str(port)], env=env,
-                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(world)
-    ]
-    try:
-        logs = [p.communicate(timeout=timeout) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for r, (p, (_, err)) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{err[-4000:]}"
-    return [json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(world)]
+    return Ranks(tmp, name, job, world).wait(timeout)
 
 
 def arrays(records_dir: str, r: int) -> dict:

@@ -451,12 +451,27 @@ class TestCLIs:
             np.testing.assert_array_equal(f["indices"], [0, 5])
         assert out["mae"] > 0
 
-    def test_sarima_is_refused_before_loading(self, tmp_path, capsys):
-        with pytest.raises(SystemExit):
-            test_cli.main(["--cpu", "--baseline", "sarima", "--checkpoint", str(tmp_path / "missing.pt")])
-        assert "ROADMAP Queue A item 8" in capsys.readouterr().err
-        with pytest.raises(ValueError, match="ROADMAP Queue A item 8"):
-            harness.run_evaluation(tiny(), str(tmp_path), str(tmp_path / "missing.pt"), baselines=("sarima",))
+    def test_sarima_is_refused_before_loading(self, eval_dir, tmp_path):
+        """Ported: --baseline sarima is no longer refused by the parser (a
+        missing checkpoint now fails at its load), and the CLI writes a finite
+        SARIMA row beside the HA's; a season the windows cannot condition is
+        refused with the JAX package's message. (The row against JAX's is
+        tests/test_torch_sarima_jax.py.)"""
+        with pytest.raises(FileNotFoundError):
+            test_cli.main(["--cpu", "--data-dir", eval_dir, "--baseline", "sarima",
+                           "--checkpoint", str(tmp_path / "missing.pt")])
+        save_run(tmp_path, "s", tiny(), 0)
+        out_dir = str(tmp_path / "out")
+        args = ["--cpu", "--data-dir", eval_dir, "--workdir", str(tmp_path), "--baseline", "sarima",
+                "--output-dir", out_dir]
+        out = test_cli.main(args + ["--sarima-season", "4"])
+        rows = open(os.path.join(out_dir, "evaluation_results.csv")).read().splitlines()
+        assert [r.split(",")[0] for r in rows[1:]] == ["TEC-MoLLM", "HistoricalAverage", "SARIMA"]
+        assert all(np.isfinite(float(v)) for v in rows[3].split(",")[1:])
+        assert "SARIMA:" in open(os.path.join(out_dir, "evaluation_summary.txt")).read()
+        assert out["results"]["SARIMA"]["mae_avg"] > 0
+        with pytest.raises(ValueError, match="L_in=16 too short"):
+            test_cli.main(args + ["--sarima-season", "12"])
 
     @pytest.mark.parametrize("cli", ["test", "predict"])
     def test_no_cuda_without_cpu_raises(self, cli, eval_dir, tmp_path, monkeypatch):

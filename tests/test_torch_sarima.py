@@ -1,0 +1,129 @@
+"""PyTorch port: the batched SARIMA baseline on its own (models/sarima.py,
+ops/sarima.py), on the CPU.
+
+* The hand adjoint of the plain version (``css_backward_reference``) against
+  torch autograd through the plain forward loop, within 1e-5 (both fp32,
+  summed in other orders);
+* the JAX package's ``ValueError``s for a short series and a short window;
+* the wrappers take the plain version for a CPU tensor only: a tensor off the
+  CPU goes to the kernel, whose build raises here (no CUDA toolchain);
+* ``sarima_baseline`` (statsmodels' SARIMAX) raises ``ImportError`` here, as
+  JAX's does; ``create_features_and_targets`` is the two calls it wraps.
+
+The parity with the JAX package is tests/test_torch_sarima_jax.py."""
+
+import numpy as np
+import pytest
+import torch
+
+from tec_mollm_tpu_torch.data.features import build_split_tensors, create_features_and_targets
+from tec_mollm_tpu_torch.data.hdf5_io import load_and_split_data
+from tec_mollm_tpu_torch.data.synthetic import write_synthetic_hdf5
+from tec_mollm_tpu_torch.models import baselines
+from tec_mollm_tpu_torch.models.sarima import SarimaParams, fit_sarima, forecast_windows
+from tec_mollm_tpu_torch.ops import sarima as ops
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+
+def _series(steps: int, nodes: int, season: int, seed: int = 0) -> torch.Tensor:
+    """A differenced, per-node scaled seasonal random walk, as fit_sarima feeds the recursion."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(steps)[:, None]
+    x = np.sin(2 * np.pi * t / season) + 0.3 * rng.standard_normal((steps, nodes)).cumsum(axis=0)
+    y = ops.difference(torch.tensor(x, dtype=torch.float32), season)
+    return (y / y.std(dim=0, correction=0)).contiguous()
+
+
+@pytest.mark.parametrize("season", [1, 4, 12])
+def test_hand_adjoint_is_autograd_of_the_forward_loop(season):
+    y = _series(80, 5, season)
+    raw = torch.tensor(np.random.default_rng(1).normal(0, 0.5, (4, 5)), dtype=torch.float32, requires_grad=True)
+    coeffs = 0.99 * torch.tanh(raw)
+    count = (y.shape[0] - season - 1) * y.shape[1]
+    _, partial = ops.css_forward_reference(y, coeffs, season)
+    (partial.sum() / count).backward()
+    loss, grad = ops.css_loss_and_grad(raw.detach(), y, season)
+    assert loss.item() == pytest.approx((partial.sum() / count).item(), rel=1e-6)
+    np.testing.assert_allclose(grad.numpy(), raw.grad.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_adjoint_of_each_coefficient_is_autograd():
+    """d (scale/2 sum e^2) / d coefficients, the kernel's own output, against autograd."""
+    season, scale = 3, 0.37
+    y = _series(50, 3, season, seed=2)
+    coeffs = torch.tensor(np.random.default_rng(3).uniform(-0.8, 0.8, (4, 3)), dtype=torch.float32,
+                          requires_grad=True)
+    e, partial = ops.css_forward_reference(y, coeffs, season)
+    (scale / 2 * partial.sum()).backward()
+    got = ops.css_backward_reference(y, e.detach(), coeffs.detach(), season, scale)
+    np.testing.assert_allclose(got.numpy(), coeffs.grad.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_the_jax_guards():
+    with pytest.raises(ValueError, match="too short"):
+        fit_sarima(np.zeros((20, 2)), season=12, device="cpu")
+    rng = np.random.default_rng(4)
+    params = fit_sarima(rng.standard_normal((60, 2)).cumsum(axis=0), season=4, steps=3, device="cpu")
+    with pytest.raises(ValueError, match="L_in"):
+        forecast_windows(params, np.zeros((2, 8, 2)), L_out=4, season=4, device="cpu")
+
+
+def test_forecast_keeps_the_callers_array_kind():
+    """numpy in, numpy out (the JAX contract); a tensor stays a tensor."""
+    params = SarimaParams(*(np.full(3, v, np.float32) for v in (0.5, 0.2, -0.3, -0.1)))
+    wins = np.random.default_rng(5).standard_normal((2, 12, 3)).astype(np.float32)
+    got = forecast_windows(params, wins, L_out=4, season=4, device="cpu")
+    assert isinstance(got, np.ndarray) and got.shape == (2, 4, 3)
+    again = forecast_windows(params, torch.from_numpy(wins), L_out=4, season=4)
+    assert isinstance(again, torch.Tensor)
+    np.testing.assert_array_equal(again.numpy(), got)
+
+
+def test_forecast_of_a_pure_seasonal_cycle_repeats_it():
+    """All coefficients 0: y = 0 ahead, so x_t = x_{t-1} + x_{t-s} - x_{t-s-1}
+    continues a cycle of period s exactly."""
+    s = 4
+    cycle = np.array([1.0, 3.0, 2.0, 5.0], np.float32)
+    wins = np.tile(cycle, 3)[None, :, None] + np.float32(10.0)
+    params = SarimaParams(*(np.zeros(1, np.float32) for _ in range(4)))
+    got = forecast_windows(params, wins, L_out=8, season=s, device="cpu")
+    np.testing.assert_allclose(got[0, :, 0], np.tile(cycle, 2) + 10.0, atol=1e-5)
+
+
+def test_a_device_tensor_never_falls_back():
+    """A tensor off the CPU goes to the kernel or raises: without a CUDA
+    toolchain the build raises, never the plain version."""
+    y = torch.empty(30, 4, device="meta")
+    coeffs = torch.empty(4, 4, device="meta")
+    with pytest.raises(ValueError, match="coeffs"):
+        ops.css_forward(y, torch.empty(3, 4, device="meta"), 4)
+    if not torch.cuda.is_available():
+        for call in (lambda: ops.css_forward(y, coeffs, 4),
+                     lambda: ops.css_backward(y, y, coeffs, 4, 1.0),
+                     lambda: ops.forecast(torch.empty(2, 12, 4, device="meta"), coeffs, 3, 4)):
+            with pytest.raises(RuntimeError, match="nvcc|CUDA"):
+                call()
+
+
+def test_sarima_baseline_needs_statsmodels():
+    try:
+        import statsmodels  # noqa: F401
+    except ImportError:
+        with pytest.raises(ImportError, match="statsmodels is not available"):
+            baselines.sarima_baseline()
+    else:
+        assert hasattr(baselines.sarima_baseline(), "fit")
+
+
+def test_create_features_and_targets_is_the_two_steps(tmp_path):
+    paths = []
+    for year, seed in ((2020, 0), (2022, 1), (2024, 2)):
+        paths.append(str(tmp_path / f"tec_{year}.h5"))
+        write_synthetic_hdf5(paths[-1], year=year, num_steps=40, grid_h=4, grid_w=5, seed=seed)
+    got = create_features_and_targets(paths, horizon=6)
+    want = build_split_tensors(load_and_split_data(paths), 6)
+    assert set(got) == set(want) == {"train", "val", "test"}
+    for split in want:
+        assert set(got[split]) == set(want[split])
+        for k in want[split]:
+            np.testing.assert_array_equal(got[split][k], want[split][k], err_msg=f"{split}/{k}")

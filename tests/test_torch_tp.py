@@ -5,7 +5,8 @@ thread each) runs every stage in turn, each in a process group of its own:
 
 * ``mp2``: dp 1 x mp 2, the ``Trainer`` at batch 2 (the 1-rank run's global
   macro batch), then the evaluation library on its best checkpoint;
-* ``dp2mp2``: dp 2 x mp 2 at batch 1 a data rank, the same global batch;
+* ``dp2mp2``: dp 2 x mp 2 at batch 1 a data rank, the same global batch,
+  then ``run_evaluation`` at batch 5, which the 2 data ranks round up to 6;
 * ``grad``: two train steps of a fresh dp 1 x mp 2 ``Trainer`` with a clip
   that engages: the second step's clip norm and whole clipped gradients;
 * ``mid``: a dp 1 x mp 2 epoch with a checkpoint every 3 macro steps;
@@ -14,6 +15,11 @@ thread each) runs every stage in turn, each in a process group of its own:
   an HF GPT-2 checkpoint (``--gpt2-checkpoint``);
 * ``bench1`` / ``bench2``: ``python -m tec_mollm_tpu_torch.bench --quick
   --cpu`` at world 1 and 2.
+
+Each stage's group meets at a file store of its own, made when the stage
+starts (tests/torch_ddp_worker.py): a port picked before the spawn could be
+taken by another process by the time a later stage binds it. The 1-rank
+references run in this process while the ranks run.
 
 Every config is fp32 with every dropout at 0, so the splits change only the
 order of fp32 sums: losses within 1e-5 relative of 1 rank, the same best
@@ -24,12 +30,11 @@ package's dp x tp parity is tests/test_torch_tp_jax.py."""
 import json
 import os
 import shutil
-import socket
 
 import numpy as np
 import pytest
 import torch
-from test_torch_ddp import WINDOWS, arrays, ddp_cfg, run_ranks
+from test_torch_ddp import WINDOWS, Ranks, arrays, ddp_cfg
 from test_torch_trainer import _trainer, _write_processed
 
 from tec_mollm_tpu_torch import bench, parallel
@@ -47,12 +52,8 @@ from tec_mollm_tpu_torch.serving import ForecastService
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CLIP = 1e-3  # the grad stage's clip: far below the tiny model's gradient norm
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+# the dp2mp2 stage's extra evaluation batch: not a multiple of its 2 data ranks
+ODD_EVAL_BATCH = 5
 
 
 def _write_cfg(path, cfg) -> str:
@@ -80,7 +81,8 @@ def tp(tmp_path_factory):
     stages = [
         {**common, "name": "mp2", "world": 2, "config": b2, "workdir": work["mp2"], "eval": True,
          "record_params": True},
-        {**common, "name": "dp2mp2", "world": 4, "config": b1, "workdir": work["dp2mp2"]},
+        {**common, "name": "dp2mp2", "world": 4, "config": b1, "workdir": work["dp2mp2"],
+         "eval_batch": ODD_EVAL_BATCH},
         {**common, "kind": "grad", "name": "grad", "world": 2, "config": clip, "workdir": work["grad"]},
         {**common, "name": "mid", "world": 2, "config": mid, "workdir": work["mid"], "epoch_only": True},
         {"kind": "cli", "name": "cli", "world": 2, "model_parallel": 2, "argv": [
@@ -89,10 +91,7 @@ def tp(tmp_path_factory):
         {"kind": "bench", "name": "bench1", "world": 1, "argv": ["--quick", "--cpu"]},
         {"kind": "bench", "name": "bench2", "world": 2, "argv": ["--quick", "--cpu"]},
     ]
-    for s in stages:
-        s["port"] = _free_port()
-    records = run_ranks(base, "tp", {"kind": "stages", "workdir": base, "stages": stages}, world=4, timeout=400)
-    out = os.path.join(base, "tp_out")
+    ranks = Ranks(base, "tp", {"kind": "stages", "workdir": base, "stages": stages}, world=4)
 
     # 1 rank at the same global macro batch
     one = ddp_cfg(2)
@@ -107,7 +106,9 @@ def tp(tmp_path_factory):
         g.state, m = g._train_step(g.state, g._put(batch), g.graph)
     ref["grad_norm"] = float(m["grad_norm"])
     ref["grads"] = {n: p.grad.clone() for n, p in g.state.trainable().items()}
-    return {"base": base, "proc": proc, "work": work, "records": records, "out": out, "ref": ref, "gpt2": gpt2}
+    records = ranks.wait(timeout=400)
+    return {"base": base, "proc": proc, "work": work, "records": records, "out": ranks.out, "ref": ref,
+            "gpt2": gpt2}
 
 
 def _stage(tp, name):
@@ -139,6 +140,26 @@ def test_dp2_mp2_trains_the_one_rank_run(tp):
     recs = _stage(tp, "dp2mp2")
     assert len(recs) == 4
     _held_to_one_rank(recs, tp["ref"])
+
+
+def test_dp2_eval_rounds_an_odd_batch_up_and_equals_one_rank(tp, tmp_path):
+    """Batch 5 over 2 data ranks runs as 6 (logged, as the JAX executor logs
+    it); the padding rows are invalid, so every rank's metrics are one
+    process's at batch 5 on the same checkpoint."""
+    recs = [r["eval_batch"] for r in _stage(tp, "dp2mp2")]
+    assert all(r["log"] == ["eval batch size 5 -> 6 (must tile the 2 data-parallel ranks)"] for r in recs)
+    assert all(r["results"] == recs[0]["results"] for r in recs)
+    work = tp["work"]["dp2mp2"]
+    want = run_evaluation(ddp_cfg(1), tp["proc"], os.path.join(work, "checkpoints", "run", "best_params.pt"),
+                          output_dir=str(tmp_path), batch_size=ODD_EVAL_BATCH, workdir=work,
+                          device="cpu")["results"]
+    for model in ("TEC-MoLLM", "HistoricalAverage"):
+        got = recs[0]["results"][model]
+        for k in ("mae_avg", "rmse_avg"):  # relative; r and R^2 (near 0 here) absolute
+            assert got[k] == pytest.approx(want[model][k], rel=1e-5), (model, k)
+        for k in ("r2_score_avg", "pearson_r_avg"):
+            assert got[k] == pytest.approx(want[model][k], abs=1e-5), (model, k)
+        np.testing.assert_allclose(got["mae_by_horizon"], want[model]["mae_by_horizon"], rtol=1e-5)
 
 
 def test_each_rank_holds_its_slices(tp):

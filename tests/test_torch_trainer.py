@@ -316,10 +316,20 @@ class TestCLI:
         assert "ROADMAP Queue A" in text and (match is None or match in text)
 
     def test_refuses_other_remat_policies(self, proc, tmp_path):
-        cfg = _cfg()
-        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, remat_llm=True, remat_policy="dots_saveable"))
-        with pytest.raises(ValueError, match="remat_policy"):
-            _trainer(cfg, proc, tmp_path)
+        """Ported: the Trainer takes every remat policy of the JAX model
+        (dots_saveable trains an epoch with finite losses) and refuses only a
+        name that is not one, with JAX's message. (The gradients under each
+        policy are tests/test_torch_ablation.py's.)"""
+        cfg = _cfg(epochs=1)
+        for policy in ("dots_saveable", "nothing_saveable"):
+            c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, remat_llm=True, remat_policy=policy))
+            trainer = _trainer(c, proc, tmp_path / policy)
+            assert trainer.model.llm_backbone.model.remat
+            history = trainer.fit()
+            assert len(history) == 1 and np.isfinite(history[0]["train_loss"])
+        bad = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, remat_llm=True, remat_policy="dots"))
+        with pytest.raises(ValueError, match="unknown remat_policy 'dots'"):
+            _trainer(bad, proc, tmp_path / "bad")
         args = train_cli.parse_args(["--remat"])
         assert train_cli.build_config(args).train.remat_llm
 

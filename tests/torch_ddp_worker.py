@@ -2,10 +2,15 @@
 (tests/test_torch_ddp.py, tests/test_torch_ddp_jax.py, tests/test_torch_tp.py
 and tests/test_torch_tp_jax.py), on the CPU over gloo.
 
-    python tests/torch_ddp_worker.py JOB.json RANK WORLD PORT
+    python tests/torch_ddp_worker.py JOB.json RANK WORLD
 
-joins the process group (the environment torchrun would set, built here),
-runs the job and writes ``<out>/rank<RANK>.json`` (and ``.npz`` for arrays).
+joins the process group (``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` as
+torchrun would set them), runs the job and writes ``<out>/rank<RANK>.json``
+(and ``.npz`` for arrays). Every group meets at a file store of its own,
+``<out>/rendezvous/<job or stage name>``, made when the group starts: no
+group uses a port picked before it starts, which another process could have
+taken in between. The CLIs the jobs call (``train``, ``bench``) find the
+group already made and use it.
 It imports torch and the port only: nothing of JAX. Jobs (``JOB.json``):
 
 * ``fit``: the ``Trainer`` on a processed dir (``resume``, ``epochs``), then,
@@ -17,11 +22,13 @@ It imports torch and the port only: nothing of JAX. Jobs (``JOB.json``):
   ``model_parallel``: the group's and the config's tensor-parallel degree;
   ``record_params``: also write the model's whole tensors after the fit
   (``param:<name>`` arrays) and each rank's ``c_attn`` shape.
+  ``eval_batch``: also ``run_evaluation`` on the best checkpoint at that
+  batch size, with the harness's log lines about the batch size.
 * ``cli``: ``python -m tec_mollm_tpu_torch.train --multihost`` with ``argv``.
 * ``stages``: several of the above in one spawn, each in a process group of
-  its own (``world``, ``port``, ``model_parallel``; the ranks past a stage's
-  world sit it out), plus ``grad`` (two train steps of a fresh ``Trainer``:
-  the second's loss, clip norm and whole clipped gradients) and ``bench``
+  its own (``world``, ``model_parallel``; the ranks past a stage's world sit
+  it out), plus ``grad`` (two train steps of a fresh ``Trainer``: the
+  second's loss, clip norm and whole clipped gradients) and ``bench``
   (``python -m tec_mollm_tpu_torch.bench`` with ``argv``, its printed line).
   A stage's records go under its ``name``.
 
@@ -108,6 +115,36 @@ def _fit(job: dict, rank: int, out: dict, arrays: dict) -> None:
             arrays[f"param:{k}"] = v.numpy()
     if job.get("eval"):
         _evaluate(job, cfg, graph, scaler, out, arrays)
+    if job.get("eval_batch"):
+        _evaluate_at(job, cfg, out)
+
+
+def _evaluate_at(job: dict, cfg, out: dict) -> None:
+    """``run_evaluation`` of the best checkpoint at batch ``eval_batch``,
+    and what the harness logged about the batch size."""
+    import logging
+
+    from tec_mollm_tpu_torch.evaluation.harness import run_evaluation
+
+    lines: list[str] = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    log, keep = logging.getLogger("tec_mollm_tpu_torch.evaluation.harness"), Keep()
+    level = log.level
+    log.addHandler(keep)
+    log.setLevel(logging.INFO)
+    workdir = job["workdir"]
+    try:
+        ev = run_evaluation(cfg, job["data"], os.path.join(workdir, "checkpoints", "run", "best_params.pt"),
+                            output_dir=os.path.join(workdir, "results_b"), batch_size=job["eval_batch"],
+                            workdir=workdir, device="cpu")
+    finally:
+        log.removeHandler(keep)
+        log.setLevel(level)
+    out["eval_batch"] = {"results": ev["results"], "log": [s for s in lines if s.startswith("eval batch size")]}
 
 
 def _evaluate(job: dict, cfg, graph, scaler, out: dict, arrays: dict) -> None:
@@ -186,40 +223,52 @@ def _bench(job: dict, out: dict) -> None:
     out["line"] = json.loads(text.getvalue()) if text.getvalue() else None
 
 
-def _stages(job: dict, rank: int, out: dict, arrays: dict) -> None:
+def _run(job: dict, rank: int, out: dict, arrays: dict) -> None:
+    """One job or stage in the process group its caller made."""
+    if job["kind"] == "grad":
+        _grad(job, out, arrays)
+    elif job["kind"] == "bench":
+        _bench(job, out)
+    elif job["kind"] == "cli":
+        from tec_mollm_tpu_torch import train
+
+        out["history"] = train.main(job["argv"] + ["--multihost", "--cpu"])
+    else:
+        _fit(job, rank, out, arrays)
+
+
+def _in_group(job: dict, name: str, world: int, rank: int, out: dict, arrays: dict) -> None:
+    """Make the group of ``world`` ranks at a new file store under the job's
+    out dir, run ``job`` in it, and leave it."""
     from tec_mollm_tpu_torch import parallel
 
+    store = os.path.join(job["out"], "rendezvous", name)
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    os.environ["WORLD_SIZE"] = str(world)
+    parallel.init_distributed(device="cpu", model_parallel=job.get("model_parallel", 1),
+                              init_method=f"file://{store}")
+    try:
+        _run(job, rank, out, arrays)
+    finally:
+        parallel.destroy()
+
+
+def _stages(job: dict, rank: int, out: dict, arrays: dict) -> None:
     for stage in job["stages"]:
         if rank >= stage["world"]:
             continue
-        os.environ.update(WORLD_SIZE=str(stage["world"]), MASTER_PORT=str(stage["port"]))
         rec: dict = {}
         got: dict = {}
-        if stage["kind"] == "bench":
-            _bench(stage, rec)  # the bench joins and leaves the group itself
-        else:
-            parallel.init_distributed(device="cpu", model_parallel=stage["model_parallel"])
-            try:
-                if stage["kind"] == "grad":
-                    _grad(stage, rec, got)
-                elif stage["kind"] == "cli":
-                    from tec_mollm_tpu_torch import train
-
-                    rec["history"] = train.main(stage["argv"] + ["--multihost", "--cpu"])
-                else:
-                    _fit(stage, rank, rec, got)
-            finally:
-                parallel.destroy()
+        _in_group({**stage, "out": job["out"]}, stage["name"], stage["world"], rank, rec, got)
         out[stage["name"]] = rec
         arrays.update({f"{stage['name']}/{k}": v for k, v in got.items()})
 
 
 def main() -> None:
-    job_path, rank, world, port = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+    job_path, rank, world = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
     with open(job_path) as f:
         job = json.load(f)
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                      MASTER_ADDR="localhost", MASTER_PORT=port)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
     import numpy as np
     import torch
 
@@ -227,20 +276,10 @@ def main() -> None:
     writes = _watch_writes(job["workdir"])
     out: dict = {"rank": rank, "world": world}
     arrays: dict = {}
-    if job["kind"] == "cli":
-        from tec_mollm_tpu_torch import train
-
-        out["history"] = train.main(job["argv"] + ["--multihost", "--cpu"])
-    elif job["kind"] == "stages":
+    if job["kind"] == "stages":
         _stages(job, rank, out, arrays)
     else:
-        from tec_mollm_tpu_torch import parallel
-
-        parallel.init_distributed(device="cpu", model_parallel=job.get("model_parallel", 1))
-        try:
-            _fit(job, rank, out, arrays)
-        finally:
-            parallel.destroy()
+        _in_group(job, os.path.splitext(os.path.basename(job_path))[0], world, rank, out, arrays)
     out["writes"] = sorted(set(writes))
     os.makedirs(job["out"], exist_ok=True)
     if arrays:
