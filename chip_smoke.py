@@ -171,12 +171,19 @@ Phases (any failure exits non-zero):
      three kernels (csrc/sarima.cu: the CSS innovations, their adjoint, the
      forecast of SARIMA_BATCH windows) against their plain versions at random
      coefficients within SARIMA_RTOL, 3 Adam steps through the kernels
-     against the plain versions within SARIMA_ADAM_ATOL, each kernel timed
-     beside its plain version and its bytes bound, and one fit step's loss and
-     gradient (device time, its share of a fit step's wall); then
+     against the plain versions within SARIMA_ADAM_ATOL; the fit's two
+     kernels also at SARIMA_EDGES (short T, few nodes at season 1, season 23,
+     T below season + 1) within SARIMA_RTOL, and two launches on the same
+     inputs bit-identical; each kernel timed beside its plain version and its
+     bytes bound (the fit's two also through their bare C entries,
+     sarima_bare_entry; their registers and spills from the build's ptxas
+     log), and one fit step's loss and gradient (back to back, its share of
+     a fit step's wall); then
      the full fit of SARIMA_FIT_STEPS steps through the kernels (its wall, ms
      a step, one launch of each pass a step; the fitted phi's node mean within
      SARIMA_PHI_TOL of the truth, as the JAX test asks) and a forecast batch;
+     SARIMA_PROFILE_STEPS warm fit steps timed, and as many profiled (the
+     device's busy share);
      then the test CLI with --baseline sarima on phase 8's checkpoint and
      data: a finite SARIMA row beside the model's and the HA's, the fit's
      launches and one forecast launch a batch of SARIMA_BATCH. (b) phase 5's
@@ -348,6 +355,12 @@ EXPORT_TOL_SCALED, SERVE_CLI_BENCH = 1e-3, 4
 SARIMA_T, SARIMA_SEASON, SARIMA_FIT_STEPS, SARIMA_BATCH = 2000, 12, 400, 64
 SARIMA_TRUTH, SARIMA_PHI_TOL = (0.6, 0.0, 0.0, 0.0), 0.15
 SARIMA_RTOL, SARIMA_ADAM_ATOL = 1e-4, 1e-3
+# the fit kernels' edge shapes (T, N, season), held against the plain versions
+# as the flagship is: the test CLI's 94-step fit, a node count below one tile
+# at season 1, the CLI's largest season at L_in 48, and T below season + 1
+# (no loss term); then the warm fit steps timed and profiled
+SARIMA_EDGES = ((94, 2911, 12), (1987, 37, 1), (500, 2911, 23), (10, 2911, 12))
+SARIMA_PROFILE_STEPS = 20
 # ablation phase, the arms of phase 5's train step: the model's arguments and
 # remat policy of each, its warm-up and timed steps
 ARMS = {
@@ -619,10 +632,37 @@ def flash_bare_entry(q, k, v, causal: bool):
     return call
 
 
-def gat_ptxas(log_text: str) -> list[dict]:
-    """Registers, spills and shared memory of each GAT kernel instance, from
-    nvcc's -Xptxas -v log of csrc/gat_stencil.cu."""
-    section = log_text.split("== gat_stencil.cu", 1)[-1].split("\n== ", 1)[0]
+def sarima_bare_entry(y, coeffs, season: int, e=None, scale: float = 0.0):
+    """A call of a SARIMA fit kernel's C entry (the forward, or with ``e``
+    the adjoint) with its arguments marshalled once, into fresh outputs: the
+    wrapper's launch without its checks and Python. Not counted."""
+    import torch
+
+    from tec_mollm_tpu_torch.ops import _build
+    from tec_mollm_tpu_torch.ops import sarima as sops
+
+    steps, n = y.shape
+    stream = _build.stream_handle(y.device)
+    if e is None:
+        name, out = sops.FORWARD, (torch.empty_like(y), torch.empty(n, dtype=torch.float32, device=y.device))
+        fn = _build.function("sarima_css_forward", sops.FORWARD_ARGTYPES)
+        args = (y.data_ptr(), coeffs.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), steps, n, season, stream)
+    else:
+        name, out = sops.BACKWARD, torch.empty((4, n), dtype=torch.float32, device=y.device)
+        fn = _build.function("sarima_css_backward", sops.BACKWARD_ARGTYPES)
+        args = (y.data_ptr(), e.data_ptr(), coeffs.data_ptr(), out.data_ptr(), scale, steps, n, season, stream)
+
+    def call():
+        _build.check(name, fn(*args))
+        return out
+
+    return call
+
+
+def ptxas_entries(log_text: str, source: str) -> list[dict]:
+    """Registers, spills and shared memory of each kernel instance, from
+    nvcc's -Xptxas -v log of csrc/<source>."""
+    section = log_text.split(f"== {source}", 1)[-1].split("\n== ", 1)[0]
     out, cur = [], None
     for line in section.splitlines():
         if "Compiling entry function" in line:
@@ -2823,21 +2863,18 @@ def simulate_sarima(steps: int, nodes: int, season: int, coeffs: tuple, seed: in
     return x
 
 
-def sarima_phase(args, data_dir: str) -> dict:
-    """The SARIMA baseline at flagship width (phase 14 (a)): its three kernels
-    against their plain versions on a simulated (SARIMA_T, 2911) series, 3
-    Adam steps kernel against plain, the full fit through the kernels, and the
-    test CLI with --baseline sarima on phase 8's checkpoint and data."""
+def sarima_kernel_checks(args) -> dict:
+    """Phase 14 (a)'s kernels: the three against their plain versions on a
+    simulated (SARIMA_T, 2911) series, the fit's two also at SARIMA_EDGES and
+    twice on the same inputs, 3 Adam steps kernel against plain, and their
+    times. Returns the series, its scaled difference y and the forecast
+    windows for the fit, and what failed."""
     import torch
 
-    from tec_mollm_tpu_torch import ops, test
     from tec_mollm_tpu_torch.config import Config
-    from tec_mollm_tpu_torch.data.dataset import SlidingWindowDataset
-    from tec_mollm_tpu_torch.evaluation import harness
     from tec_mollm_tpu_torch.models import sarima
     from tec_mollm_tpu_torch.ops import sarima as sops
 
-    phase_t0 = time.perf_counter()
     dev = torch.device("cuda")
     cfg = Config().resolved()
     n, s, L_in, L_out = cfg.model.num_nodes, SARIMA_SEASON, cfg.train.L_in, cfg.train.L_out
@@ -2851,8 +2888,9 @@ def sarima_phase(args, data_dir: str) -> dict:
     wins = torch.tensor(np.stack([series[a : a + L_in] for a in starts]), dtype=torch.float32, device=dev)
 
     def rel(got, want) -> tuple[float, float]:
-        diff = float((got - want).abs().max())
-        return diff, diff / float(want.abs().max())
+        # largest difference, and over the largest magnitude (the difference itself where want is all 0)
+        diff, top = float((got - want).abs().max()), float(want.abs().max())
+        return diff, diff / top if top > 0 else diff
 
     e_k, part_k = sops.css_forward(y, coeffs, s)
     e_p, part_p = sops.css_forward_reference(y, coeffs, s)
@@ -2875,9 +2913,41 @@ def sarima_phase(args, data_dir: str) -> dict:
     if not adam_err <= SARIMA_ADAM_ATOL:
         failures.append("adam")
 
-    # the kernels' entries of the kernels line: times, bounds (bytes: each
-    # input read once, each output written once)
+    # the fit kernels at the edge shapes, and two launches on the same inputs
+    # give the same bits (the flagship's too)
+    edges = []
+    for t_e, n_e, s_e in SARIMA_EDGES:
+        ye, ce = y[:t_e, :n_e].contiguous(), coeffs[:, :n_e].contiguous()
+        sc = 2.0 / (max(t_e - s_e - 1, 1) * n_e)
+        (e1, p1), (e2, p2) = sops.css_forward(ye, ce, s_e), sops.css_forward(ye, ce, s_e)
+        ep, pp = sops.css_forward_reference(ye, ce, s_e)
+        g1, g2 = sops.css_backward(ye, ep, ce, s_e, sc), sops.css_backward(ye, ep, ce, s_e, sc)
+        gp = sops.css_backward_reference(ye, ep, ce, s_e, sc)
+        torch.cuda.synchronize()
+        edge = {"shape": (t_e, n_e, s_e), "e": rel(e1, ep), "partial": rel(p1, pp), "grad": rel(g1, gp),
+                "same_bits": bool(torch.equal(e1, e2) and torch.equal(p1, p2) and torch.equal(g1, g2)),
+                "partial_zero": bool(t_e < s_e + 1 and not p1.any() and not g1.any())}
+        log(f"sarima edge (T {t_e}, N {n_e}, s {s_e}): kernel vs plain e {edge['e'][1]:.3e}, partial "
+            f"{edge['partial'][1]:.3e}, grad {edge['grad'][1]:.3e} (tol {SARIMA_RTOL}); two launches the same "
+            f"bits {edge['same_bits']}" + (f"; T < s + 1: partial and grad 0 {edge['partial_zero']}"
+                                           if t_e < s_e + 1 else ""))
+        bad = [k for k in ("e", "partial", "grad") if not edge[k][1] <= SARIMA_RTOL]
+        if bad or not edge["same_bits"] or (t_e < s_e + 1 and not edge["partial_zero"]):
+            failures.append(f"edge {edge['shape']}: {bad}, same bits {edge['same_bits']}")
+        edges.append(edge)
+    e_again, part_again = sops.css_forward(y, coeffs, s)
+    g_again = sops.css_backward(y, e_k, coeffs, s, scale)
+    same_bits = bool(torch.equal(e_again, e_k) and torch.equal(part_again, part_k) and torch.equal(g_again, g_k))
+    log(f"sarima: flagship, two launches the same bits: {same_bits}")
+    if not same_bits:
+        failures.append("flagship: two launches differ")
+
+    # the kernels' entries of the kernels line: times (the fit's two also
+    # through their bare C entries), bounds (bytes: each input read once, each
+    # output written once)
     arr = steps_t * n * 4
+    bare_calls = {sops.FORWARD: sarima_bare_entry(y, coeffs, s),
+                  sops.BACKWARD: sarima_bare_entry(y, coeffs, s, e_k, scale)}
     entries = []
     for name, shape, fn, plain, bytes_moved, flops, err in (
         (sops.FORWARD, f"y ({steps_t},{n}) fp32, coeffs (4,{n}) -> e, partial",
@@ -2896,25 +2966,46 @@ def sarima_phase(args, data_dir: str) -> dict:
              "max_abs_err": err[0], "max_rel_err": err[1], "tol_rel": SARIMA_RTOL,
              "ms": time_ms(fn, REPS), "plain_ms": time_ms(plain, 1, runs=2), "library_ms": None}
         e["bound_ms"], e["bound_by"] = bound(bytes_moved, flops, PEAK_FLOPS["fp32"])
-        log(f"kernel {name}: {shape}: max_abs {err[0]:.3e} max_rel {err[1]:.3e}; kernel {e['ms']:.4f} ms, "
+        bare = ""
+        if name in bare_calls:
+            e["bare_ms"] = time_ms(bare_calls[name], REPS)
+            bare = f" (bare {e['bare_ms']:.4f} ms, the bound {e['bound_ms'] / e['bare_ms']:.1%} of it)"
+        log(f"kernel {name}: {shape}: max_abs {err[0]:.3e} max_rel {err[1]:.3e}; kernel {e['ms']:.4f} ms{bare}, "
             f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
         entries.append(e)
     step_ms = time_ms(lambda: sops.css_loss_and_grad(raw, y, s), REPS)
 
-    # the main path: the full fit and one forecast batch, then the test CLI
-    launches: dict[str, int] = {}
+    return {"series": series, "y": y, "wins": wins, "L_out": L_out, "entries": entries, "errors": errs,
+            "adam_err": adam_err, "edges": edges, "same_bits": same_bits, "step_ms": step_ms, "failures": failures}
+
+
+def sarima_fit(checks: dict) -> dict:
+    """Phase 14 (a)'s main path: the full fit of SARIMA_FIT_STEPS steps
+    through the kernels on sarima_kernel_checks' series and one forecast
+    batch, launches counted from zero; then SARIMA_PROFILE_STEPS warm fit
+    steps timed and as many profiled. Appends what failed to
+    checks["failures"]."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+    from tec_mollm_tpu_torch.models import sarima
+    from tec_mollm_tpu_torch.ops import sarima as sops
+
+    s, y, n = SARIMA_SEASON, checks["y"], checks["y"].shape[1]
+    step_ms, failures = checks["step_ms"], checks["failures"]
     ops.reset_counts()
     t0 = time.perf_counter()
-    params = sarima.fit_sarima(series, season=s, steps=SARIMA_FIT_STEPS, device=dev)
+    params = sarima.fit_sarima(checks["series"], season=s, steps=SARIMA_FIT_STEPS, device=torch.device("cuda"))
     fit_wall = time.perf_counter() - t0
-    preds = sarima.forecast_windows(params, wins, L_out, season=s)
+    preds = sarima.forecast_windows(params, checks["wins"], checks["L_out"], season=s)
     torch.cuda.synchronize()
     fit_counts = ops.launch_counts()
     phi_mean = float(params.phi.mean())
     log(
         f"sarima: fit of {SARIMA_FIT_STEPS} Adam steps on ({SARIMA_T}, {n}): {fit_wall:.3f} s, "
-        f"{fit_wall / SARIMA_FIT_STEPS * 1e3:.3f} ms a step (loss and gradient alone {step_ms:.4f} ms on the "
-        f"device, {step_ms / (fit_wall / SARIMA_FIT_STEPS * 1e3):.2%} of the step); forecast {entries[2]['ms']:.4f} ms a batch of {SARIMA_BATCH}; phi mean {phi_mean:.4f} "
+        f"{fit_wall / SARIMA_FIT_STEPS * 1e3:.3f} ms a step (loss and gradient alone, back to back, {step_ms:.4f} "
+        f"ms a call, {step_ms / (fit_wall / SARIMA_FIT_STEPS * 1e3):.2%} of the step); forecast "
+        f"{checks['entries'][2]['ms']:.4f} ms a batch of {SARIMA_BATCH}; phi mean {phi_mean:.4f} "
         f"(truth {SARIMA_TRUTH[0]} +- {SARIMA_PHI_TOL}); launches {fit_counts}"
     )
     want = {sops.FORWARD: SARIMA_FIT_STEPS, sops.BACKWARD: SARIMA_FIT_STEPS, sops.FORECAST: 1}
@@ -2922,8 +3013,50 @@ def sarima_phase(args, data_dir: str) -> dict:
         failures.append(f"fit launches {fit_counts}, want {want}")
     if not abs(phi_mean - SARIMA_TRUTH[0]) <= SARIMA_PHI_TOL or not bool(preds.isfinite().all()):
         failures.append(f"fit: phi mean {phi_mean}, or a forecast not finite")
-    for k, v in fit_counts.items():
-        launches[k] = launches.get(k, 0) + v
+    # what sets a fit step's pace: its warm wall, and the device's busy share
+    # of a profiled run of as many steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sarima.adam_fit(y, s, SARIMA_PROFILE_STEPS)
+    torch.cuda.synchronize()
+    warm_step_ms = (time.perf_counter() - t0) * 1e3 / SARIMA_PROFILE_STEPS
+    prof = profile_call(lambda: sarima.adam_fit(y, s, SARIMA_PROFILE_STEPS), top=8, cpu_ops=False)
+    seen = {k: sum(r["calls"] for r in prof["top"] if k in r["name"]) for k in ("css_forward", "css_backward")}
+    # the profiler's own host cost stretches the traced wall: the device time
+    # a step over the untraced warm step is the share without it (a step is
+    # one forward launch; the trace may miss the first steps of the run)
+    device_step_ms = prof["device_ms"] / max(seen["css_forward"], 1)
+    log(
+        f"sarima: {SARIMA_PROFILE_STEPS} warm fit steps {warm_step_ms:.4f} ms a step, {device_step_ms:.4f} ms of it "
+        f"on the device ({device_step_ms / warm_step_ms:.2%}); profiled: wall {prof['wall_ms']:.3f} ms, device "
+        f"{prof['device_ms']:.3f} ms, busy {prof['device_busy_share']:.2%}; kernel launches the profiler saw "
+        f"{seen} (of {SARIMA_PROFILE_STEPS} each); top "
+        + "; ".join(f"{r['name'][:60]} x{r['calls']} {r['ms']:.3f} ms" for r in prof["top"])
+    )
+    return {"fit_wall_s": fit_wall, "fit_ms_a_step": fit_wall / SARIMA_FIT_STEPS * 1e3, "phi_mean": phi_mean,
+            "fit_launches": fit_counts, "warm_step_ms": warm_step_ms, "device_step_ms": device_step_ms,
+            "warm_step_busy_share": device_step_ms / warm_step_ms, "fit_profile": prof}
+
+
+def sarima_phase(args, data_dir: str) -> dict:
+    """The SARIMA baseline at flagship width (phase 14 (a)): the kernel checks
+    (sarima_kernel_checks), the full fit through the kernels (sarima_fit),
+    and the test CLI with --baseline sarima on phase 8's checkpoint and data."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops, test
+    from tec_mollm_tpu_torch.config import Config
+    from tec_mollm_tpu_torch.data.dataset import SlidingWindowDataset
+    from tec_mollm_tpu_torch.evaluation import harness
+    from tec_mollm_tpu_torch.ops import sarima as sops
+
+    phase_t0 = time.perf_counter()
+    cfg = Config().resolved()
+    s, L_in, L_out = SARIMA_SEASON, cfg.train.L_in, cfg.train.L_out
+    checks = sarima_kernel_checks(args)
+    fit = sarima_fit(checks)
+    failures = checks["failures"]
+    launches = dict(fit["fit_launches"])
 
     work, out = os.path.join(data_dir, "work"), os.path.join(data_dir, "eval", "sarima")
     ops.reset_counts()
@@ -2952,12 +3085,12 @@ def sarima_phase(args, data_dir: str) -> dict:
         failures.append(f"test CLI launches {cli_counts}")
     if failures:
         raise RuntimeError(f"sarima: {failures}")
-    wall = time.perf_counter() - phase_t0
     return {
-        "entries": entries, "launches": launches, "errors": errs, "adam_3_steps_max_abs": adam_err,
-        "fit_wall_s": fit_wall, "fit_ms_a_step": fit_wall / SARIMA_FIT_STEPS, "loss_and_grad_ms": step_ms,
-        "forecast_ms_a_batch": entries[2]["ms"], "phi_mean": phi_mean, "fit_launches": fit_counts,
-        "cli_wall_s": cli_wall, "cli_launches": cli_counts, "cli_results": res["results"], "wall_s": wall,
+        "entries": checks["entries"], "launches": launches, "errors": checks["errors"],
+        "adam_3_steps_max_abs": checks["adam_err"], "edges": checks["edges"], "same_bits": checks["same_bits"],
+        "loss_and_grad_ms": checks["step_ms"], "forecast_ms_a_batch": checks["entries"][2]["ms"], **fit,
+        "cli_wall_s": cli_wall, "cli_launches": cli_counts, "cli_results": res["results"],
+        "wall_s": time.perf_counter() - phase_t0,
     }
 
 
@@ -3093,10 +3226,15 @@ def main() -> int:
     ptxas = (lib.parent / "ptxas.log").read_text() if (lib.parent / "ptxas.log").exists() else ""
     for line in ptxas_summary(ptxas):
         log(f"  {line}")
-    results["gat_ptxas"] = gat_ptxas(ptxas)
+    results["gat_ptxas"] = ptxas_entries(ptxas, "gat_stencil.cu")
     for k in results["gat_ptxas"]:
         log(f"  gat_stencil {k['entry']}: {k.get('registers')} registers, {k.get('spill_store_bytes')} bytes "
             f"spilled, {k.get('static_smem_bytes')} bytes static smem")
+    results["sarima_ptxas"] = ptxas_entries(ptxas, "sarima.cu")
+    for k in results["sarima_ptxas"]:
+        if "css_" in k["entry"]:  # the fit's kernels (their shared memory is dynamic: sarima_phase prints it)
+            log(f"  sarima {k['entry']}: {k.get('registers')} registers, {k.get('spill_store_bytes')} bytes "
+                f"spilled, {k.get('static_smem_bytes')} bytes static smem")
     results["build_s"] = build_s
     results["ptxas"] = ptxas
 

@@ -16,15 +16,59 @@
 // and dc = -sum_t g_t * (y_{t-1} - Phi y_{t-s-1}, y_{t-s} - phi y_{t-s-1},
 //                         e_{t-1} + Theta e_{t-s-1}, e_{t-s} + theta e_{t-s-1}).
 //
+// The fit's two kernels: a time-chunked scan of the factored recursion.
+// (1 + theta B)(1 + Theta B^s) e = a splits into two first-order recursions
+// with constant coefficients, w_t = a_t - theta w_{t-1} (lag 1), then
+// e_t = w_t - Theta e_{t-s} (lag s: s independent chains, one for each residue
+// of t mod s); the adjoint is the same in reversed time,
+// (1 + theta F)(1 + Theta F^s) g = h with h_t = scale e_t [t >= s+1]. Each
+// stage is a complete chunked scan of x_i = b_i - c x_{i-k} (ops/sarima.py:
+// chunked_lag_solve is its plain mirror), one stage after the other: a carry
+// of the lag-1 stage does not reach e as a plain power of theta.
+//   1. each thread solves its chunk of kLen steps from a zero start, in
+//      registers (the lag-s stage through solve_chunk's compile-time lags);
+//   2. for each residue class of i mod k, one thread walks the chunks in
+//      order: the class's last row in a chunk gains (-c)^cnt times the class's
+//      true value before the chunk (cnt = its rows in the chunk: kLen / k or
+//      one more). A chunk whose length is not a multiple of k holds the
+//      classes at shifted offsets, so the class, not the offset, keys the
+//      carry. The lag-1 stage keeps only each chunk's last value in shared
+//      memory, the lag-s stage its whole chunk;
+//   3. every row of a chunk gains (-c)^m times the true value of its class in
+//      the k rows before the chunk (m = its place in the class within the
+//      chunk), in registers; those rows are step 2's, and a class's last row
+//      comes out with the bits step 2 gave it.
+// |c| <= 0.99 (ops/sarima.py:_loss_and_grad), so the carries decay and
+// rounding does not grow.
+//
+// The grid: a block owns kNodes = 8 consecutive nodes, 364 blocks at N = 2911:
+// with 3 blocks an SM (by registers) they fit the card's 132 SMs in one wave,
+// on every SM (16-node tiles give 183 blocks, at most 2 an SM: the busiest
+// SMs then hold 32 nodes instead of 24, and ran slower on the card). A block runs
+// kChunks = 16 chunks of kLen = 33 steps, a thread each (128 threads): lanes
+// run across nodes, so a row of the time-major (T, N) arrays is one 32-byte
+// access, and the chunks split time. The block walks T in segments of kSeg =
+// 528 steps; the true values of the last rows of each stage carry in shared
+// memory into the next segment (the carries before chunk 0), so any T takes
+// the same shared memory. A segment's tile of y (and e in the adjoint), with
+// its s + 1 lag rows, comes into shared memory by cp.async ahead of use; the
+// forward issues the next segment's y as soon as the current tile is
+// consumed, under the rest of the segment. A chain's steps then read
+// registers only, and the phases meet at 6 barriers a segment. kLen is odd, so
+// the 4 chunks of a warp (kLen rows apart) fall on different banks. Partial
+// sums are kept per thread and added over the chunks in chunk order, with no
+// atomics: two launches give the same bits.
+//
 // Bound on this card: bytes. A fit step reads y twice and writes and reads e:
 // 4 * T * N * 4 bytes, 92.6 MB at T = 1987, N = 2911, 27.6 us at 3.35 TB/s.
-// What holds the kernels far above that is latency: one thread per node walks a
-// serial chain of T dependent steps, and 2911 threads fill about 91 warps of the
-// card's 132 SMs. The design keeps the chain short: the lags of the recursed
-// value (e, or g) live in a ring of s+1 slots in shared memory, one column per
-// thread (no bank conflicts), the lag t-1 in a register; the lags of y (and, in
-// the reverse pass, of e) are read-only loads from device memory that do not
-// depend on the chain, coalesced across a warp's consecutive nodes.
+// What remains above it is latency: the chains of a phase (33 steps in
+// registers, 16 carries) between barriers, with about 11 warps an SM.
+//
+// The largest season: kSeg = 528 (the carry rows of a segment lie in the
+// segment). Shared memory grows with s: at s = 12 35 KB for the forward and
+// 52 KB for the adjoint, 102 KB for the adjoint at s = 528. A season above
+// that, or above what the card opts a block in to, is refused with
+// cudaErrorInvalidValue before any launch.
 //
 // The forecast runs one thread per (window, node): the same recursion over the
 // window's L differenced steps (y computed from the window on the fly), then
@@ -36,6 +80,7 @@
 
 namespace {
 
+// the forecast's block
 constexpr int kThreads = 64;
 
 // A ring of `len` floats for one thread: slot k at base[k * stride].
@@ -49,72 +94,309 @@ __device__ __forceinline__ Ring ring_of(float* smem, int which, int len) {
   return Ring{smem + which * len * blockDim.x + threadIdx.x, static_cast<int>(blockDim.x)};
 }
 
-__global__ void css_forward_kernel(const float* __restrict__ y, const float* __restrict__ coeffs,
-                                   float* __restrict__ e, float* __restrict__ partial, int steps, int n,
-                                   int season) {
-  extern __shared__ float smem[];
-  const int node = blockIdx.x * blockDim.x + threadIdx.x;
-  if (node >= n) return;
-  const int len = season + 1;
-  const Ring ring = ring_of(smem, 0, len);
-  for (int k = 0; k < len; ++k) ring[k] = 0.0f;
-  const float phi = coeffs[node], sphi = coeffs[n + node];
-  const float theta = coeffs[2 * n + node], stheta = coeffs[3 * n + node];
-  const float ps = phi * sphi, ts = theta * stheta;
-  float e1 = 0.0f, sum = 0.0f;
-  // slot of time t is t % len: e_{t-s-1} sits in the slot e_t takes, e_{t-s} in the next
-  int slot = 0;
-  for (int t = 0; t < steps; ++t) {
-    const float yt = y[static_cast<int64_t>(t) * n + node];
-    const float y1 = t >= 1 ? y[static_cast<int64_t>(t - 1) * n + node] : 0.0f;
-    const float ys = t >= season ? y[static_cast<int64_t>(t - season) * n + node] : 0.0f;
-    const float ys1 = t >= season + 1 ? y[static_cast<int64_t>(t - season - 1) * n + node] : 0.0f;
-    const float a = yt - phi * y1 - sphi * ys + ps * ys1;
-    const int next = slot + 1 == len ? 0 : slot + 1;
-    const float et = a - theta * e1 - stheta * ring[next] - ts * ring[slot];
-    ring[slot] = et;
-    e[static_cast<int64_t>(t) * n + node] = et;
-    if (t >= season + 1) sum += et * et;
-    e1 = et;
-    slot = next;
-  }
-  partial[node] = sum;
+// the fit's kernels: nodes a block, chunks a segment, steps a chunk, and the
+// blocks an SM holds (registers: at most 170 a thread)
+constexpr int kNodes = 8, kChunks = 16, kLen = 33, kSeg = kChunks * kLen, kScanThreads = kNodes * kChunks;
+constexpr int kBlocksPerSM = 3;
+
+// Element (row r, lane j) of a tile of kNodes lanes a row. The chunks of a warp
+// lie kLen rows apart: kLen is odd, so their rows fall on other banks.
+__device__ __forceinline__ float& at(float* tile, int r, int j) { return tile[r * kNodes + j]; }
+
+// 4 bytes from device to shared memory, zero-filled where `ok` is false.
+__device__ __forceinline__ void copy_async(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 4 : 0));
 }
 
-__global__ void css_backward_kernel(const float* __restrict__ y, const float* __restrict__ e,
-                                    const float* __restrict__ coeffs, float* __restrict__ grad, float scale,
-                                    int steps, int n, int season) {
-  extern __shared__ float smem[];
-  const int node = blockIdx.x * blockDim.x + threadIdx.x;
-  if (node >= n) return;
-  const int len = season + 1;
-  const Ring ring = ring_of(smem, 0, len);
-  for (int k = 0; k < len; ++k) ring[k] = 0.0f;
-  const float phi = coeffs[node], sphi = coeffs[n + node];
-  const float theta = coeffs[2 * n + node], stheta = coeffs[3 * n + node];
-  const float ts = theta * stheta;
-  float g1 = 0.0f;
-  float d_phi = 0.0f, d_sphi = 0.0f, d_theta = 0.0f, d_stheta = 0.0f;
-  // slot of time t is t % len: g_{t+s+1} sits in the slot g_t takes, g_{t+s} in the one before
-  int slot = (steps - 1) % len;
-  auto at = [&](const float* a, int t) { return t >= 0 ? a[static_cast<int64_t>(t) * n + node] : 0.0f; };
-  for (int t = steps - 1; t >= 0; --t) {
-    const int prev = slot == 0 ? len - 1 : slot - 1;
-    const float et = e[static_cast<int64_t>(t) * n + node];
-    const float gt = (t >= season + 1 ? scale * et : 0.0f) - theta * g1 - stheta * ring[prev] - ts * ring[slot];
-    ring[slot] = gt;
-    g1 = gt;
-    slot = prev;
-    const float ys1 = at(y, t - season - 1), es1 = at(e, t - season - 1);
-    d_phi -= gt * (at(y, t - 1) - sphi * ys1);
-    d_sphi -= gt * (at(y, t - season) - phi * ys1);
-    d_theta -= gt * (at(e, t - 1) + stheta * es1);
-    d_stheta -= gt * (at(e, t - season) + theta * es1);
+__device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// A segment's per-row constants (the powers, the classes' offsets) are the
+// same in every segment: left alone, the compiler hoists them all out of the
+// segment loop and holds them in registers (near the limit of 255 a thread,
+// one block an SM). A value passed through opaque() at the top of each
+// segment is unknown to it there, so what derives from it is formed anew in
+// each segment.
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+__device__ __forceinline__ float opaque(float v) {
+  asm volatile("" : "+f"(v));
+  return v;
+}
+
+// Rows [first, first + rows) of the time-major (steps, n) array x for the
+// block's nodes into a tile; rows outside [0, steps) and nodes past n read 0.
+__device__ void load_tile(float* tile, const float* x, int first, int rows, int steps, int n, int n0) {
+  for (int k = threadIdx.x; k < rows * kNodes; k += kScanThreads) {
+    const int r = k / kNodes, j = k % kNodes, t = first + r, node = n0 + j;
+    const bool ok = t >= 0 && t < steps && node < n;
+    copy_async(&at(tile, r, j), ok ? x + static_cast<int64_t>(t) * n + node : x, ok);
   }
-  grad[node] = d_phi;
-  grad[n + node] = d_sphi;
-  grad[2 * n + node] = d_theta;
-  grad[3 * n + node] = d_stheta;
+}
+
+// x_i = b_i - coef x_{i-k}: a chunk of kLen rows holds q or q + 1 rows of each
+// residue class (q + 1 for the offsets below rem); pq = (-coef)^q,
+// pq1 = (-coef)^(q+1), each a product in the order fix_up forms its powers, so
+// that a row's carry and its fix-up give the same bits.
+struct Lag {
+  int k, q, rem;
+  float coef, pq, pq1;
+};
+
+__device__ Lag make_lag(float coef, int k) {
+  Lag l{k, kLen / k, kLen % k, coef, 1.0f, 0.0f};
+  for (int i = 0; i < l.q; ++i) l.pq *= -coef;
+  l.pq1 = l.pq * -coef;
+  return l;
+}
+
+// Step 1, the chunk from a zero start in registers: lag K at compile time...
+template <int K>
+__device__ __forceinline__ void solve_lag(float (&x)[kLen], float coef) {
+#pragma unroll
+  for (int i = K; i < kLen; ++i) x[i] = fmaf(-coef, x[i - K], x[i]);
+}
+
+// ... picked for the run-time lag k (uniform over the grid); for k >= kLen no
+// two rows of a class share a chunk.
+template <int K = 1>
+__device__ __forceinline__ void solve_chunk(float (&x)[kLen], int k, float coef) {
+  if (k == K) {
+    solve_lag<K>(x, coef);
+  } else if constexpr (K + 1 < kLen) {
+    solve_chunk<K + 1>(x, k, coef);
+  }
+}
+
+// Step 2 of the lag-1 stage (thread c == 0 of lane j): wl[0] is the true value
+// before the segment and wl[c + 1] chunk c's last value from a zero start; on
+// return wl[c + 1] is its true value.
+__device__ void carry_lag1(float* wl, float pq, int j) {
+  float v[kChunks];
+#pragma unroll
+  for (int cc = 0; cc < kChunks; ++cc) v[cc] = wl[(cc + 1) * kNodes + j];
+  float carry = wl[j];
+#pragma unroll
+  for (int cc = 0; cc < kChunks; ++cc) v[cc] = carry = fmaf(pq, carry, v[cc]);
+#pragma unroll
+  for (int cc = 0; cc < kChunks; ++cc) wl[(cc + 1) * kNodes + j] = v[cc];
+}
+
+// Step 2 of the lag-k stage: thread (c, j) walks the classes c, c + kChunks,
+// ... < k through the chunks of buf, in place on each class's last row in a
+// chunk; prev[r * kNodes + j] is the true value at row r - k (the segment
+// before, or 0).
+__device__ void carry_chunks(float* buf, const float* prev, const Lag& l, int c, int j) {
+  for (int cls = c; cls < l.k; cls += kChunks) {
+    float carry = prev[cls * kNodes + j];
+    float v[kChunks];
+    int off = cls;  // (cls - chunk start) mod k
+#pragma unroll
+    for (int cc = 0; cc < kChunks; ++cc) {
+      const bool more = off < l.rem;
+      if (off < kLen) carry = fmaf(more ? l.pq1 : l.pq, carry, at(buf, cc * kLen + off + (l.q + more - 1) * l.k, j));
+      v[cc] = carry;
+      off -= l.rem;
+      if (off < 0) off += l.k;
+    }
+    off = cls;
+#pragma unroll
+    for (int cc = 0; cc < kChunks; ++cc) {
+      if (off < kLen) at(buf, cc * kLen + off + (l.q + (off < l.rem) - 1) * l.k, j) = v[cc];
+      off -= l.rem;
+      if (off < 0) off += l.k;
+    }
+  }
+}
+
+// Step 3 of the lag-1 stage, in registers: row i gains (-coef)^(i+1) carry.
+__device__ __forceinline__ void fix_up_lag1(float (&x)[kLen], float carry, float coef) {
+  float p = 1.0f;
+#pragma unroll
+  for (int i = 0; i < kLen; ++i) {
+    p *= -coef;
+    x[i] = fmaf(p, carry, x[i]);
+  }
+}
+
+// Step 3 of the lag-k stage, in registers: row i of the chunk at c0 gains
+// (-coef)^(i / k + 1) times the true value of its class in the k rows before
+// the chunk (rows of buf that step 2 wrote, or prev before the segment). A
+// class's last row comes out as step 2 stored it.
+__device__ __forceinline__ void fix_up(float (&x)[kLen], float* buf, const float* prev, const Lag& l, int c0, int j) {
+  float p = 1.0f;
+  int cls = 0;  // i mod k
+#pragma unroll
+  for (int i = 0; i < kLen; ++i) {
+    if (cls == 0) p *= -l.coef;
+    const int src = c0 + cls - l.k;
+    x[i] = fmaf(p, src >= 0 ? at(buf, src, j) : prev[(src + l.k) * kNodes + j], x[i]);
+    if (++cls == l.k) cls = 0;
+  }
+}
+
+// The last s rows of the segment (true values, step 2's) become the carries
+// before the next segment.
+__device__ __forceinline__ void save_carries(float* buf, float* prev, int k, int c, int j) {
+  for (int r = c; r < k; r += kChunks) prev[r * kNodes + j] = at(buf, kSeg - k + r, j);
+}
+
+// Shared memory of each kernel at season s: its tiles (s + 1 lag rows and a
+// segment), the segment buffer, the carry rows of the lag-s stage (s) and of
+// the lag-1 stage (kChunks + 1).
+size_t forward_smem(int s) { return static_cast<size_t>(2 * kSeg + 2 * s + 2 + kChunks) * kNodes * sizeof(float); }
+size_t backward_smem(int s) { return static_cast<size_t>(3 * kSeg + 3 * s + 3 + kChunks) * kNodes * sizeof(float); }
+
+__global__ void __launch_bounds__(kScanThreads, kBlocksPerSM)
+    css_forward_kernel(const float* __restrict__ y, const float* __restrict__ coeffs, float* __restrict__ e,
+                       float* __restrict__ partial, int steps, int n, int season) {
+  extern __shared__ float smem[];
+  const int s = season, tile_rows = kSeg + s + 1;
+  float* ys = smem;                       // y at rows t0 - s - 1 .. t0 + kSeg - 1
+  float* buf = ys + tile_rows * kNodes;   // the lag-s stage's rows
+  float* eprev = buf + kSeg * kNodes;     // true e at rows t0 - s .. t0 - 1
+  float* wl = eprev + s * kNodes;         // w before the segment, then at each chunk's end
+  const int j = threadIdx.x % kNodes, c = threadIdx.x / kNodes, c0 = c * kLen;
+  const int n0 = blockIdx.x * kNodes, node = n0 + j;
+  const bool live = node < n;
+  const float phi = live ? coeffs[node] : 0.0f, sphi = live ? coeffs[n + node] : 0.0f;
+  const float theta = live ? coeffs[2 * n + node] : 0.0f, stheta = live ? coeffs[3 * n + node] : 0.0f;
+  const float ps = phi * sphi;
+  for (int k = threadIdx.x; k < (s + 1) * kNodes; k += kScanThreads) eprev[k] = 0.0f;  // and wl[0]
+  load_tile(ys, y, -(s + 1), tile_rows, steps, n, n0);
+  float sum = 0.0f;
+  const int segments = (steps + kSeg - 1) / kSeg;
+  for (int g = 0; g < segments; ++g) {
+    const int t0 = g * kSeg;
+    const float th = opaque(theta);
+    const Lag lags = make_lag(opaque(stheta), opaque(s));
+    const float pq1 = make_lag(th, 1).pq;
+    wait_copies();
+    __syncthreads();
+    // a, and the lag-1 stage's chunk from a zero start
+    float x[kLen];
+    float w = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kLen; ++i) {
+      const int r = c0 + i + s + 1;
+      const float a = at(ys, r, j) - phi * at(ys, r - 1, j) - sphi * at(ys, r - s, j) + ps * at(ys, r - s - 1, j);
+      x[i] = w = fmaf(-theta, w, a);
+    }
+    wl[(c + 1) * kNodes + j] = w;
+    __syncthreads();
+    if (g + 1 < segments) load_tile(ys, y, t0 + kSeg - s - 1, tile_rows, steps, n, n0);  // under the rest
+    if (c == 0) carry_lag1(wl, pq1, j);
+    __syncthreads();
+    fix_up_lag1(x, wl[c * kNodes + j], th);
+    solve_chunk(x, lags.k, lags.coef);
+#pragma unroll
+    for (int i = 0; i < kLen; ++i) at(buf, c0 + i, j) = x[i];
+    __syncthreads();
+    carry_chunks(buf, eprev, lags, c, j);
+    if (c == 0) wl[j] = wl[kChunks * kNodes + j];
+    __syncthreads();
+    fix_up(x, buf, eprev, lags, c0, j);
+    // e out and the loss terms
+#pragma unroll
+    for (int i = 0; i < kLen; ++i) {
+      const int t = t0 + c0 + i;
+      if (live && t < steps) {
+        e[static_cast<int64_t>(t) * n + node] = x[i];
+        if (t >= s + 1) sum = fmaf(x[i], x[i], sum);
+      }
+    }
+    __syncthreads();
+    save_carries(buf, eprev, s, c, j);
+  }
+  float* red = ys;  // the tile is no longer read
+  red[threadIdx.x] = sum;
+  __syncthreads();
+  if (c == 0 && live) {
+    float total = 0.0f;
+    for (int cc = 0; cc < kChunks; ++cc) total += red[cc * kNodes + j];
+    partial[node] = total;
+  }
+}
+
+__global__ void __launch_bounds__(kScanThreads, kBlocksPerSM)
+    css_backward_kernel(const float* __restrict__ y, const float* __restrict__ e, const float* __restrict__ coeffs,
+                        float* __restrict__ grad, float scale, int steps, int n, int season) {
+  extern __shared__ float smem[];
+  const int s = season, tile_rows = kSeg + s + 1;
+  float* ytile = smem;  // tile row r is time t_hi - kSeg - s + r
+  float* etile = ytile + tile_rows * kNodes;
+  float* buf = etile + tile_rows * kNodes;  // row i is time t_hi - i
+  float* gprev = buf + kSeg * kNodes;
+  float* ul = gprev + s * kNodes;
+  const int j = threadIdx.x % kNodes, c = threadIdx.x / kNodes, c0 = c * kLen;
+  const int n0 = blockIdx.x * kNodes, node = n0 + j;
+  const bool live = node < n;
+  const float phi = live ? coeffs[node] : 0.0f, sphi = live ? coeffs[n + node] : 0.0f;
+  const float theta = live ? coeffs[2 * n + node] : 0.0f, stheta = live ? coeffs[3 * n + node] : 0.0f;
+  for (int k = threadIdx.x; k < (s + 1) * kNodes; k += kScanThreads) gprev[k] = 0.0f;  // and ul[0]
+  float d_phi = 0.0f, d_sphi = 0.0f, d_theta = 0.0f, d_stheta = 0.0f;
+  const int segments = (steps + kSeg - 1) / kSeg;
+  for (int g = 0; g < segments; ++g) {
+    const int t_hi = steps - 1 - g * kSeg;
+    const float th = opaque(theta);
+    const Lag lags = make_lag(opaque(stheta), opaque(s));
+    const float pq1 = make_lag(th, 1).pq;
+    load_tile(ytile, y, t_hi - kSeg - s, tile_rows, steps, n, n0);
+    load_tile(etile, e, t_hi - kSeg - s, tile_rows, steps, n, n0);
+    wait_copies();
+    __syncthreads();
+    // h, and the lag-1 stage's chunk (reversed time) from a zero start
+    float x[kLen];
+    float u = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kLen; ++i) {
+      const float h = t_hi - c0 - i >= s + 1 ? scale * at(etile, kSeg + s - c0 - i, j) : 0.0f;
+      x[i] = u = fmaf(-theta, u, h);
+    }
+    ul[(c + 1) * kNodes + j] = u;
+    __syncthreads();
+    if (c == 0) carry_lag1(ul, pq1, j);
+    __syncthreads();
+    fix_up_lag1(x, ul[c * kNodes + j], th);
+    solve_chunk(x, lags.k, lags.coef);
+#pragma unroll
+    for (int i = 0; i < kLen; ++i) at(buf, c0 + i, j) = x[i];
+    __syncthreads();
+    carry_chunks(buf, gprev, lags, c, j);
+    if (c == 0) ul[j] = ul[kChunks * kNodes + j];
+    __syncthreads();
+    fix_up(x, buf, gprev, lags, c0, j);
+    // the four sums over the chunk's g
+#pragma unroll
+    for (int i = 0; i < kLen; ++i) {
+      if (t_hi - c0 - i >= 0) {
+        const int r = kSeg + s - c0 - i;
+        const float ys1 = at(ytile, r - s - 1, j), es1 = at(etile, r - s - 1, j);
+        d_phi = fmaf(-x[i], at(ytile, r - 1, j) - sphi * ys1, d_phi);
+        d_sphi = fmaf(-x[i], at(ytile, r - s, j) - phi * ys1, d_sphi);
+        d_theta = fmaf(-x[i], at(etile, r - 1, j) + stheta * es1, d_theta);
+        d_stheta = fmaf(-x[i], at(etile, r - s, j) + theta * es1, d_stheta);
+      }
+    }
+    __syncthreads();
+    save_carries(buf, gprev, s, c, j);
+  }
+  float* red = ytile;  // the tiles are no longer read
+  red[threadIdx.x] = d_phi;
+  red[kScanThreads + threadIdx.x] = d_sphi;
+  red[2 * kScanThreads + threadIdx.x] = d_theta;
+  red[3 * kScanThreads + threadIdx.x] = d_stheta;
+  __syncthreads();
+  if (c == 0 && live) {
+    for (int q = 0; q < 4; ++q) {
+      float total = 0.0f;
+      for (int cc = 0; cc < kChunks; ++cc) total += red[q * kScanThreads + cc * kNodes + j];
+      grad[q * n + node] = total;
+    }
+  }
 }
 
 __global__ void forecast_kernel(const float* __restrict__ x, const float* __restrict__ coeffs,
@@ -167,8 +449,8 @@ __global__ void forecast_kernel(const float* __restrict__ x, const float* __rest
   }
 }
 
-// Shared memory for `rings` rings of season + 1 floats a thread; above the
-// default 48 KB the kernel is opted in to what it needs.
+// A kernel's dynamic shared memory: above the default 48 KB the kernel is
+// opted in to what it needs; more than a block may have is refused.
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -180,17 +462,18 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
 }
 
+// Shared memory for `rings` rings of season + 1 floats a forecast thread.
 size_t ring_bytes(int rings, int season) { return static_cast<size_t>(rings) * (season + 1) * kThreads * sizeof(float); }
 
 }  // namespace
 
 extern "C" int sarima_css_forward(const void* y, const void* coeffs, void* e, void* partial, int steps, int n,
                                   int season, void* stream) {
-  if (steps < 1 || n < 1 || season < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = ring_bytes(1, season);
+  if (steps < 1 || n < 1 || season < 1 || season > kSeg) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = forward_smem(season);
   cudaError_t err = set_smem(css_forward_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  css_forward_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  css_forward_kernel<<<(n + kNodes - 1) / kNodes, kScanThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(y), static_cast<const float*>(coeffs), static_cast<float*>(e),
       static_cast<float*>(partial), steps, n, season);
   return static_cast<int>(cudaGetLastError());
@@ -198,11 +481,11 @@ extern "C" int sarima_css_forward(const void* y, const void* coeffs, void* e, vo
 
 extern "C" int sarima_css_backward(const void* y, const void* e, const void* coeffs, void* grad, float scale,
                                    int steps, int n, int season, void* stream) {
-  if (steps < 1 || n < 1 || season < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = ring_bytes(1, season);
+  if (steps < 1 || n < 1 || season < 1 || season > kSeg) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = backward_smem(season);
   cudaError_t err = set_smem(css_backward_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  css_backward_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  css_backward_kernel<<<(n + kNodes - 1) / kNodes, kScanThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(y), static_cast<const float*>(e), static_cast<const float*>(coeffs),
       static_cast<float*>(grad), scale, steps, n, season);
   return static_cast<int>(cudaGetLastError());

@@ -8,21 +8,30 @@ program (``tec_mollm_tpu/models/sarima.py:_innovations``, differentiated by
 time steps, forward and backward, in each of 400 Adam steps; the kernels in
 ``csrc/sarima.cu`` make each pass one launch:
 
-* ``css_forward`` (one thread a node): the innovations e (T, N) of the
-  differenced series y (T, N) under the coefficients (4, N) = (phi, Phi,
-  theta, Theta), and each node's sum of e_t^2 over t >= s + 1;
-* ``css_backward`` (one thread a node): the hand adjoint of that sum,
-  backwards in t, giving d(scale/2 * sum e^2)/d coefficients (4, N);
+* ``css_forward``: the innovations e (T, N) of the differenced series y
+  (T, N) under the coefficients (4, N) = (phi, Phi, theta, Theta), and each
+  node's sum of e_t^2 over t >= s + 1;
+* ``css_backward``: the hand adjoint of that sum, backwards in t, giving
+  d(scale/2 * sum e^2)/d coefficients (4, N);
 * ``forecast`` (one thread a (window, node)): the recursion over each
   window's history, then ``L_out`` steps ahead with future innovations 0 and
   the double difference inverted.
 
+The fit's two kernels scan time in chunks: (1 + theta B)(1 + Theta B^s) e = a
+factors into a lag-1 and a lag-s first-order recursion (the adjoint: the same
+in reversed time), each solved chunk by chunk from a zero start, the carries
+then walked across the chunks for each residue class of the lag, and every
+row fixed up by a power of the coefficient times its carry. A block owns 8
+nodes and 16 chunks of 33 steps, a thread each; ``chunked_lag_solve`` and
+``css_{forward,backward}_chunked_reference`` are the plain mirror of that
+decomposition (any chunk length), which the CPU tests hold against the
+sequential versions. The kernels take seasons up to ``MAX_SEASON``.
+
 Their bound on this card is bytes (a fit step at T = 1987, N = 2911 moves
-92.6 MB, 27.6 us at 3.35 TB/s); what holds them above it is the serial chain
-of T steps each thread walks (``PERF.md``). The plain versions compute the
-same math vectorised over nodes (and windows) with a Python loop over time:
-the CPU's path, and what ``chip_smoke.py`` holds the kernels against. A CUDA
-tensor launches the kernel or raises.
+92.6 MB, 27.6 us at 3.35 TB/s; ``PERF.md`` has their times). The plain
+versions compute the same math vectorised over nodes (and windows) with a
+Python loop over time: the CPU's path, and what ``chip_smoke.py`` holds the
+kernels against. A CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -34,13 +43,21 @@ import torch
 from tec_mollm_tpu_torch.ops import _build
 
 FORWARD, BACKWARD, FORECAST = "sarima_css", "sarima_css_bwd", "sarima_forecast"
+# the C entries' arguments: sarima_css_forward(y, coeffs, e, partial, steps, n,
+# season, stream), sarima_css_backward(y, e, coeffs, grad, scale, steps, n,
+# season, stream)
+FORWARD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+BACKWARD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# the fit kernels' largest season: a segment of 16 chunks of 33 steps holds the
+# carry rows of its lag (csrc/sarima.cu)
+MAX_SEASON = 528
 
 
 def lagged(y: torch.Tensor, season: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Zero-padded lag views y_{t-1}, y_{t-s}, y_{t-s-1}, aligned with y (time first)."""
 
     def lag(k: int) -> torch.Tensor:
-        return torch.cat([y.new_zeros((k,) + y.shape[1:]), y[:-k]])
+        return torch.cat([y.new_zeros((min(k, y.shape[0]),) + y.shape[1:]), y[:-k]])
 
     return lag(1), lag(season), lag(season + 1)
 
@@ -70,7 +87,7 @@ def css_backward_reference(
     """(4, N): the gradient of scale/2 * sum_{t >= s+1} e_t^2 with respect to
     (phi, Phi, theta, Theta), by the adjoint g_t = scale e_t [t >= s+1]
     - theta g_{t+1} - Theta g_{t+s} - theta Theta g_{t+s+1} run backwards in t."""
-    phi, sphi, theta, stheta = coeffs
+    _, _, theta, stheta = coeffs
     steps = y.shape[0]
     zero = torch.zeros_like(y[0])
     g: list[torch.Tensor | None] = [None] * steps
@@ -81,7 +98,15 @@ def css_backward_reference(
     for t in reversed(range(steps)):
         own = scale * e[t] if t >= season + 1 else zero
         g[t] = own - theta * later(t + 1) - stheta * later(t + season) - theta * stheta * later(t + season + 1)
-    adj = torch.stack(g)
+    return _coefficient_gradient(y, e, torch.stack(g), coeffs, season)
+
+
+def _coefficient_gradient(
+    y: torch.Tensor, e: torch.Tensor, adj: torch.Tensor, coeffs: torch.Tensor, season: int
+) -> torch.Tensor:
+    """(4, N): minus the sums over t of the adjoint g_t times d a_t / d c and
+    d (e_t - a_t) / d c for c = (phi, Phi, theta, Theta)."""
+    phi, sphi, theta, stheta = coeffs
     y1, ys, ys1 = lagged(y, season)
     e1, es, es1 = lagged(e, season)
     return -torch.stack([
@@ -90,6 +115,73 @@ def css_backward_reference(
         (adj * (e1 + stheta * es1)).sum(0),
         (adj * (es + theta * es1)).sum(0),
     ])
+
+
+def chunked_lag_solve(b: torch.Tensor, coef: torch.Tensor, lag: int, chunk: int) -> torch.Tensor:
+    """x_i = b_i - coef x_{i-lag} along the first axis, zero before 0, by the
+    kernels' time-chunked decomposition: each chunk of ``chunk`` rows solved
+    from a zero start; then, for each residue class of i mod lag, the carries
+    across the chunks in order (the class's last row in a chunk gains
+    (-coef)^cnt times the class's true value before the chunk, cnt its rows in
+    the chunk); then every other row fixed up by (-coef)^m times the carry
+    before its chunk, m its place in its class within the chunk. A chunk whose
+    length is not a multiple of lag holds the classes at shifted offsets,
+    which the carry rows (the lag rows before each chunk) absorb."""
+    steps = b.shape[0]
+    x = b.clone()
+    starts = range(0, steps, chunk)
+    for c0 in starts:
+        for i in range(c0 + lag, min(c0 + chunk, steps)):
+            x[i] = x[i] - coef * x[i - lag]
+    base = -coef
+    zero = torch.zeros_like(x[0])
+    for rho in range(min(lag, steps)):
+        carry = zero
+        for c0 in starts:
+            end = min(c0 + chunk, steps)
+            first = c0 + (rho - c0) % lag
+            if first >= end:
+                continue  # a chunk shorter than lag may hold no row of this class
+            last = first + (end - 1 - first) // lag * lag
+            carry = x[last] + base ** ((last - first) // lag + 1) * carry
+            x[last] = carry
+    for c0 in starts:
+        end = min(c0 + chunk, steps)
+        for i in range(c0, end):
+            if i + lag < end:  # not the last of its class in the chunk: the carries' row
+                src = i - ((i - c0) // lag + 1) * lag
+                x[i] = x[i] + base ** ((i - c0) // lag + 1) * (x[src] if src >= 0 else zero)
+    return x
+
+
+def css_forward_chunked_reference(
+    y: torch.Tensor, coeffs: torch.Tensor, season: int, chunk: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``css_forward_reference`` through the forward kernel's decomposition:
+    (1 + theta B)(1 + Theta B^s) e = a factored into w = a - theta w_{t-1},
+    then e = w - Theta e_{t-s}, each solved in chunks of ``chunk`` steps
+    (``chunked_lag_solve``). Nothing on the main path calls it: the CPU tests
+    hold it against the sequential version."""
+    phi, sphi, theta, stheta = coeffs
+    y1, ys, ys1 = lagged(y, season)
+    ar = y - phi * y1 - sphi * ys + phi * sphi * ys1
+    eps = chunked_lag_solve(chunked_lag_solve(ar, theta, 1, chunk), stheta, season, chunk)
+    return eps, eps[season + 1 :].square().sum(0)
+
+
+def css_backward_chunked_reference(
+    y: torch.Tensor, e: torch.Tensor, coeffs: torch.Tensor, season: int, scale: float, chunk: int
+) -> torch.Tensor:
+    """``css_backward_reference`` through the backward kernel's
+    decomposition: (1 + theta F)(1 + Theta F^s) g = h with h_t = scale e_t
+    [t >= s+1] is the forward's factored recursion in reversed time, solved
+    in chunks of ``chunk`` reversed steps; then the four sums over g."""
+    _, _, theta, stheta = coeffs
+    h = scale * e
+    h[: season + 1] = 0.0
+    u = chunked_lag_solve(h.flip(0), theta, 1, chunk)
+    adj = chunked_lag_solve(u, stheta, season, chunk).flip(0)
+    return _coefficient_gradient(y, e, adj, coeffs, season)
 
 
 def difference(x: torch.Tensor, season: int) -> torch.Tensor:
@@ -123,7 +215,9 @@ def forecast_reference(x: torch.Tensor, coeffs: torch.Tensor, horizon: int, seas
     return torch.stack(out).reshape(horizon, b, n).transpose(0, 1)
 
 
-def _check(name: str, *tensors: torch.Tensor) -> None:
+def _check(name: str, *tensors: torch.Tensor, season: int = 1) -> None:
+    if season > MAX_SEASON:
+        raise ValueError(f"{name} takes seasons up to {MAX_SEASON}, got {season}")
     for t in tensors:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous float32 tensors, got {t.dtype} (contiguous {t.is_contiguous()})")
@@ -140,10 +234,10 @@ def css_forward(y: torch.Tensor, coeffs: torch.Tensor, season: int) -> tuple[tor
     if y.device.type == "cpu":
         return css_forward_reference(y, coeffs, season)
     _build.refuse_grad(FORWARD, "fit through css_loss_and_grad", y, coeffs)
-    _check(FORWARD, y, coeffs)
+    _check(FORWARD, y, coeffs, season=season)
     e = torch.empty_like(y)
     partial = torch.empty(n, dtype=torch.float32, device=y.device)
-    fn = _build.function("sarima_css_forward", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn = _build.function("sarima_css_forward", FORWARD_ARGTYPES)
     err = fn(y.data_ptr(), coeffs.data_ptr(), e.data_ptr(), partial.data_ptr(), steps, n, season,
              _build.stream_handle(y.device))
     _build.check(FORWARD, err)
@@ -162,12 +256,9 @@ def css_backward(
     if y.device.type == "cpu":
         return css_backward_reference(y, e, coeffs, season, scale)
     _build.refuse_grad(BACKWARD, "fit through css_loss_and_grad", y, e, coeffs)
-    _check(BACKWARD, y, e, coeffs)
+    _check(BACKWARD, y, e, coeffs, season=season)
     grad = torch.empty((4, n), dtype=torch.float32, device=y.device)
-    fn = _build.function(
-        "sarima_css_backward",
-        [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    )
+    fn = _build.function("sarima_css_backward", BACKWARD_ARGTYPES)
     err = fn(y.data_ptr(), e.data_ptr(), coeffs.data_ptr(), grad.data_ptr(), float(scale), steps, n, season,
              _build.stream_handle(y.device))
     _build.check(BACKWARD, err)
@@ -193,6 +284,20 @@ def css_loss_and_grad(raw: torch.Tensor, y: torch.Tensor, season: int) -> tuple[
 def css_loss_and_grad_reference(raw: torch.Tensor, y: torch.Tensor, season: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``css_loss_and_grad`` through the plain versions on any device."""
     return _loss_and_grad(raw, y, season, css_forward_reference, css_backward_reference)
+
+
+def css_loss_and_grad_chunked_reference(
+    raw: torch.Tensor, y: torch.Tensor, season: int, chunk: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``css_loss_and_grad`` through the chunked mirrors of the kernels."""
+
+    def forward(y, coeffs, season):
+        return css_forward_chunked_reference(y, coeffs, season, chunk)
+
+    def backward(y, e, coeffs, season, scale):
+        return css_backward_chunked_reference(y, e, coeffs, season, scale, chunk)
+
+    return _loss_and_grad(raw, y, season, forward, backward)
 
 
 def forecast(x: torch.Tensor, coeffs: torch.Tensor, horizon: int, season: int) -> torch.Tensor:

@@ -4,6 +4,10 @@ ops/sarima.py), on the CPU.
 * The hand adjoint of the plain version (``css_backward_reference``) against
   torch autograd through the plain forward loop, within 1e-5 (both fp32,
   summed in other orders);
+* the chunked mirror of the kernels' decomposition
+  (``css_{forward,backward}_chunked_reference``) against the sequential
+  plain versions, within 1e-5 of the largest value, over seasons 1, 4, 12
+  and 23 and the edge cases the kernels meet (``CHUNKED_CASES``);
 * the JAX package's ``ValueError``s for a short series and a short window;
 * the wrappers take the plain version for a CPU tensor only: a tensor off the
   CPU goes to the kernel, whose build raises here (no CUDA toolchain);
@@ -59,6 +63,44 @@ def test_adjoint_of_each_coefficient_is_autograd():
     np.testing.assert_allclose(got.numpy(), coeffs.grad.numpy(), atol=1e-5, rtol=1e-5)
 
 
+# (season, T, N, chunk): chunks that do not divide T, the kernels' chunk of 33,
+# one chunk longer than T, chunks shorter than the season (a residue class
+# missing from some chunks), N not a multiple of the kernels' node tile of 8,
+# and T below season + 1 (no term in the loss)
+CHUNKED_CASES = [
+    (1, 80, 5, 7), (1, 80, 3, 100), (4, 80, 19, 13), (4, 61, 5, 33), (12, 80, 5, 33), (12, 94, 17, 33),
+    (12, 60, 3, 100), (12, 50, 3, 5), (23, 90, 3, 25), (23, 90, 3, 33), (23, 10, 4, 4), (12, 12, 3, 33),
+]
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest difference over the largest magnitude (the difference itself where want is all 0)."""
+    diff, top = float((got - want).abs().max()), float(want.abs().max())
+    return diff / top if top > 0 else diff
+
+
+@pytest.mark.parametrize("season, steps, nodes, chunk", CHUNKED_CASES)
+def test_chunked_mirror_is_the_sequential_recursion(season, steps, nodes, chunk):
+    """The kernels' decomposition (factored stages, chunk-local solutions,
+    carries by residue class, fix-up) against the sequential plain versions:
+    e, partial and the (4, N) gradient within 1e-5 of the largest value
+    (both fp32, summed in other orders). Nodes 0 and 1 sit at +-0.99."""
+    rng = np.random.default_rng(season * 1000 + steps)
+    y = torch.tensor(rng.standard_normal((steps, nodes)), dtype=torch.float32)
+    c = rng.uniform(-0.9, 0.9, (4, nodes))
+    c[:, 0], c[:, 1] = (0.99, -0.99, 0.99, -0.99), (-0.99, 0.99, -0.99, 0.99)
+    coeffs = torch.tensor(c, dtype=torch.float32)
+    e, partial = ops.css_forward_reference(y, coeffs, season)
+    e_c, partial_c = ops.css_forward_chunked_reference(y, coeffs, season, chunk)
+    grad = ops.css_backward_reference(y, e, coeffs, season, 0.37)
+    grad_c = ops.css_backward_chunked_reference(y, e, coeffs, season, 0.37, chunk)
+    assert e_c.shape == e.shape == (steps, nodes) and grad_c.shape == (4, nodes)
+    for name, got, want in (("e", e_c, e), ("partial", partial_c, partial), ("grad", grad_c, grad)):
+        assert _rel(got, want) <= 1e-5, name
+    if steps < season + 1:
+        assert not partial_c.any() and not grad_c.any()
+
+
 def test_the_jax_guards():
     with pytest.raises(ValueError, match="too short"):
         fit_sarima(np.zeros((20, 2)), season=12, device="cpu")
@@ -103,6 +145,19 @@ def test_a_device_tensor_never_falls_back():
                      lambda: ops.forecast(torch.empty(2, 12, 4, device="meta"), coeffs, 3, 4)):
             with pytest.raises(RuntimeError, match="nvcc|CUDA"):
                 call()
+
+
+def test_the_fit_kernels_refuse_a_season_past_their_largest():
+    """On the card the fit's kernels take seasons up to MAX_SEASON (their
+    segment holds the carry rows); the plain version takes any."""
+    s = ops.MAX_SEASON + 1
+    y, coeffs = torch.empty(s + 10, 4, device="meta"), torch.empty(4, 4, device="meta")
+    with pytest.raises(ValueError, match="seasons up to"):
+        ops.css_forward(y, coeffs, s)
+    with pytest.raises(ValueError, match="seasons up to"):
+        ops.css_backward(y, y, coeffs, s, 1.0)
+    e, partial = ops.css_forward(torch.zeros(s + 3, 2), torch.zeros(4, 2), s)
+    assert e.shape == (s + 3, 2) and float(partial.abs().max()) == 0.0
 
 
 def test_sarima_baseline_needs_statsmodels():

@@ -7,6 +7,8 @@ Tolerances:
   largest forecast (both fp32, the same recursion);
 * the CSS loss and its gradient (the port's hand adjoint) against
   ``jax.value_and_grad`` of JAX's objective: 1e-5 relative;
+* the same through the kernels' chunked decomposition
+  (``css_loss_and_grad_chunked_reference``): 1e-5 relative;
 * the coefficients after 5 Adam steps (torch's Adam, optax's defaults):
   1e-5 (measured here: 6.0e-7);
 * after a whole short fit (T = 600, N = 4, s = 4, 300 steps): 1e-4. Measured
@@ -83,6 +85,29 @@ def test_css_loss_and_gradient_match_jax(season):
     yt = ops.difference(torch.tensor(x, dtype=torch.float32), season)
     yt = (yt / yt.std(dim=0, correction=0).clamp_min(1e-6)).contiguous()
     loss, grad = ops.css_loss_and_grad(torch.from_numpy(raw), yt, season)
+    assert loss.item() == pytest.approx(float(want_loss), rel=1e-5)
+    want_grad = np.asarray(want_grad)
+    np.testing.assert_allclose(grad.numpy(), want_grad, atol=1e-5 * np.abs(want_grad).max())
+
+
+@pytest.mark.parametrize("season", [4, 12])
+def test_chunked_mirror_loss_and_gradient_match_jax(season):
+    """The kernels' chunked decomposition (chunks of 33 steps, the kernels'
+    length) against jax.value_and_grad of JAX's objective, within 1e-5."""
+    x = _simulate_sarima(300, 6, season, 0.5, 0.3, -0.4, -0.2, seed=2)
+    raw = _raw(6, 11)
+    y = jsarima._difference(jnp.asarray(x, jnp.float32), season)
+    y = y / jnp.maximum(jnp.std(y, axis=0), 1e-6)
+
+    def loss_fn(r):
+        c = 0.99 * jnp.tanh(r)
+        eps = jsarima._innovations((c[0], c[1], c[2], c[3]), y, season)
+        return jnp.mean(eps[season + 1 :] ** 2)
+
+    want_loss, want_grad = jax.value_and_grad(loss_fn)(jnp.asarray(raw))
+    yt = ops.difference(torch.tensor(x, dtype=torch.float32), season)
+    yt = (yt / yt.std(dim=0, correction=0).clamp_min(1e-6)).contiguous()
+    loss, grad = ops.css_loss_and_grad_chunked_reference(torch.from_numpy(raw), yt, season, 33)
     assert loss.item() == pytest.approx(float(want_loss), rel=1e-5)
     want_grad = np.asarray(want_grad)
     np.testing.assert_allclose(grad.numpy(), want_grad, atol=1e-5 * np.abs(want_grad).max())
