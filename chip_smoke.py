@@ -17,9 +17,12 @@ Phases (any failure exits non-zero):
      bf16 (the flagship eval batch, the eval step's, the trainer's validation
      batch, the 300 km stencil, the unpadded node axis, 70,000 slices) and its
      general form at GAT_GENERAL_CASES (1 head x 22 channels, the 450 km
-     stencil's 81 offsets, 4 x 16 on the unpadded axis); padded lanes must be
-     exactly 0, each call must launch its form, and the bare C entry is timed
-     beside the wrapper. The short attention runs with dropout p = 0.1 (the training
+     stencil's 81 offsets, 4 x 16 on the unpadded axis, the flagship 2 x 11
+     forced through it beside the tiled form, a span past its window, shifts
+     past N); padded lanes must be exactly 0, each call must launch its form,
+     the general form must give the same bits twice and the plan of
+     ops/gat_stencil.py:general_plan (gat_plan), and the bare C entry is
+     timed beside the wrapper, with each case's share of its bound. The short attention runs with dropout p = 0.1 (the training
      call) and 0; its keep mask is read back through the kernel's output and
      must equal the plain hash bit for bit, keep 0.9 +- 0.001 of the draws and
      change with the seed. Its backward is checked in fp32 and bf16 at p = 0
@@ -175,9 +178,9 @@ Phases (any failure exits non-zero):
      kernels also at SARIMA_EDGES (short T, few nodes at season 1, season 23,
      T below season + 1) within SARIMA_RTOL, and two launches on the same
      inputs bit-identical; each kernel timed beside its plain version and its
-     bytes bound (the fit's two also through their bare C entries,
-     sarima_bare_entry; their registers and spills from the build's ptxas
-     log), and one fit step's loss and gradient (back to back, its share of
+     bytes bound (and through their bare C entries, sarima_bare_entry and
+     forecast_bare_entry; the fit's two kernels' registers and spills from
+     the build's ptxas log), and one fit step's loss and gradient (back to back, its share of
      a fit step's wall); then
      the full fit of SARIMA_FIT_STEPS steps through the kernels (its wall, ms
      a step, one launch of each pass a step; the fitted phi's node mean within
@@ -271,15 +274,31 @@ GAT_CASES = {
     "n2911": (BATCH * 48, 150.0, 2911),
     "m70000": (70_000, 150.0, 64),
 }
-# and of its general form: (slices M, radius km, nodes N, heads, channels);
-# "path" is the serve batch of a 1 head x 22 channel config (trainer phase),
-# "r450" the 450 km stencil (81 offsets, largest |shift| 284) at the trainer's
-# validation batch, "n2911" 4 heads x 16 channels on the unpadded node axis
+# and of its general form: (slices M, stencil, nodes N, heads, channels), the
+# stencil a radius in km or a synthetic one by name (GAT_SYNTHETIC); "path" is
+# the serve batch of a 1 head x 22 channel config (trainer phase), "r450" the
+# 450 km stencil (81 offsets, largest |shift| 284) at the trainer's validation
+# batch, "n2911" 4 heads x 16 channels on the unpadded node axis; "forced" the
+# flagship 2 x 11 eval batch through the bare C entry with general = 1 (the
+# tiled form's own shape, timed beside the tiled form's bare entry: the
+# general form's yardstick); "overflow" a span past the widest window that
+# fits (the offsets outside it read from device memory); "oob" shifts past N
+# marked valid, whose neighbours the kernel must count out of range
 GAT_GENERAL_CASES = {
     "path": (BATCH * 48, 150.0, 2944, 1, 22),
     "r450": (2 * 48, 450.0, 2944, 2, 11),
     "n2911": (2 * 48, 150.0, 2911, 4, 16),
+    "forced": (BATCH * 48, 150.0, 2944, 2, 11),
+    "overflow": (2 * 48, "overflow", 2944, 2, 11),
+    "oob": (2 * 48, "oob", 2944, 1, 22),
 }
+# the synthetic stencils: shifts added to the 150 km stencil's, each valid on
+# every real lane whose neighbour is in range ("overflow": a span of 5,100
+# nodes, about three times the widest window a block holds in bf16) or on
+# every real lane ("oob": N, -N - 3 and 5,000 nodes, no neighbour in range; the
+# plain version, which wraps around, is given the mask with the range check
+# folded in)
+GAT_SYNTHETIC = {"overflow": lambda n: (1400, -1400, 2500, -2600), "oob": lambda n: (n, -n - 3, 5000)}
 GAT_SMALL_GRID = (6, 8)
 # fused MLP checks: rows by label; "path" is the serve batch (8 windows x 2944
 # padded nodes x 3 patches), "window" one window's rows, "ragged" a row count
@@ -493,7 +512,9 @@ def check_kernels(args, graph, results: dict) -> list[dict]:
     tiled = {k: (*v, *hc) for k, v in GAT_CASES.items()}
     tiled["trainer"] = (train_cfg.batch_size * train_cfg.L_in, 150.0, n, *hc)
     entries.append(check_gat(graph, rand, failures, "gat_stencil", tiled))
-    entries.append(check_gat(graph, rand, failures, "gat_stencil_general", GAT_GENERAL_CASES))
+    general = check_gat(graph, rand, failures, "gat_stencil_general", GAT_GENERAL_CASES)
+    general["ptxas"] = [k for k in results.get("gat_ptxas", []) if "gat_stencil_general_kernel" in k["entry"]]
+    entries.append(general)
 
     # --- 2. short causal attention at (B*N, T, D), q/k/v views of the c_attn output ---
     t = cfg.num_patches
@@ -587,10 +608,11 @@ def check_kernels(args, graph, results: dict) -> list[dict]:
     return entries
 
 
-def gat_bare_entry(xl, xr, valid, att, shifts):
+def gat_bare_entry(xl, xr, valid, att, shifts, general: bool = False):
     """A call of the GAT kernel's C entry with its arguments marshalled once,
     into a fresh output: the wrapper's launch without its checks and Python
-    (the timing cap). Not counted."""
+    (the timing cap); with ``general`` the general form whatever the layout.
+    Not counted."""
     import torch
 
     from tec_mollm_tpu_torch.ops import _build
@@ -599,13 +621,37 @@ def gat_bare_entry(xl, xr, valid, att, shifts):
     att32 = att.float().contiguous()
     out = torch.empty_like(xl)
     fn = _build.function("gat_stencil_forward", g.ARGTYPES)
-    args = g.entry_args(xl, xr, valid, att32, g.check_stencil(shifts), out, 0.2)
+    shifts = g.check_stencil(shifts)
+    args = list(g.entry_args(xl, xr, valid, att32, shifts, out, 0.2))
+    if general:
+        args[4], args[14] = g._device_shifts(shifts, xl.device).data_ptr(), 1
 
     def call():
         _build.check(g.NAME, fn(*args))
         return out
 
     return call
+
+
+def gat_plan(shifts, channels: int, n: int, bf16: bool) -> dict:
+    """The general form's plan for a call, from the C entry
+    gat_stencil_general_plan; raises where it differs from the Python mirror
+    (ops/gat_stencil.py:general_plan)."""
+    import ctypes
+
+    from tec_mollm_tpu_torch.ops import _build
+    from tec_mollm_tpu_torch.ops import gat_stencil as g
+
+    out = (ctypes.c_longlong * len(g.GeneralPlan._fields))()
+    host = g._shift_array(tuple(shifts))
+    fn = _build.function("gat_stencil_general_plan", g.PLAN_ARGTYPES)
+    _build.check("gat_stencil_general_plan", fn(ctypes.cast(host, ctypes.c_void_p), len(shifts), channels, n,
+                                                 int(bf16), ctypes.cast(out, ctypes.c_void_p)))
+    plan = g.GeneralPlan(*out)
+    mirror = g.general_plan(shifts, channels, n, 2 if bf16 else 4)
+    if plan != mirror:
+        raise RuntimeError(f"the general form's plan {plan} differs from the mirror's {mirror}")
+    return plan._asdict()
 
 
 def flash_bare_entry(q, k, v, causal: bool):
@@ -659,6 +705,28 @@ def sarima_bare_entry(y, coeffs, season: int, e=None, scale: float = 0.0):
     return call
 
 
+def forecast_bare_entry(x, coeffs, horizon: int, season: int):
+    """A call of the SARIMA forecast kernel's C entry with its arguments
+    marshalled once, into a fresh output: the wrapper's launch without its
+    checks and Python. Not counted."""
+    import torch
+
+    from tec_mollm_tpu_torch.ops import _build
+    from tec_mollm_tpu_torch.ops import sarima as sops
+
+    b, length, n = x.shape
+    out = torch.empty((b, horizon, n), dtype=torch.float32, device=x.device)
+    fn = _build.function("sarima_forecast", sops.FORECAST_ARGTYPES)
+    args = (x.data_ptr(), coeffs.data_ptr(), out.data_ptr(), b, length, n, season, horizon,
+            _build.stream_handle(x.device))
+
+    def call():
+        _build.check(sops.FORECAST, fn(*args))
+        return out
+
+    return call
+
+
 def ptxas_entries(log_text: str, source: str) -> list[dict]:
     """Registers, spills and shared memory of each kernel instance, from
     nvcc's -Xptxas -v log of csrc/<source>."""
@@ -681,10 +749,13 @@ def ptxas_entries(log_text: str, source: str) -> list[dict]:
 
 def check_gat(graph, rand, failures: list, name: str, cases: dict) -> dict:
     """One form of the stencil GAT kernel against its plain version at
-    ``cases`` (label: (M, km, N, heads, channels)) in fp32 and bf16, padded
-    lanes exactly 0; the entry's times are the "path" case's in bf16, through
-    the wrapper and through the bare C entry, with the other cases' times and
-    bounds under their labels. Every call must launch this form (``name``)."""
+    ``cases`` (label: (M, stencil, N, heads, channels)) in fp32 and bf16,
+    padded lanes exactly 0; the entry's times are the "path" case's in bf16,
+    through the wrapper and through the bare C entry, with the other cases'
+    times, bounds and shares of bound under their labels. Every call must
+    launch this form (``name``), but "forced", which goes through the bare
+    entry with general = 1. The general form also launches twice on the same
+    inputs (the same bits) and checks its plan (gat_plan)."""
     import torch
 
     from tec_mollm_tpu_torch import ops
@@ -692,68 +763,112 @@ def check_gat(graph, rand, failures: list, name: str, cases: dict) -> dict:
     from tec_mollm_tpu_torch.graph.builder import build_grid_stencil
 
     dev = torch.device("cuda")
+    general = name == "gat_stencil_general"
 
-    def stencil(km: float, n: int, small: bool = False):
+    def stencil(km, n: int, small: bool = False):
+        """shifts, the kernel's mask, and the plain version's (the range check folded in for "oob")"""
         if small:
             g_small = build_graph(*grid_coordinates(*GAT_SMALL_GRID))
             shifts, v = g_small.stencil_shifts, g_small.stencil_valid
-        elif km == 150.0:
+        elif km == 150.0 or km in GAT_SYNTHETIC:
             shifts, v = graph.stencil_shifts, graph.stencil_valid
         else:
             shifts, v = build_grid_stencil(*grid_coordinates(41, 71), km)
+        shifts = [int(s) for s in shifts]
         valid = torch.zeros(len(shifts), n, dtype=torch.bool, device=dev)
         valid[:, :v.shape[1]] = torch.as_tensor(v, device=dev)
-        return tuple(int(s) for s in shifts), valid
+        if km in GAT_SYNTHETIC:
+            real = v.shape[1]
+            extra = list(GAT_SYNTHETIC[km](n))
+            nodes = torch.arange(n, device=dev)
+            rows = []
+            for s in extra:
+                row = nodes < real
+                if km == "overflow":
+                    row &= (nodes + s >= 0) & (nodes + s < n)
+                rows.append(row)
+            shifts += extra
+            valid = torch.cat([valid, torch.stack(rows)])
+        j = torch.arange(n, device=dev)[None, :] + torch.tensor(shifts, device=dev)[:, None]
+        return tuple(shifts), valid, valid & (j >= 0) & (j < n)
 
     entry = {
         "name": name, "source": "tec_mollm_tpu_torch/csrc/gat_stencil.cu",
         "replaces": "tec_mollm_tpu/ops/gat_stencil.py:104", "library_ms": None,
     }
     for label, (m, km, n, heads, channels) in cases.items():
-        shifts, valid = stencil(km, n, small=label == "m70000")
+        shifts, valid, valid_plain = stencil(km, n, small=label == "m70000")
         att = rand(heads, channels, dtype=torch.float32, std=0.3)
         hc = heads * channels
         real = int(valid.any(dim=0).nonzero().max()) + 1  # lanes past the grid's nodes are padding
         reach = max(map(abs, shifts))
-        case = {"shape": f"xl,xr ({m},{hc},{n}), {heads}x{channels}; valid ({len(shifts)},{n}); {km:g} km; "
-                         f"largest |shift| {reach}"}
+        case = {"shape": f"xl,xr ({m},{hc},{n}), {heads}x{channels}; valid ({len(shifts)},{n}); "
+                         f"{km if isinstance(km, str) else f'{km:g} km'}; largest |shift| {reach}"}
+        forced = label == "forced"
         for dname, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             xl, xr = rand(m, hc, n, dtype=dt), rand(m, hc, n, dtype=dt)
             ops.reset_counts()
-            got = ops.gat_stencil_attention(xl, xr, valid, att, shifts)
+            if forced:
+                got = gat_bare_entry(xl, xr, valid, att, shifts, general=True)().clone()
+            else:
+                got = ops.gat_stencil_attention(xl, xr, valid, att, shifts)
             counts = ops.launch_counts()
-            want = ops.gat_stencil_reference(xl, xr, valid, att, shifts)
+            want = ops.gat_stencil_reference(xl, xr, valid_plain, att, shifts)
             torch.cuda.synchronize()
             tag = dname if label == "path" else f"{label}_{dname}"
             entry[f"max_abs_err_{tag}"], entry[f"max_rel_err_{tag}"], ok = compare(got, want, dname)
             entry[f"tol_{tag}"] = TOL[dname]
             if not ok:
                 failures.append(f"{name} {label} {dname}")
-            if counts != {name: 1}:
+            if counts != ({} if forced else {name: 1}):
                 failures.append(f"{name} {label} {dname}: launched {counts}")
             if real < n and not bool((got[..., real:] == 0).all()):
                 failures.append(f"{name} {label} {dname}: padded lanes not exactly 0")
             case[f"padded_lanes_{dname}"] = n - real
+            if general:
+                again = (gat_bare_entry(xl, xr, valid, att, shifts, general=True)() if forced
+                         else ops.gat_stencil_attention(xl, xr, valid, att, shifts))
+                case[f"same_bits_{dname}"] = bool(torch.equal(got, again))
+                if not case[f"same_bits_{dname}"]:
+                    failures.append(f"{name} {label} {dname}: two launches differ")
+                case[f"plan_{dname}"] = gat_plan(shifts, channels, n, dt == torch.bfloat16)
+                del again
             del got, want
-        valid_pairs = int(valid.sum())
+        if general:
+            plan = case["plan_bf16"]
+            if label == "overflow" and not 0 < plan["window_offsets"] < plan["reach"]:
+                failures.append(f"{name} overflow: the plan reads no offset from device memory: {plan}")
+            if label == "oob" and plan["reach"] != len(graph.stencil_shifts):
+                failures.append(f"{name} oob: shifts past N counted as reaching a node: {plan}")
+        valid_pairs = int(valid_plain.sum())
+        run = gat_bare_entry(xl, xr, valid, att, shifts, general=forced)
         case.update({
-            "ms": time_ms(lambda: ops.gat_stencil_attention(xl, xr, valid, att, shifts), REPS),
-            "bare_ms": time_ms(gat_bare_entry(xl, xr, valid, att, shifts), REPS),
+            "bare_ms": time_ms(run, REPS),
             "bytes": 3 * m * hc * n * 2 + valid.numel() + att.numel() * 4,
             # per valid (node, offset) pair and slice: add, leaky-relu, multiply-add
             # per channel for the score, exp, and a multiply-add per channel for the sum
             "flops": m * valid_pairs * (hc * 5 + 2 * hc + 4),
         })
+        if not forced:
+            case["ms"] = time_ms(lambda: ops.gat_stencil_attention(xl, xr, valid, att, shifts), REPS)
+        else:
+            case["tiled_bare_ms"] = time_ms(gat_bare_entry(xl, xr, valid, att, shifts), REPS)
         case["bound_ms"], case["bound_by"] = bound(case["bytes"], case["flops"], PEAK_FLOPS["fp32"])
+        case["share_of_bound_bare"] = case["bound_ms"] / case["bare_ms"]
         if label == "path":
             case["plain_ms"] = time_ms(lambda: ops.gat_stencil_reference(xl, xr, valid, att, shifts), REPS)
+            case["share_of_bound"] = case["bound_ms"] / case["ms"]
             entry.update(case, flop_rate=PEAK_FLOPS["fp32"])
-            log(f"kernel {name}[path]: bare entry {case['bare_ms']:.4f} ms (wrapper {case['ms']:.4f})")
+            log(f"kernel {name}[path]: bare entry {case['bare_ms']:.4f} ms (wrapper {case['ms']:.4f}), "
+                f"the bound {case['share_of_bound_bare']:.1%} of it")
         else:
             entry[label] = case
+            times = (f"kernel {case['ms']:.4f} ms (bare {case['bare_ms']:.4f})" if not forced else
+                     f"bare {case['bare_ms']:.4f} ms (the tiled form's bare {case['tiled_bare_ms']:.4f})")
             log(
-                f"kernel {name}[{label}]: {case['shape']}: kernel {case['ms']:.4f} ms (bare "
-                f"{case['bare_ms']:.4f}), bound {case['bound_ms']:.4f} ms ({case['bound_by']})"
+                f"kernel {name}[{label}]: {case['shape']}: {times}, bound {case['bound_ms']:.4f} ms "
+                f"({case['bound_by']}; {case['share_of_bound_bare']:.1%} of the bare time)"
+                + (f"; plan {case['plan_bf16']}" if general else "")
             )
         del xl, xr
     entry["max_abs_err"] = entry["max_abs_err_bf16"]
@@ -2942,12 +3057,13 @@ def sarima_kernel_checks(args) -> dict:
     if not same_bits:
         failures.append("flagship: two launches differ")
 
-    # the kernels' entries of the kernels line: times (the fit's two also
-    # through their bare C entries), bounds (bytes: each input read once, each
+    # the kernels' entries of the kernels line: times (also through their
+    # bare C entries), bounds (bytes: each input read once, each
     # output written once)
     arr = steps_t * n * 4
     bare_calls = {sops.FORWARD: sarima_bare_entry(y, coeffs, s),
-                  sops.BACKWARD: sarima_bare_entry(y, coeffs, s, e_k, scale)}
+                  sops.BACKWARD: sarima_bare_entry(y, coeffs, s, e_k, scale),
+                  sops.FORECAST: forecast_bare_entry(wins, coeffs, L_out, s)}
     entries = []
     for name, shape, fn, plain, bytes_moved, flops, err in (
         (sops.FORWARD, f"y ({steps_t},{n}) fp32, coeffs (4,{n}) -> e, partial",

@@ -56,13 +56,41 @@
 //
 // The tiled kernel above is built for the model's 2 heads x 11 channels, at
 // most 64 offsets and |shift| <= 144. Every other layout and stencil the Pallas
-// kernel takes (any heads x channels, any shift, any number of offsets) runs
-// gat_stencil_general_kernel: a thread per (slice, head, node) reads its
-// neighbours straight from device memory (coalesced along the node axis), a
-// first pass over the offsets makes the online max and denominator, and a
-// second pass per kGeneralChunk channels recomputes each score and sums the
-// weighted neighbours. Same masking, floor and out-of-range rule; its shifts
-// come from device memory, so their number has no limit.
+// kernel takes (any heads x channels, any int32 shift, any number of offsets)
+// runs gat_stencil_general_kernel, bound by the same bytes and held back, as
+// the tiled one is, by its instruction stream. Its design:
+// - A block owns one head of a tile of 256, 128 or 64 nodes (a thread a
+//   node) and walks consecutive slices (one wave of resident blocks). The
+//   tile, the window and the shared-memory layout are set at launch from the
+//   stencil's span and C (general_plan): the largest tile whose window, the
+//   rows [n0 + min shift, n0 + tile + max shift) of the shifts that can reach
+//   a node, fits 110 KB with the rest (two blocks an SM).
+// - Each slice's window rows and xr tile are staged by cp.async while the
+//   slice before is computed: 16-byte copies where rows are whole 16-byte
+//   chunks, else 4-byte copies (a bf16 pair from an even element, rows of odd
+//   N starting one element in), element copies only for a pointer that is not
+//   4-byte aligned. The window is converted once to node-major fp32 records
+//   (an odd count of 16-byte chunks, so that neighbouring nodes' loads fall in
+//   distinct banks) beside the head's projection P = k1 att_h . l, two
+//   elements a thread where rows hold whole pairs.
+// - One pass over the offsets with an online softmax in log2 units (ex2): a
+//   neighbour's record is read once for its score P + k2 att_h . |l + r| (the
+//   tiled kernel's split of leaky-ReLU: an add and a multiply-add a channel)
+//   and its weighted sum; the sums are rescaled only when a score passes its
+//   lane's running max by more than kLazy on some lane of the warp. Heads of
+//   up to 31 channels keep att, r and the sums in registers (C <= 4 q - 1 for
+//   a record of q float4s, q a template width); wider heads loop over groups
+//   of 32 output channels, recomputing each score from the window.
+// - Validity is a 32-bit word per node and 32 offsets in shared memory, the
+//   range check folded in, with the shifts and their records' offsets; a
+//   warp walks only the offsets one of its nodes needs. Offsets past the
+//   first 512 have their bits and shifts read from device memory each slice.
+// - A span too wide for the smallest tile's window (or a head too wide for
+//   its tile) keeps the widest window that fits around shift 0 and reads the
+//   other offsets' neighbours from device memory in the same kernel (an
+//   instantiation of its own, so that a stencil that fits pays nothing for
+//   it). Offsets with |shift| >= N reach no node and are never walked.
+// Same masking, floor and out-of-range rule as the tiled kernel.
 #include <algorithm>
 #include <cfloat>
 #include <climits>
@@ -89,6 +117,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in_r
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(in_range ? 16 : 0));
+}
+// 4 bytes, of which the first `bytes` (0, 2 or 4) come from src and the rest are 0
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
@@ -378,117 +411,576 @@ cudaError_t launch(const Launch& a) {
   return a.reach <= 72 ? launch_as<T, 72>(a) : launch_as<T, 144>(a);
 }
 
-constexpr int kGeneralThreads = 256;  // nodes of a block, all of one (slice, head)
-constexpr int kGeneralChunk = 16;     // output channels one pass accumulates
+// ---------------------------------------------------------------------------
+// The general form: any heads x channels, any number of offsets, any int32
+// shift. A block owns one head of a tile of nodes (a thread a node) and walks
+// consecutive slices; its tile, window and shared-memory layout are set at
+// launch from the stencil's span and C (general_plan).
 
-template <typename T>
-__global__ void __launch_bounds__(kGeneralThreads)
-gat_stencil_general_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
-                           const uint8_t* __restrict__ valid, const int* __restrict__ shifts,
-                           const float* __restrict__ att, T* __restrict__ out, int heads, int channels,
-                           int n_nodes, int n_offsets, int n_tiles, float slope) {
-  const int n = (blockIdx.x % n_tiles) * kGeneralThreads + threadIdx.x;
-  const int64_t mh = blockIdx.x / n_tiles;  // m * heads + h
-  if (n >= n_nodes) return;
-  const int h = static_cast<int>(mh % heads);
-  const int64_t row0 = mh * channels;  // the head's first row: m * heads*channels + h * channels
-  const T* const l = xl + row0 * n_nodes;
-  const T* const r = xr + row0 * n_nodes + n;
-  const float* const a = att + h * channels;
-  T* const o = out + row0 * n_nodes + n;
+constexpr int kWord = 32;                   // offsets a validity word (uint32) holds
+constexpr int kResidentWords = 16;          // validity words (512 offsets) a block keeps in shared memory
+constexpr int kGeneralTiles[] = {256, 128, 64};  // nodes a block owns, the largest whose window fits first
+constexpr int kGeneralBudget = 110 * 1024;  // dynamic shared memory of a block: two blocks fit an SM
+constexpr int kNarrowQ[] = {2, 3, 4, 5, 6, 8};  // float4 chunks of a narrow head's record: C <= 4 q - 1
+constexpr int kWideQ = 8;                   // float4 chunks of a wide head's channel group (32 channels)
+constexpr float kLazy = 8.f;                // log2 units a score may pass the max before the sums are rescaled
 
-  // offset k's neighbour, or -1 where it is masked or outside [0, N)
-  auto neighbour = [&](int k) {
-    const int j = n + __ldg(shifts + k);
-    return j >= 0 && j < n_nodes && valid[static_cast<int64_t>(k) * n_nodes + n] ? j : -1;
+struct GeneralArgs {
+  const void *xl, *xr;
+  const uint8_t* valid;
+  const int* shifts;  // the n_offsets shifts, on the device
+  const float* att;
+  void* out;
+  int m, heads, channels, n, n_offsets;
+  int tile;         // nodes (and threads) of a block
+  int wlen;         // window elements; 0: every neighbour comes from device memory
+  int lo;           // window element 0 is node n0 + lo; a multiple of 16 bytes' elements
+  int rec;          // floats of a window record
+  int res_offsets;  // offsets whose shift and validity bits a block keeps in shared memory
+  int sx, sr;       // elements of a staged row of the window and of the xr tile: wlen + E and tile + E
+  int copy;         // 2: 16-byte cp.async (rows of whole 16-byte chunks); 1: 4-byte cp.async; 0: element copies
+  int slices, units, n_tiles;  // slices a block walks; (tile, head) pairs; node tiles
+  int off_stage_xl, off_stage_xr, off_bits, off_warp, off_shift, off_woff;  // bytes into shared memory
+  float k1, k2;     // leaky_relu(e) = (k1 e + k2 |e|) / log2(e)
+};
+
+// Shared memory of a block, in this order: the fp32 window W (wlen records of
+// rec floats, node-major: a record holds a node's C channels and, for a narrow
+// head, the projection P = k1 * att_h . l in its last float; a wide head keeps
+// P at float C); the staging buffers in xl's type for the next slice's window
+// (C rows of sx elements, channel-major as in device memory) and, for a
+// narrow head, its xr tile (C rows of sr); the validity words of the first
+// res_offsets offsets (a word per node and per warp), their shifts and their
+// records' offsets in W (-1: outside it).
+template <typename T, int kQ, bool kWide, bool kSpill>
+__global__ void __launch_bounds__(256, (kQ <= 3 ? 3 : kQ <= 6 ? 2 : 1))
+gat_stencil_general_kernel(const GeneralArgs a) {
+  constexpr int E = 16 / sizeof(T);  // elements in a 16-byte copy
+  constexpr int kL = 4 * kQ;         // narrow: channel slots 0..kL-2 and P at kL-1; wide: a channel group
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const win = reinterpret_cast<float*>(smem);
+  T* const stage_xl = reinterpret_cast<T*>(smem + a.off_stage_xl);
+  T* const stage_xr = reinterpret_cast<T*>(smem + a.off_stage_xr);
+  uint32_t* const s_bits = reinterpret_cast<uint32_t*>(smem + a.off_bits);
+  uint32_t* const s_warp = reinterpret_cast<uint32_t*>(smem + a.off_warp);
+  int* const s_shift = reinterpret_cast<int*>(smem + a.off_shift);
+  int* const s_woff = reinterpret_cast<int*>(smem + a.off_woff);
+  const T* const xl = static_cast<const T*>(a.xl);
+  const T* const xr = static_cast<const T*>(a.xr);
+  T* const out = static_cast<T*>(a.out);
+
+  const int C = a.channels, N = a.n, R = a.rec, TT = a.tile, W = a.wlen, SX = a.sx, SR = a.sr;
+  const int unit = blockIdx.x % a.units;
+  const int h = unit / a.n_tiles;
+  const int n0 = (unit % a.n_tiles) * TT;
+  const int m_begin = (blockIdx.x / a.units) * a.slices;
+  const int m_end = min(m_begin + a.slices, a.m);
+  const int64_t w0 = static_cast<int64_t>(n0) + a.lo;  // node of window element 0; a multiple of E
+  const int t = threadIdx.x, warp = t / 32, warps = TT / 32;
+  const int n = n0 + t;  // this thread's node
+  const bool in = n < N;
+  const int words = (a.n_offsets + kWord - 1) / kWord;
+  const int res_words = (a.res_offsets + kWord - 1) / kWord;
+  // bf16 rows copied 4 bytes at a time start at an odd element where their
+  // first element's index is odd (rows of odd N alternate)
+  const bool pairs = a.copy == 1 && sizeof(T) == 2;
+  const int nodd = pairs ? N & 1 : 0;
+  const float lowest = -FLT_MAX;
+
+  // the float offset of a shift's record in W from this node's, or -1 when
+  // the window does not hold the whole tile's neighbours at that shift
+  auto window_off = [&](int s) {
+    const int64_t idx = static_cast<int64_t>(s) - a.lo;
+    return idx >= 0 && idx <= W - TT ? static_cast<int>(idx) * R : -1;
   };
-  auto score = [&](int j) {
-    float s = 0.f;
-    for (int c = 0; c < channels; ++c) {
-      const int64_t row = static_cast<int64_t>(c) * n_nodes;
-      const float e = tec::to_float(l[row + j]) + tec::to_float(r[row]);
-      s = fmaf(__ldg(a + c), e >= 0.f ? e : slope * e, s);
+  // word w of this node's validity: bit k for offset 32 w + k, valid and its
+  // neighbour inside [0, N)
+  auto validity = [&](int w) {
+    uint32_t vb = 0;
+    const int o1 = min(a.n_offsets, (w + 1) * kWord);
+    for (int o = w * kWord; o < o1; ++o) {
+      const int64_t j = static_cast<int64_t>(n) + (o < a.res_offsets ? s_shift[o] : __ldg(a.shifts + o));
+      if (in && j >= 0 && j < N && a.valid[static_cast<int64_t>(o) * N + n]) vb |= 1u << (o - w * kWord);
     }
-    return s;
+    return vb;
   };
+  // head h's first row of slice m
+  auto head_base = [&](int m) { return (static_cast<int64_t>(m) * a.heads + h) * C * static_cast<int64_t>(N); };
 
-  float mx = -FLT_MAX, den = 0.f;
-  for (int k = 0; k < n_offsets; ++k) {
-    const int j = neighbour(k);
-    if (j < 0) continue;
-    const float s = score(j);
-    if (s > mx) {
-      den = den * expf(mx - s) + 1.f;
-      mx = s;
+  // The resident offsets' shifts and window offsets, then this node's
+  // validity words and the offsets any node of the warp needs (ordered
+  // before their reads by the barrier after the first slice lands).
+  for (int o = t; o < a.res_offsets; o += TT) {
+    const int s = a.shifts[o];
+    s_shift[o] = s;
+    s_woff[o] = window_off(s);
+  }
+  __syncthreads();
+  for (int w = 0; w < res_words; ++w) {
+    const uint32_t vb = validity(w);
+    s_bits[w * TT + t] = vb;
+    const uint32_t any = __reduce_or_sync(0xffffffffu, vb);
+    if (t % 32 == 0) s_warp[w * warps + warp] = any;
+  }
+  // a narrow head's attention vector (0 past C and in P's slot)
+  float av[kL];
+#pragma unroll
+  for (int i = 0; i < kL; ++i) av[i] = !kWide && i < kL - 1 && i < C ? __ldg(a.att + h * C + i) : 0.f;
+
+  // Slice m's window rows (and a narrow head's xr tile) into the staging
+  // buffers, row c at c * SX (c * SR), plus 1 where a bf16 row copied in
+  // pairs starts at an odd element: 16-byte copies in flight where rows are
+  // whole 16-byte chunks, else 4-byte copies in flight (a bf16 pair from an
+  // even element; a neighbour outside [0, N) may then hold its row
+  // neighbour's value, which the conversion zeroes), or element copies where
+  // a pointer is not 4-byte aligned.
+  auto stage = [&](int m) {
+    const int64_t hb = head_base(m);
+    const T* const src_l = xl + hb;
+    const T* const src_r = xr + hb;
+    if (a.copy == 2) {
+      const int chunks = W / E;  // chunks never straddle 0 or N, both multiples of E
+      for (int i = t; i < C * chunks; i += TT) {
+        const int c = i / chunks, q = i - c * chunks;
+        const int64_t j = w0 + q * E;
+        const bool ok = j >= 0 && j < N;
+        cp_async16(stage_xl + c * SX + q * E, src_l + static_cast<int64_t>(c) * N + (ok ? j : 0), ok);
+      }
+      if constexpr (!kWide) {
+        const int tchunks = TT / E;
+        for (int i = t; i < C * tchunks; i += TT) {
+          const int c = i / tchunks, q = i - c * tchunks;
+          const int j = n0 + q * E;
+          const bool ok = j < N;
+          cp_async16(stage_xr + c * SR + q * E, src_r + static_cast<int64_t>(c) * N + (ok ? j : 0), ok);
+        }
+      }
+    } else if (pairs) {
+      // pair k of row c holds elements 2k - par and 2k - par + 1, nodes j and j + 1
+      const int units = W / 2 + 1;
+      for (int i = t; i < C * units; i += TT) {
+        const int c = i / units, k = i - c * units;
+        const int par = static_cast<int>((hb + w0) & 1) ^ (c & nodd);
+        const int64_t j = w0 - par + 2 * k;
+        const int bytes = j + 1 >= 0 && j + 1 < N ? 4 : j >= 0 && j < N ? 2 : 0;
+        cp_async4(stage_xl + c * SX + 2 * k, bytes ? src_l + static_cast<int64_t>(c) * N + j : xl, bytes);
+      }
+      if constexpr (!kWide) {
+        const int tunits = TT / 2 + 1;
+        for (int i = t; i < C * tunits; i += TT) {
+          const int c = i / tunits, k = i - c * tunits;
+          const int par = static_cast<int>((hb + n0) & 1) ^ (c & nodd);
+          const int j = n0 - par + 2 * k;
+          const int bytes = j + 1 < N ? 4 : j < N ? 2 : 0;  // j >= -1, and j + 1 >= 0 holds
+          cp_async4(stage_xr + c * SR + 2 * k, bytes ? src_r + static_cast<int64_t>(c) * N + j : xr, bytes);
+        }
+      }
+    } else if (a.copy == 1) {  // fp32, 4 bytes an element
+      for (int i = t; i < C * W; i += TT) {
+        const int c = i / W, q = i - c * W;
+        const int64_t j = w0 + q;
+        const bool ok = j >= 0 && j < N;
+        cp_async4(stage_xl + c * SX + q, ok ? src_l + static_cast<int64_t>(c) * N + j : xl, ok ? 4 : 0);
+      }
+      if constexpr (!kWide)
+        for (int c = 0; c < C; ++c)
+          cp_async4(stage_xr + c * SR + t, in ? src_r + static_cast<int64_t>(c) * N + n : xr, in ? 4 : 0);
     } else {
-      den += expf(s - mx);
+      for (int i = t; i < C * W; i += TT) {
+        const int c = i / W, q = i - c * W;
+        const int64_t j = w0 + q;
+        stage_xl[c * SX + q] = j >= 0 && j < N ? src_l[static_cast<int64_t>(c) * N + j] : tec::from_float<T>(0.f);
+      }
+      if constexpr (!kWide)
+        for (int c = 0; c < C; ++c)
+          stage_xr[c * SR + t] = in ? src_r[static_cast<int64_t>(c) * N + n] : tec::from_float<T>(0.f);
+    }
+    cp_async_commit();
+  };
+  stage(m_begin);
+
+  for (int m = m_begin; m < m_end; ++m) {
+    // The slice has landed (and every thread is done with the last one's W).
+    // Convert head h's window rows to node-major fp32 records with their
+    // projection, zero outside [0, N); a narrow head takes this node's xr
+    // values.
+    cp_async_wait_all();
+    __syncthreads();
+    const int64_t base = head_base(m);
+    const int par_l = pairs ? static_cast<int>((base + w0) & 1) : 0;  // of row 0; row c: par ^ (c & nodd)
+    const int par_r = pairs ? static_cast<int>((base + n0) & 1) : 0;
+    if constexpr (!kWide) {
+      if (!pairs) {
+        // two adjacent elements a thread, a channel's pair in one load (W and
+        // SX are even, and the copies zero-filled every element outside [0, N))
+        for (int e = 2 * t; e < W; e += 2 * TT) {
+          float v0[kL], v1[kL];
+          float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+          for (int i = 0; i < kL - 1; ++i) {
+            const float2 x = i < C ? staged_pair(stage_xl + i * SX + e) : make_float2(0.f, 0.f);
+            v0[i] = x.x;
+            v1[i] = x.y;
+            p0 = fmaf(av[i], x.x, p0);
+            p1 = fmaf(av[i], x.y, p1);
+          }
+          v0[kL - 1] = a.k1 * p0;
+          v1[kL - 1] = a.k1 * p1;
+          float4* const dst = reinterpret_cast<float4*>(win + static_cast<int64_t>(e) * R);
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) {
+            dst[q] = make_float4(v0[4 * q], v0[4 * q + 1], v0[4 * q + 2], v0[4 * q + 3]);
+            dst[R / 4 + q] = make_float4(v1[4 * q], v1[4 * q + 1], v1[4 * q + 2], v1[4 * q + 3]);
+          }
+        }
+      } else {
+        for (int e = t; e < W; e += TT) {
+          const bool ok = static_cast<uint64_t>(w0 + e) < static_cast<uint64_t>(N);
+          float v[kL];
+          float p = 0.f;
+#pragma unroll
+          for (int i = 0; i < kL - 1; ++i) {
+            v[i] = ok && i < C ? tec::to_float(stage_xl[i * SX + (par_l ^ (i & nodd)) + e]) : 0.f;
+            p = fmaf(av[i], v[i], p);
+          }
+          v[kL - 1] = a.k1 * p;
+          float4* const dst = reinterpret_cast<float4*>(win + static_cast<int64_t>(e) * R);
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) dst[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+        }
+      }
+    } else {
+      for (int e = t; e < W; e += TT) {
+        const bool ok = static_cast<uint64_t>(w0 + e) < static_cast<uint64_t>(N);
+        float4* const dst = reinterpret_cast<float4*>(win + static_cast<int64_t>(e) * R);
+        float p = 0.f;
+        for (int q = 0; 4 * q < R; ++q) {
+          float v[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = 4 * q + i;
+            v[i] = ok && c < C ? tec::to_float(stage_xl[c * SX + (par_l ^ (c & nodd)) + e]) : 0.f;
+            if (c < C) p = fmaf(__ldg(a.att + h * C + c), v[i], p);
+          }
+          dst[q] = make_float4(v[0], v[1], v[2], v[3]);
+        }
+        win[static_cast<int64_t>(e) * R + C] = a.k1 * p;
+      }
+    }
+    float r[kL];
+#pragma unroll
+    for (int i = 0; i < kL; ++i)
+      r[i] = !kWide && i < kL - 1 && i < C ? tec::to_float(stage_xr[i * SR + (par_r ^ (i & nodd)) + t]) : 0.f;
+    __syncthreads();
+    if (m + 1 < m_end) stage(m + 1);  // lands while this slice is computed
+
+    const T* const xl_h = xl + base;
+    const T* const xr_h = xr + base;
+    const float* const win_t = win + t * R;
+    // Online softmax over the offsets this warp needs, one pass: a neighbour's
+    // record is read once for its score and its weighted sum (a wide head
+    // reads it again for each group of 32 output channels). With leaky_relu(e)
+    // = k1 e + k2 |e| (in log2 units), a score is P[neighbour] + k2 att_h .
+    // |l + r| plus k1 att_h . r, which is the same for every offset of a node
+    // and leaves the softmax unchanged: it is dropped.
+    for (int g0 = 0; g0 < (kWide ? C : 1); g0 += kL) {
+      float mx = lowest, den = 0.f, acc[kL];
+#pragma unroll
+      for (int i = 0; i < kL; ++i) acc[i] = 0.f;
+      for (int w = 0; w < words; ++w) {
+        uint32_t vb, todo;
+        if (w < res_words) {
+          vb = s_bits[w * TT + t];
+          todo = s_warp[w * warps + warp];
+        } else {  // past the resident offsets: the bits from device memory, each slice
+          vb = validity(w);
+          todo = __reduce_or_sync(0xffffffffu, vb);
+        }
+        while (todo) {
+          const int k = __ffs(static_cast<int>(todo)) - 1;
+          todo &= todo - 1;
+          const int o = w * kWord + k;
+          int s, woff;
+          if (o < a.res_offsets) {
+            s = s_shift[o];
+            woff = s_woff[o];
+          } else {
+            s = __ldg(a.shifts + o);
+            woff = window_off(s);
+          }
+          const bool v = (vb >> k) & 1;
+          const int64_t j = static_cast<int64_t>(n) + s;  // the neighbour (read only where v)
+          const bool windowed = !kSpill || woff >= 0;  // the same for every thread of the block
+          const float* const rec = win_t + (windowed ? woff : 0);
+          float l[kL];
+          float sc;
+          if constexpr (!kWide) {
+            if (windowed) {
+#pragma unroll
+              for (int q = 0; q < kQ; ++q) {
+                const float4 x = reinterpret_cast<const float4*>(rec)[q];
+                l[4 * q] = x.x;
+                l[4 * q + 1] = x.y;
+                l[4 * q + 2] = x.z;
+                l[4 * q + 3] = x.w;
+              }
+            } else if constexpr (kSpill) {  // from device memory, its projection made as the conversion makes it
+              float p = 0.f;
+#pragma unroll
+              for (int i = 0; i < kL - 1; ++i) {
+                l[i] = v && i < C ? tec::to_float(xl_h[static_cast<int64_t>(i) * N + j]) : 0.f;
+                p = fmaf(av[i], l[i], p);
+              }
+              l[kL - 1] = a.k1 * p;
+            }
+            float even = 0.f, odd = 0.f;  // two chains of multiply-adds
+#pragma unroll
+            for (int i = 0; i < kL - 1; ++i) {
+              if (i & 1) odd = fmaf(fabsf(l[i] + r[i]), av[i], odd);
+              else even = fmaf(fabsf(l[i] + r[i]), av[i], even);
+            }
+            sc = select(v, fmaf(a.k2, even + odd, l[kL - 1]), lowest);
+          } else {
+            // the score over all C channels, four at a time
+            float even = 0.f, odd = 0.f, p = 0.f;
+            for (int q = 0; 4 * q < C; ++q) {
+              float x[4];
+              if (windowed) {
+                const float4 x4 = reinterpret_cast<const float4*>(rec)[q];
+                x[0] = x4.x, x[1] = x4.y, x[2] = x4.z, x[3] = x4.w;
+              }
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int c = 4 * q + i;
+                const float ac = c < C ? __ldg(a.att + h * C + c) : 0.f;
+                if (!windowed) {
+                  x[i] = v && c < C ? tec::to_float(xl_h[static_cast<int64_t>(c) * N + j]) : 0.f;
+                  p = fmaf(ac, x[i], p);
+                }
+                const float rc = in && c < C ? tec::to_float(xr_h[static_cast<int64_t>(c) * N + n]) : 0.f;
+                if (i & 1) odd = fmaf(fabsf(x[i] + rc), ac, odd);
+                else even = fmaf(fabsf(x[i] + rc), ac, even);
+              }
+            }
+            sc = select(v, fmaf(a.k2, even + odd, windowed ? rec[C] : a.k1 * p), lowest);
+            // this group's channels, read again
+#pragma unroll
+            for (int q = 0; q < kQ; ++q) {
+              const int c = g0 + 4 * q;
+              if (windowed) {
+                const float4 x4 = c < R ? reinterpret_cast<const float4*>(rec + c)[0] : make_float4(0.f, 0.f, 0.f, 0.f);
+                l[4 * q] = x4.x, l[4 * q + 1] = x4.y, l[4 * q + 2] = x4.z, l[4 * q + 3] = x4.w;
+              } else {
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                  l[4 * q + i] = v && c + i < C ? tec::to_float(xl_h[static_cast<int64_t>(c + i) * N + j]) : 0.f;
+              }
+            }
+          }
+          constexpr int kSum = kWide ? kL : kL - 1;  // channels summed
+          // The sums are rescaled only where a score passes its lane's running
+          // max by more than kLazy (log2 units) on some lane of the warp; else
+          // a weight is taken against the stale max, at most 2^kLazy.
+          if (__any_sync(0xffffffffu, sc > mx + kLazy)) {
+            const float mx_new = fmaxf(mx, sc);
+            const float f = ex2(mx - mx_new);
+            den *= f;
+#pragma unroll
+            for (int i = 0; i < kSum; ++i) acc[i] *= f;
+            mx = mx_new;
+          }
+          const float ew = v ? ex2(sc - mx) : 0.f;
+          den += ew;
+#pragma unroll
+          for (int i = 0; i < kSum; ++i) acc[i] = fmaf(ew, l[i], acc[i]);
+        }
+      }
+      if (in) {
+        const float inv = 1.f / fmaxf(den, FLT_MIN);  // no valid offset: 0, not NaN
+        T* const dst = out + base + n;
+#pragma unroll
+        for (int i = 0; i < (kWide ? kL : kL - 1); ++i)
+          if (g0 + i < C) dst[static_cast<int64_t>(g0 + i) * N] = tec::from_float<T>(acc[i] * inv);
+      }
     }
   }
-  const float inv = 1.f / fmaxf(den, FLT_MIN);  // no valid offset: 0, not NaN
-  for (int c0 = 0; c0 < channels; c0 += kGeneralChunk) {
-    float acc[kGeneralChunk];
-#pragma unroll
-    for (int q = 0; q < kGeneralChunk; ++q) acc[q] = 0.f;
-    for (int k = 0; k < n_offsets; ++k) {
-      const int j = neighbour(k);
-      if (j < 0) continue;
-      const float w = expf(score(j) - mx);
-#pragma unroll
-      for (int q = 0; q < kGeneralChunk; ++q)
-        if (c0 + q < channels) acc[q] = fmaf(w, tec::to_float(l[static_cast<int64_t>(c0 + q) * n_nodes + j]), acc[q]);
+}
+
+// What general_plan sets at launch for one call.
+struct GeneralPlan {
+  int q;              // float4 chunks of a narrow head's record (kNarrowQ); 0 for a wide head (C > 31)
+  int tile, wlen, lo, rec, res_offsets;
+  int window_offsets;  // offsets read from the window
+  int reach;           // offsets that can reach a node (|shift| < n); those outside the window come from device memory
+  int64_t bytes;       // dynamic shared memory
+  int sx, sr;          // elements of a staged window row and xr row
+  int off_stage_xl, off_stage_xr, off_bits, off_warp, off_shift, off_woff;
+};
+
+int64_t floor_div(int64_t a, int64_t b) { return a >= 0 ? a / b : -((-a + b - 1) / b); }
+int64_t round16(int64_t bytes) { return (bytes + 15) / 16 * 16; }
+
+// The tile, window and shared-memory layout of a call: the largest tile
+// (kGeneralTiles) whose window, the tile plus the span of the shifts that can
+// reach a node inside [0, N) (|shift| < N), fits kGeneralBudget; else the
+// smallest tile with the widest window that fits, centred on shift 0 where the
+// span allows, and the offsets outside it read from device memory (none inside
+// when not even the tile fits). elem: bytes of an element of xl.
+GeneralPlan general_plan(const int* shifts, int n_offsets, int channels, int n, int elem) {
+  GeneralPlan p{};
+  const int E = 16 / elem;
+  for (int q : kNarrowQ)
+    if (p.q == 0 && 4 * q - 1 >= channels) p.q = q;
+  int chunks = p.q ? p.q : (channels + 1 + 3) / 4;  // float4s of a record: a wide head's C channels and P
+  if (chunks % 2 == 0) ++chunks;  // an odd count: neighbouring nodes' records start in distinct bank quads
+  p.rec = 4 * chunks;
+  p.res_offsets = std::min(n_offsets, kResidentWords * kWord);
+  const int64_t res_words = (p.res_offsets + kWord - 1) / kWord;
+  int64_t lo = INT64_MAX, hi = INT64_MIN;
+  for (int o = 0; o < n_offsets; ++o)
+    if (shifts[o] > -n && shifts[o] < n) lo = std::min<int64_t>(lo, shifts[o]), hi = std::max<int64_t>(hi, shifts[o]);
+  auto layout = [&](int tile, int64_t wlen) {
+    const auto at = [](int64_t off) { return static_cast<int>(std::min<int64_t>(off, INT_MAX)); };
+    int64_t off = wlen * p.rec * 4;
+    p.off_stage_xl = at(off);
+    off += round16(channels * (wlen + E) * elem);
+    p.off_stage_xr = at(off);
+    off += p.q ? round16(static_cast<int64_t>(channels) * (tile + E) * elem) : 0;
+    p.off_bits = at(off);
+    off += res_words * tile * 4;
+    p.off_warp = at(off);
+    off += round16(res_words * (tile / 32) * 4);
+    p.off_shift = at(off);
+    off += round16(p.res_offsets * 4);
+    p.off_woff = at(off);
+    return off + round16(p.res_offsets * 4);
+  };
+  auto finish = [&](int tile, int64_t wlen, int64_t lo_al) {
+    p.tile = tile, p.wlen = static_cast<int>(wlen), p.lo = static_cast<int>(lo_al);
+    p.sx = p.wlen + E, p.sr = tile + E;
+    p.bytes = layout(tile, wlen);
+    for (int o = 0; o < n_offsets; ++o) {
+      const int64_t idx = static_cast<int64_t>(shifts[o]) - lo_al;
+      const bool reaches = shifts[o] > -n && shifts[o] < n;
+      p.reach += reaches;
+      p.window_offsets += reaches && idx >= 0 && idx <= wlen - tile;
     }
-#pragma unroll
-    for (int q = 0; q < kGeneralChunk; ++q)
-      if (c0 + q < channels) o[static_cast<int64_t>(c0 + q) * n_nodes] = tec::from_float<T>(acc[q] * inv);
+    return p;
+  };
+  if (lo > hi) return finish(kGeneralTiles[2], 0, 0);  // no offset reaches a node
+  const int64_t lo_al = floor_div(lo, E) * E, span = -floor_div(-hi, E) * E - lo_al;
+  for (int tile : kGeneralTiles) {
+    if (tile > kGeneralTiles[2] && tile / 2 >= n) continue;  // half the tile would be idle
+    if (layout(tile, tile + span) <= kGeneralBudget) return finish(tile, tile + span, lo_al);
+  }
+  const int tile = kGeneralTiles[2];
+  const int64_t cap = (kGeneralBudget - layout(tile, 0)) / (p.rec * 4 + channels * elem) / E * E;
+  if (cap < tile + E) return finish(tile, 0, 0);
+  const int64_t extra = cap - tile - E;  // shifts lo_w .. lo_w + extra fit, wherever lo_w falls in its chunk
+  int64_t lo_w = std::max(lo, -extra / 2);
+  if (lo_w + extra > hi) lo_w = std::max(lo, hi - extra);
+  return finish(tile, cap, floor_div(lo_w, E) * E);
+}
+
+template <typename T, int kQ, bool kWide, bool kSpill>
+cudaError_t launch_general_as(GeneralArgs a, const GeneralPlan& p, cudaStream_t stream) {
+  auto kernel = gat_stencil_general_kernel<T, kQ, kWide, kSpill>;
+  const int bytes = static_cast<int>(p.bytes);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, p.tile, bytes);
+  if (err != cudaSuccess) return err;
+  // the (tile, head) units share the resident blocks: each walks a run of
+  // consecutive slices, so that the grid is one wave
+  const int64_t resident = std::max(sms * per_sm, 1);
+  const int64_t n_tiles = (a.n + p.tile - 1) / p.tile, units = n_tiles * a.heads;
+  const int64_t per_unit = std::max<int64_t>(resident / units, 1);
+  const int64_t slices = (a.m + per_unit - 1) / per_unit;
+  const int64_t blocks = units * ((a.m + slices - 1) / slices);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  a.n_tiles = static_cast<int>(n_tiles), a.units = static_cast<int>(units), a.slices = static_cast<int>(slices);
+  kernel<<<static_cast<unsigned>(blocks), p.tile, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// the instantiation for the plan's record width, and with the reads from
+// device memory only where some offset that reaches a node lies outside the
+// window
+template <typename T, bool kSpill>
+cudaError_t launch_general_spill(const GeneralArgs& a, const GeneralPlan& p, cudaStream_t stream) {
+  switch (p.q) {
+    case 2: return launch_general_as<T, 2, false, kSpill>(a, p, stream);
+    case 3: return launch_general_as<T, 3, false, kSpill>(a, p, stream);
+    case 4: return launch_general_as<T, 4, false, kSpill>(a, p, stream);
+    case 5: return launch_general_as<T, 5, false, kSpill>(a, p, stream);
+    case 6: return launch_general_as<T, 6, false, kSpill>(a, p, stream);
+    case 8: return launch_general_as<T, 8, false, kSpill>(a, p, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t launch_general(const void* xl, const void* xr, const void* valid, const int* shifts,
-                           const float* att, void* out, int m, int heads, int channels, int n,
-                           int n_offsets, float slope, cudaStream_t stream) {
-  const int n_tiles = (n + kGeneralThreads - 1) / kGeneralThreads;
-  const int64_t blocks = static_cast<int64_t>(n_tiles) * m * heads;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  gat_stencil_general_kernel<T><<<static_cast<unsigned>(blocks), kGeneralThreads, 0, stream>>>(
-      static_cast<const T*>(xl), static_cast<const T*>(xr), static_cast<const uint8_t*>(valid), shifts, att,
-      static_cast<T*>(out), heads, channels, n, n_offsets, n_tiles, slope);
-  return cudaGetLastError();
+cudaError_t launch_general(const GeneralArgs& a, const GeneralPlan& p, cudaStream_t stream) {
+  if (p.q == 0) return launch_general_as<T, kWideQ, true, true>(a, p, stream);
+  return p.window_offsets < p.reach ? launch_general_spill<T, true>(a, p, stream)
+                                    : launch_general_spill<T, false>(a, p, stream);
 }
 
 }  // namespace
 
+// The general form's plan for a call (general_plan), for checks from the
+// host: out[0..8] = q, tile, wlen, lo, rec, res_offsets, window_offsets,
+// bytes, and the offsets that reach a node (|shift| < n).
+extern "C" int gat_stencil_general_plan(const int* shifts, int n_offsets, int channels, int n, int is_bf16,
+                                        long long* out) {
+  if (n < 1 || channels < 1 || n_offsets < 1 || shifts == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const GeneralPlan p = general_plan(shifts, n_offsets, channels, n, is_bf16 ? 2 : 4);
+  const long long v[] = {p.q, p.tile, p.wlen, p.lo, p.rec, p.res_offsets, p.window_offsets, p.bytes, p.reach};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
+}
+
 // xl, xr, out: (m, heads*channels, n) contiguous; valid: (n_offsets, n) uint8
-// (torch.bool); att: heads*channels fp32 on the device. general = 0 launches
-// the tiled kernel, which takes heads=2, channels=11, at most kMaxOffsets
-// offsets and |shift| <= kMaxShift, from the host array shifts; general = 1
-// launches gat_stencil_general_kernel, which takes any of them and reads the
-// same n_offsets shifts from shifts_dev, an int32 array on the device.
+// (torch.bool); att: heads*channels fp32 on the device; shifts: the n_offsets
+// shifts on the host. general = 0 launches the tiled kernel, which takes
+// heads=2, channels=11, at most kMaxOffsets offsets and |shift| <= kMaxShift;
+// general = 1 launches gat_stencil_general_kernel, which takes any of them,
+// sized from the host shifts, and reads them again from shifts_dev, the same
+// int32 array on the device.
 extern "C" int gat_stencil_forward(const void* xl, const void* xr, const void* valid,
                                    const int* shifts, const int* shifts_dev, const void* att, void* out,
                                    int m, int heads, int channels, int n, int n_offsets, float slope,
                                    int is_bf16, int general, void* stream) {
-  if (m < 1 || n < 1 || heads < 1 || channels < 1 || n_offsets < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 1 || n < 1 || heads < 1 || channels < 1 || n_offsets < 1 || shifts == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto att32 = static_cast<const float*>(att);
+  // 16-byte copies need rows that are whole 16-byte chunks and aligned pointers
+  const auto at = [](const void* ptr, uintptr_t bytes) { return (reinterpret_cast<uintptr_t>(ptr) & (bytes - 1)) == 0; };
+  const int aligned = n % (is_bf16 ? 8 : 4) == 0 && at(xl, 16) && at(xr, 16);
   if (general) {
     if (shifts_dev == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(
-        is_bf16 ? launch_general<__nv_bfloat16>(xl, xr, valid, shifts_dev, att32, out, m, heads, channels, n,
-                                                n_offsets, slope, s)
-                : launch_general<float>(xl, xr, valid, shifts_dev, att32, out, m, heads, channels, n, n_offsets,
-                                        slope, s));
+    const GeneralPlan p = general_plan(shifts, n_offsets, channels, n, is_bf16 ? 2 : 4);
+    GeneralArgs a{};
+    a.xl = xl, a.xr = xr, a.valid = static_cast<const uint8_t*>(valid), a.shifts = shifts_dev, a.att = att32;
+    a.out = out, a.m = m, a.heads = heads, a.channels = channels, a.n = n, a.n_offsets = n_offsets;
+    a.tile = p.tile, a.wlen = p.wlen, a.lo = p.lo, a.rec = p.rec, a.res_offsets = p.res_offsets;
+    a.sx = p.sx, a.sr = p.sr;
+    a.copy = aligned ? 2 : at(xl, 4) && at(xr, 4) ? 1 : 0;  // 4-byte copies: element or bf16 pair
+    a.off_stage_xl = p.off_stage_xl, a.off_stage_xr = p.off_stage_xr, a.off_bits = p.off_bits;
+    a.off_warp = p.off_warp, a.off_shift = p.off_shift, a.off_woff = p.off_woff;
+    a.k1 = 0.5f * (1.f + slope) * kLog2e, a.k2 = 0.5f * (1.f - slope) * kLog2e;
+    return static_cast<int>(is_bf16 ? launch_general<__nv_bfloat16>(a, p, s) : launch_general<float>(a, p, s));
   }
   if (heads != kHeads || channels != kChannels || n_offsets > kMaxOffsets)
     return static_cast<int>(cudaErrorInvalidValue);
-  Launch a{xl, xr, valid, att32, out, m, n, n_offsets, 0, 0, slope, {}, s};
+  Launch a{xl, xr, valid, att32, out, m, n, n_offsets, 0, aligned, slope, {}, s};
   for (int o = 0; o < n_offsets; ++o) {
     if (shifts[o] > kMaxShift || shifts[o] < -kMaxShift) return static_cast<int>(cudaErrorInvalidValue);
     a.p.shifts[o] = shifts[o];
     a.reach = std::max(a.reach, std::abs(shifts[o]));
   }
-  // 16-byte copies need rows that are whole 16-byte chunks and aligned pointers
-  const auto a16 = [](const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; };
-  a.aligned = n % (is_bf16 ? 8 : 4) == 0 && a16(xl) && a16(xr);
   return static_cast<int>(is_bf16 ? launch<__nv_bfloat16>(a) : launch<float>(a));
 }

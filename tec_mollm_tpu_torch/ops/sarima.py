@@ -48,6 +48,7 @@ FORWARD, BACKWARD, FORECAST = "sarima_css", "sarima_css_bwd", "sarima_forecast"
 # season, stream)
 FORWARD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 BACKWARD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+FORECAST_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # the fit kernels' largest season: a segment of 16 chunks of 33 steps holds the
 # carry rows of its lag (csrc/sarima.cu)
 MAX_SEASON = 528
@@ -313,7 +314,7 @@ def forecast(x: torch.Tensor, coeffs: torch.Tensor, horizon: int, season: int) -
     _build.refuse_grad(FORECAST, "the forecast is not differentiable on the card", x, coeffs)
     _check(FORECAST, x, coeffs)
     out = torch.empty((b, horizon, n), dtype=torch.float32, device=x.device)
-    fn = _build.function("sarima_forecast", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn = _build.function("sarima_forecast", FORECAST_ARGTYPES)
     err = fn(x.data_ptr(), coeffs.data_ptr(), out.data_ptr(), b, length, n, season, horizon,
              _build.stream_handle(x.device))
     _build.check(FORECAST, err)
