@@ -177,11 +177,17 @@ Phases (any failure exits non-zero):
      against the plain versions within SARIMA_ADAM_ATOL; the fit's two
      kernels also at SARIMA_EDGES (short T, few nodes at season 1, season 23,
      T below season + 1) within SARIMA_RTOL, and two launches on the same
-     inputs bit-identical; each kernel timed beside its plain version and its
-     bytes bound (and through their bare C entries, sarima_bare_entry and
-     forecast_bare_entry; the fit's two kernels' registers and spills from
-     the build's ptxas log), and one fit step's loss and gradient (back to back, its share of
-     a fit step's wall); then
+     inputs bit-identical; the forecast at SARIMA_FORECAST_EDGES (the eval
+     CLI's last partial batch, one window, a node count below a warp at
+     season 1, the shortest window, season 23, seasons 302 and 528) within
+     SARIMA_RTOL, twice for the same bits (the flagship's too), its launch
+     plan that of ops/sarima.py:forecast_plan (forecast_plan_of); each kernel
+     timed beside its plain version and its bytes bound (and through their
+     bare C entries, sarima_bare_entry and forecast_bare_entry; the forecast
+     also on the device's own clock, kernel_device_ms, and at
+     SARIMA_FORECAST_LARGE windows; the kernels' registers and spills from
+     the build's ptxas log), and one fit step's loss and gradient (back to
+     back, its share of a fit step's wall); then
      the full fit of SARIMA_FIT_STEPS steps through the kernels (its wall, ms
      a step, one launch of each pass a step; the fitted phi's node mean within
      SARIMA_PHI_TOL of the truth, as the JAX test asks) and a forecast batch;
@@ -379,6 +385,19 @@ SARIMA_RTOL, SARIMA_ADAM_ATOL = 1e-4, 1e-3
 # at season 1, the CLI's largest season at L_in 48, and T below season + 1
 # (no loss term); then the warm fit steps timed and profiled
 SARIMA_EDGES = ((94, 2911, 12), (1987, 37, 1), (500, 2911, 23), (10, 2911, 12))
+# the forecast's edge shapes (windows, L, N, season, horizon), held against
+# forecast_reference as the flagship is: the eval CLI's last partial batch (91
+# test windows), one window, a node count below a warp at season 1, the
+# shortest window at season 12, the CLI's largest season at L_in 48, and
+# seasons 302 and 528 (one warp a block: its rings fill shared memory)
+SARIMA_FORECAST_EDGES = ((27, 48, 2911, 12, 12), (1, 48, 2911, 12, 12), (5, 4, 37, 1, 3), (8, 26, 2911, 12, 12),
+                         (8, 48, 2911, 23, 12), (2, 606, 64, 302, 12), (2, 1060, 64, 528, 12))
+# the forecast's windows in a batch large enough that no call's host cost
+# hides its device time (a year's test split is 4,380 windows)
+SARIMA_FORECAST_LARGE = 1024
+# kernel_device_ms: the launches a reading of the forecast's device time is
+# taken over
+DEVICE_REPS = 200
 SARIMA_PROFILE_STEPS = 20
 # ablation phase, the arms of phase 5's train step: the model's arguments and
 # remat policy of each, its warm-up and timed steps
@@ -725,6 +744,55 @@ def forecast_bare_entry(x, coeffs, horizon: int, season: int):
         return out
 
     return call
+
+
+def forecast_plan_of(length: int, season: int, horizon: int) -> dict:
+    """The SARIMA forecast's launch plan for a call, from the C entry
+    sarima_forecast_plan; raises where it differs from the Python mirror
+    (ops/sarima.py:forecast_plan)."""
+    import ctypes
+
+    from tec_mollm_tpu_torch.ops import _build
+    from tec_mollm_tpu_torch.ops import sarima as sops
+
+    out = (ctypes.c_longlong * len(sops.ForecastPlan._fields))()
+    fn = _build.function("sarima_forecast_plan", sops.FORECAST_PLAN_ARGTYPES)
+    _build.check("sarima_forecast_plan", fn(length, season, horizon, ctypes.cast(out, ctypes.c_void_p)))
+    plan, mirror = sops.ForecastPlan(*out), sops.forecast_plan(length, season, horizon)
+    if plan != mirror:
+        raise RuntimeError(f"the forecast's plan {plan} differs from the mirror's {mirror}")
+    return plan._asdict()
+
+
+def kernel_device_ms(fn, reps: int, match: str) -> tuple[float | None, int]:
+    """One launch's device time of the kernels whose names hold ``match``,
+    and the launches it was taken over: torch.profiler's CUDA kernel events
+    (CUPTI) over ``reps`` calls of ``fn`` after two warm-up calls, summed and
+    divided by the launches the trace saw. The host's cost of a call does
+    not enter it. Late in this script the trace misses the first launches
+    it should see (about 40 in phase 14 on the H100, 2 fit steps in the
+    fit's profile), so many are traced; (None, 0) where it saw none: a time
+    not measured, not a failed kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [r for r in device_rows(prof.key_averages()) if match in r[2]]
+    launches = sum(c for _, c, _ in rows)
+    return (sum(ms for ms, _, _ in rows) / launches if launches else None), launches
+
+
+def device_note(ms: float | None, launches: int, reps: int, bound_ms: float) -> str:
+    """kernel_device_ms's reading for a log line, beside the bound."""
+    if ms is None:
+        return f"on the device not measured (the profiler saw none of {reps} launches)"
+    return f"on the device {ms:.4f} ms over {launches} of {reps} launches, the bound {bound_ms / ms:.1%} of it"
 
 
 def ptxas_entries(log_text: str, source: str) -> list[dict]:
@@ -3050,10 +3118,30 @@ def sarima_kernel_checks(args) -> dict:
         if bad or not edge["same_bits"] or (t_e < s_e + 1 and not edge["partial_zero"]):
             failures.append(f"edge {edge['shape']}: {bad}, same bits {edge['same_bits']}")
         edges.append(edge)
+    # the forecast at its edge shapes: windows of the series, as many nodes
+    forecast_edges = []
+    for b_e, l_e, n_e, s_e, h_e in SARIMA_FORECAST_EDGES:
+        at = np.linspace(0, SARIMA_T - l_e, b_e).astype(np.int64)
+        xe = torch.tensor(np.stack([series[a : a + l_e, :n_e] for a in at]), dtype=torch.float32, device=dev)
+        ce = coeffs[:, :n_e].contiguous()
+        f1, f2 = sops.forecast(xe, ce, h_e, s_e), sops.forecast(xe, ce, h_e, s_e)
+        fp = sops.forecast_reference(xe, ce, h_e, s_e)
+        torch.cuda.synchronize()
+        edge = {"shape": (b_e, l_e, n_e, s_e, h_e), "forecast": rel(f1, fp), "same_bits": bool(torch.equal(f1, f2)),
+                "finite": bool(f1.isfinite().all()), "plan": forecast_plan_of(l_e, s_e, h_e)}
+        log(f"sarima forecast edge (windows {b_e}, L {l_e}, N {n_e}, s {s_e}, horizon {h_e}): kernel vs plain "
+            f"{edge['forecast'][1]:.3e} (tol {SARIMA_RTOL}); two launches the same bits {edge['same_bits']}; "
+            f"plan {edge['plan']}")
+        if not (edge["forecast"][1] <= SARIMA_RTOL and edge["same_bits"] and edge["finite"]):
+            failures.append(f"forecast edge {edge['shape']}: {edge['forecast'][1]:.3e}, same bits {edge['same_bits']}")
+        forecast_edges.append(edge)
     e_again, part_again = sops.css_forward(y, coeffs, s)
     g_again = sops.css_backward(y, e_k, coeffs, s, scale)
-    same_bits = bool(torch.equal(e_again, e_k) and torch.equal(part_again, part_k) and torch.equal(g_again, g_k))
-    log(f"sarima: flagship, two launches the same bits: {same_bits}")
+    f_again = sops.forecast(wins, coeffs, L_out, s)
+    same_bits = bool(torch.equal(e_again, e_k) and torch.equal(part_again, part_k) and torch.equal(g_again, g_k)
+                     and torch.equal(f_again, f_k))
+    log(f"sarima: flagship, two launches the same bits (the three kernels): {same_bits}; the forecast's plan "
+        f"{forecast_plan_of(L_in, s, L_out)}")
     if not same_bits:
         failures.append("flagship: two launches differ")
 
@@ -3086,13 +3174,46 @@ def sarima_kernel_checks(args) -> dict:
         if name in bare_calls:
             e["bare_ms"] = time_ms(bare_calls[name], REPS)
             bare = f" (bare {e['bare_ms']:.4f} ms, the bound {e['bound_ms'] / e['bare_ms']:.1%} of it)"
+        if name == sops.FORECAST:
+            e["device_ms"], seen = kernel_device_ms(bare_calls[name], DEVICE_REPS, "forecast_")
+            bare += "; " + device_note(e["device_ms"], seen, DEVICE_REPS, e["bound_ms"])
         log(f"kernel {name}: {shape}: max_abs {err[0]:.3e} max_rel {err[1]:.3e}; kernel {e['ms']:.4f} ms{bare}, "
             f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
         entries.append(e)
+    entries[-1]["large"] = forecast_large(series, coeffs, L_in, L_out, s, failures)
     step_ms = time_ms(lambda: sops.css_loss_and_grad(raw, y, s), REPS)
 
     return {"series": series, "y": y, "wins": wins, "L_out": L_out, "entries": entries, "errors": errs,
-            "adam_err": adam_err, "edges": edges, "same_bits": same_bits, "step_ms": step_ms, "failures": failures}
+            "adam_err": adam_err, "edges": edges, "forecast_edges": forecast_edges, "same_bits": same_bits,
+            "step_ms": step_ms, "failures": failures}
+
+
+def forecast_large(series, coeffs, L_in: int, L_out: int, s: int, failures: list) -> dict:
+    """The forecast at SARIMA_FORECAST_LARGE windows of the series: against
+    its plain version, then timed through the wrapper, the bare C entry and
+    on the device's clock, beside its bytes bound."""
+    import torch
+
+    from tec_mollm_tpu_torch.ops import sarima as sops
+
+    n = series.shape[1]
+    starts = np.linspace(0, SARIMA_T - L_in, SARIMA_FORECAST_LARGE).astype(np.int64)
+    wins = torch.tensor(np.stack([series[a : a + L_in] for a in starts]), dtype=torch.float32, device="cuda")
+    got, want = sops.forecast(wins, coeffs, L_out, s), sops.forecast_reference(wins, coeffs, L_out, s)
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    del want
+    bytes_moved = SARIMA_FORECAST_LARGE * (L_in + L_out) * n * 4 + 16 * n
+    bare = forecast_bare_entry(wins, coeffs, L_out, s)
+    out = {"windows": SARIMA_FORECAST_LARGE, "max_rel_err": err, "bytes": bytes_moved,
+           "bound_ms": bytes_moved / PEAK_BYTES * 1e3, "ms": time_ms(lambda: sops.forecast(wins, coeffs, L_out, s), 5),
+           "bare_ms": time_ms(bare, 5)}
+    out["device_ms"], seen = kernel_device_ms(bare, DEVICE_REPS, "forecast_")
+    log(f"kernel sarima_forecast at {SARIMA_FORECAST_LARGE} windows ({bytes_moved / 1e6:.1f} MB): kernel vs plain "
+        f"{err:.3e} (tol {SARIMA_RTOL}); {out['ms']:.4f} ms, bare {out['bare_ms']:.4f}; bound {out['bound_ms']:.4f} "
+        f"ms; " + device_note(out["device_ms"], seen, DEVICE_REPS, out["bound_ms"]))
+    if not err <= SARIMA_RTOL:
+        failures.append(f"forecast at {SARIMA_FORECAST_LARGE} windows: {err:.3e}")
+    return out
 
 
 def sarima_fit(checks: dict) -> dict:
@@ -3203,7 +3324,8 @@ def sarima_phase(args, data_dir: str) -> dict:
         raise RuntimeError(f"sarima: {failures}")
     return {
         "entries": checks["entries"], "launches": launches, "errors": checks["errors"],
-        "adam_3_steps_max_abs": checks["adam_err"], "edges": checks["edges"], "same_bits": checks["same_bits"],
+        "adam_3_steps_max_abs": checks["adam_err"], "edges": checks["edges"],
+        "forecast_edges": checks["forecast_edges"], "same_bits": checks["same_bits"],
         "loss_and_grad_ms": checks["step_ms"], "forecast_ms_a_batch": checks["entries"][2]["ms"], **fit,
         "cli_wall_s": cli_wall, "cli_launches": cli_counts, "cli_results": res["results"],
         "wall_s": time.perf_counter() - phase_t0,
@@ -3348,7 +3470,7 @@ def main() -> int:
             f"spilled, {k.get('static_smem_bytes')} bytes static smem")
     results["sarima_ptxas"] = ptxas_entries(ptxas, "sarima.cu")
     for k in results["sarima_ptxas"]:
-        if "css_" in k["entry"]:  # the fit's kernels (their shared memory is dynamic: sarima_phase prints it)
+        if "css_" in k["entry"] or "forecast_" in k["entry"]:  # dynamic shared memory: phase 14 prints it
             log(f"  sarima {k['entry']}: {k.get('registers')} registers, {k.get('spill_store_bytes')} bytes "
                 f"spilled, {k.get('static_smem_bytes')} bytes static smem")
     results["build_s"] = build_s

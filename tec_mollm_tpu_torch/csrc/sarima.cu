@@ -71,17 +71,43 @@
 // cudaErrorInvalidValue before any launch.
 //
 // The forecast runs one thread per (window, node): the same recursion over the
-// window's L differenced steps (y computed from the window on the fly), then
-// L_out steps ahead with future innovations 0, inverting (1-B)(1-B^s) through a
-// ring of the last s+1 levels. It keeps three rings (y, e, x).
+// window's differenced steps, then L_out steps ahead with future innovations
+// 0, inverting (1-B)(1-B^s). Its bound on this card is bytes: the windows in
+// and the forecasts out, 44.7 MB at 64 windows of (48, 2911) -> 12 steps,
+// 13.4 us at 3.35 TB/s. One thread's work is a dependent chain of ~50 steps,
+// so the kernel is bound by latency unless every row it needs is in flight
+// before the chain reaches it. Both forms read each element of x from device
+// memory once, in rows that are whole warps' 128-byte runs along the node axis
+// (N = 2911 rows are 4-byte aligned only, so 4-byte loads):
+//   * the compile-time form (forecast_fixed_kernel<L, S, H>) issues all L
+//     loads of its window first, then runs the recursion and the steps ahead
+//     unrolled; the rings are register arrays at compile-time indices. It is
+//     instantiated for the shipped shape alone (L_in 48, season 12, L_out 12:
+//     the flagship config and the CLI's default season), the one shape the
+//     shipped configs launch; each other shape would add its own unrolled
+//     copy to the build for a launch that costs tens of microseconds;
+//   * the ring form (forecast_ring_kernel) takes every other shape: any
+//     length >= 2 (s + 1), every season the fit takes (up to kSeg = 528) and
+//     any horizon. A register queue keeps the next kAhead = 16 rows in flight
+//     ahead of the step that takes them; the level, y and e rings (s + 1
+//     slots each) lie in shared memory, slot k of thread j at k * blockDim +
+//     j (no bank conflicts). forecast_plan gives a block as many whole warps
+//     (up to 128 threads) as their rings fit in the card's 232,448-byte
+//     opt-in limit: one warp at s = 528 (203 KB).
+// No atomics and no reductions across threads: two launches give the same bits.
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-// the forecast's block
-constexpr int kThreads = 64;
+// the forecast: threads a block (the ring form's at most), rows in flight
+// ahead of the ring form's step, the shape of the compile-time form, and the
+// ring form's shared-memory budget (the H100's opt-in limit a block)
+constexpr int kThreads = 128, kAhead = 16;
+constexpr int kFixedL = 48, kFixedS = 12, kFixedH = 12;
+constexpr size_t kForecastSmem = 232448;
 
 // A ring of `len` floats for one thread: slot k at base[k * stride].
 struct Ring {
@@ -399,40 +425,104 @@ __global__ void __launch_bounds__(kScanThreads, kBlocksPerSM)
   }
 }
 
-__global__ void forecast_kernel(const float* __restrict__ x, const float* __restrict__ coeffs,
-                                float* __restrict__ out, int windows, int length, int n, int season, int horizon) {
+// x_u of a thread's window (u its row), through the read-only path.
+__device__ __forceinline__ float row_of(const float* xb, int u, int n) { return __ldg(xb + static_cast<int64_t>(u) * n); }
+
+// The forecast's compile-time form: L rows in, season S, H steps out. The
+// steps are unrolled, so every array below is indexed at compile time and
+// lives in registers: the window's L levels (all L loads issued before the
+// recursion starts), then the levels ahead; y and e of every step.
+template <int L, int S, int H>
+__global__ void __launch_bounds__(kThreads)
+    forecast_fixed_kernel(const float* __restrict__ x, const float* __restrict__ coeffs, float* __restrict__ out,
+                          int windows, int n) {
+  static_assert(L >= 2 * (S + 1) && H >= 1, "a window conditions the recursion on s + 1 differenced steps");
+  constexpr int M = L - S - 1;  // the window's differenced steps
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<int64_t>(windows) * n) return;
+  const int node = static_cast<int>(i % n);
+  const int64_t b = i / n;
+  const float* xb = x + b * L * n + node;
+  float xs[L + H];  // the levels: the window's, then the forecast's
+#pragma unroll
+  for (int u = 0; u < L; ++u) xs[u] = row_of(xb, u, n);
+  const float phi = coeffs[node], sphi = coeffs[n + node];
+  const float theta = coeffs[2 * n + node], stheta = coeffs[3 * n + node];
+  const float ps = phi * sphi, ts = theta * stheta;
+  float ys[M + H], es[M];
+#pragma unroll
+  for (int t = 0; t < M; ++t) {
+    ys[t] = (xs[t + S + 1] - xs[t + S]) - (xs[t + 1] - xs[t]);
+    const float y1 = t >= 1 ? ys[t - 1] : 0.0f, y_s = t >= S ? ys[t - S] : 0.0f, y_s1 = t >= S + 1 ? ys[t - S - 1] : 0.0f;
+    const float e1 = t >= 1 ? es[t - 1] : 0.0f, e_s = t >= S ? es[t - S] : 0.0f, e_s1 = t >= S + 1 ? es[t - S - 1] : 0.0f;
+    const float a = ys[t] - phi * y1 - sphi * y_s + ps * y_s1;
+    es[t] = a - theta * e1 - stheta * e_s - ts * e_s1;
+  }
+  float* ob = out + b * H * n + node;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const int t = M + k, u = L + k;  // M >= S + 1: every lag lies in the arrays
+    const float e1 = t - 1 < M ? es[t - 1] : 0.0f, e_s = t - S < M ? es[t - S] : 0.0f;
+    const float e_s1 = t - S - 1 < M ? es[t - S - 1] : 0.0f;
+    ys[t] = phi * ys[t - 1] + sphi * ys[t - S] - ps * ys[t - S - 1] + theta * e1 + stheta * e_s + ts * e_s1;
+    xs[u] = ys[t] + xs[u - 1] + xs[u - S] - xs[u - S - 1];
+    ob[static_cast<int64_t>(k) * n] = xs[u];
+  }
+}
+
+// The forecast's run-time form, for every other shape: the window's rows are
+// read once, in time order, kAhead rows ahead of the step that takes them
+// (a register queue at compile-time slots: the step loop is unrolled by
+// kAhead). The last s + 1 levels, y and e are three rings of s + 1 slots in
+// shared memory; level u, and y and e of time t = u - s - 1, share slot
+// u % (s + 1).
+__global__ void __launch_bounds__(kThreads)
+    forecast_ring_kernel(const float* __restrict__ x, const float* __restrict__ coeffs, float* __restrict__ out,
+                         int windows, int length, int n, int season, int horizon) {
   extern __shared__ float smem[];
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<int64_t>(windows) * n) return;
   const int node = static_cast<int>(i % n);
   const int64_t b = i / n;
   const int len = season + 1;
-  const Ring yr = ring_of(smem, 0, len), er = ring_of(smem, 1, len), xr = ring_of(smem, 2, len);
+  const Ring xr = ring_of(smem, 0, len), yr = ring_of(smem, 1, len), er = ring_of(smem, 2, len);
   for (int k = 0; k < len; ++k) yr[k] = er[k] = 0.0f;
   const float* xb = x + b * length * n + node;
+  float ahead[kAhead];
+#pragma unroll
+  for (int k = 0; k < kAhead; ++k) ahead[k] = k < length ? row_of(xb, k, n) : 0.0f;
   const float phi = coeffs[node], sphi = coeffs[n + node];
   const float theta = coeffs[2 * n + node], stheta = coeffs[3 * n + node];
   const float ps = phi * sphi, ts = theta * stheta;
 
-  // the window's differenced steps: y_t = (x_{t+s+1} - x_{t+s}) - (x_{t+1} - x_t)
-  const int m = length - season - 1;
-  float y1 = 0.0f, e1 = 0.0f;
-  int slot = 0;  // of y time t: t % len
-  for (int t = 0; t < m; ++t) {
-    const float yt = (xb[static_cast<int64_t>(t + season + 1) * n] - xb[static_cast<int64_t>(t + season) * n]) -
-                     (xb[static_cast<int64_t>(t + 1) * n] - xb[static_cast<int64_t>(t) * n]);
-    const int next = slot + 1 == len ? 0 : slot + 1;
-    const float a = yt - phi * y1 - sphi * yr[next] + ps * yr[slot];
-    const float et = a - theta * e1 - stheta * er[next] - ts * er[slot];
-    yr[slot] = yt;
-    er[slot] = et;
-    y1 = yt;
-    e1 = et;
-    slot = next;
+  // the window: y_t = (x_u - x_{u-1}) - (x_{u-s} - x_{u-s-1}) for u = t + s + 1;
+  // x_{u-s} lies in the next slot, x_{u-s-1} in this one
+  float x1 = 0.0f, y1 = 0.0f, e1 = 0.0f;
+  int slot = 0;
+  for (int u0 = 0; u0 < length; u0 += kAhead) {
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int u = u0 + k;
+      if (u < length) {
+        const float xu = ahead[k];
+        if (u + kAhead < length) ahead[k] = row_of(xb, u + kAhead, n);
+        const int next = slot + 1 == len ? 0 : slot + 1;
+        if (u >= len) {
+          const float yt = (xu - x1) - (xr[next] - xr[slot]);
+          const float a = yt - phi * y1 - sphi * yr[next] + ps * yr[slot];
+          const float et = a - theta * e1 - stheta * er[next] - ts * er[slot];
+          yr[slot] = yt;
+          er[slot] = et;
+          y1 = yt;
+          e1 = et;
+        }
+        xr[slot] = xu;
+        x1 = xu;
+        slot = next;
+      }
+    }
   }
-  // the last s+1 levels; x time u = y time t + s + 1, so u % len == slot as well
-  for (int u = length - len; u < length; ++u) xr[u % len] = xb[static_cast<int64_t>(u) * n];
-  float x1 = xb[static_cast<int64_t>(length - 1) * n];
+  // the steps ahead, future innovations 0: x_u = y_t + x_{u-1} + x_{u-s} - x_{u-s-1}
   float* ob = out + b * horizon * n + node;
   for (int k = 0; k < horizon; ++k) {
     const int next = slot + 1 == len ? 0 : slot + 1;
@@ -449,6 +539,23 @@ __global__ void forecast_kernel(const float* __restrict__ x, const float* __rest
   }
 }
 
+// What forecast_plan sets at launch for one call: the compile-time form (1)
+// or the ring form (0), threads a block, dynamic shared memory.
+struct ForecastPlan {
+  int fixed, threads;
+  size_t smem;
+};
+
+// The compile-time form for the shipped shape; the ring form, at most
+// kThreads a block and whole warps, as many as their rings fit
+// kForecastSmem (one warp's at the largest season).
+ForecastPlan forecast_plan(int length, int season, int horizon) {
+  if (length == kFixedL && season == kFixedS && horizon == kFixedH) return {1, kThreads, 0};
+  const size_t per_thread = 3 * static_cast<size_t>(season + 1) * sizeof(float);
+  const int threads = static_cast<int>(std::min<size_t>(kThreads, kForecastSmem / per_thread / 32 * 32));
+  return {0, threads, threads * per_thread};
+}
+
 // A kernel's dynamic shared memory: above the default 48 KB the kernel is
 // opted in to what it needs; more than a block may have is refused.
 template <typename Kernel>
@@ -461,9 +568,6 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
   if (bytes > static_cast<size_t>(max_optin)) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
 }
-
-// Shared memory for `rings` rings of season + 1 floats a forecast thread.
-size_t ring_bytes(int rings, int season) { return static_cast<size_t>(rings) * (season + 1) * kThreads * sizeof(float); }
 
 }  // namespace
 
@@ -493,16 +597,34 @@ extern "C" int sarima_css_backward(const void* y, const void* e, const void* coe
 
 extern "C" int sarima_forecast(const void* x, const void* coeffs, void* out, int windows, int length, int n,
                                int season, int horizon, void* stream) {
-  if (windows < 1 || n < 1 || season < 1 || horizon < 1 || length < 2 * (season + 1))
+  if (windows < 1 || n < 1 || season < 1 || season > kSeg || horizon < 1 || length < 2 * (season + 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = ring_bytes(3, season);
-  cudaError_t err = set_smem(forecast_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const ForecastPlan p = forecast_plan(length, season, horizon);
   const int64_t threads = static_cast<int64_t>(windows) * n;
-  forecast_kernel<<<static_cast<unsigned>((threads + kThreads - 1) / kThreads), kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(x),
-                                                         static_cast<const float*>(coeffs),
-                                                         static_cast<float*>(out), windows, length, n, season,
-                                                         horizon);
+  const unsigned blocks = static_cast<unsigned>((threads + p.threads - 1) / p.threads);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* cf = static_cast<const float*>(coeffs);
+  float* of = static_cast<float*>(out);
+  if (p.fixed) {
+    forecast_fixed_kernel<kFixedL, kFixedS, kFixedH><<<blocks, p.threads, 0, st>>>(xf, cf, of, windows, n);
+  } else {
+    const cudaError_t err = set_smem(forecast_ring_kernel, p.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    forecast_ring_kernel<<<blocks, p.threads, p.smem, st>>>(xf, cf, of, windows, length, n, season, horizon);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The forecast's plan for a call (forecast_plan), for checks from the host:
+// out = (fixed, threads, shared memory bytes).
+extern "C" int sarima_forecast_plan(int length, int season, int horizon, void* out) {
+  if (season < 1 || season > kSeg || horizon < 1 || length < 2 * (season + 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ForecastPlan p = forecast_plan(length, season, horizon);
+  long long* o = static_cast<long long*>(out);
+  o[0] = p.fixed;
+  o[1] = p.threads;
+  o[2] = static_cast<long long>(p.smem);
+  return 0;
 }

@@ -15,7 +15,11 @@ time steps, forward and backward, in each of 400 Adam steps; the kernels in
   d(scale/2 * sum e^2)/d coefficients (4, N);
 * ``forecast`` (one thread a (window, node)): the recursion over each
   window's history, then ``L_out`` steps ahead with future innovations 0 and
-  the double difference inverted.
+  the double difference inverted. Each window row is read once: the shipped
+  shape (``FIXED_SHAPE``) has a compile-time form, unrolled with its rings in
+  registers; every other shape takes a ring form whose three rings of s + 1
+  slots lie in shared memory, a block sized at launch by ``forecast_plan``.
+  ``forecast_ring_mirror`` is the plain mirror of its ring arithmetic.
 
 The fit's two kernels scan time in chunks: (1 + theta B)(1 + Theta B^s) e = a
 factors into a lag-1 and a lag-s first-order recursion (the adjoint: the same
@@ -37,6 +41,7 @@ kernels against. A CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -49,9 +54,36 @@ FORWARD, BACKWARD, FORECAST = "sarima_css", "sarima_css_bwd", "sarima_forecast"
 FORWARD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 BACKWARD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 FORECAST_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-# the fit kernels' largest season: a segment of 16 chunks of 33 steps holds the
-# carry rows of its lag (csrc/sarima.cu)
+# sarima_forecast_plan(length, season, horizon, out): out = ForecastPlan
+FORECAST_PLAN_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# the kernels' largest season: a segment of the fit's 16 chunks of 33 steps
+# holds the carry rows of its lag (csrc/sarima.cu); the forecast takes the same
 MAX_SEASON = 528
+# the forecast's launch plan (csrc/sarima.cu:forecast_plan): the (length,
+# season, horizon) of its compile-time form, a block's most threads, and the
+# ring form's shared-memory budget (the H100's opt-in limit a block)
+FIXED_SHAPE, FORECAST_THREADS, FORECAST_SMEM = (48, 12, 12), 128, 232_448
+
+
+class ForecastPlan(NamedTuple):
+    """The forecast's launch for one call: the compile-time form (1) or the
+    ring form (0), threads a block, dynamic shared memory in bytes."""
+
+    fixed: int
+    threads: int
+    smem: int
+
+
+def forecast_plan(length: int, season: int, horizon: int) -> ForecastPlan:
+    """The mirror of the C entry's plan: the compile-time form for
+    ``FIXED_SHAPE``; else the ring form, with as many whole warps a block (at
+    most FORECAST_THREADS) as their three rings of season + 1 floats fit in
+    FORECAST_SMEM."""
+    if (length, season, horizon) == FIXED_SHAPE:
+        return ForecastPlan(1, FORECAST_THREADS, 0)
+    per_thread = 3 * (season + 1) * 4
+    threads = min(FORECAST_THREADS, FORECAST_SMEM // per_thread // 32 * 32)
+    return ForecastPlan(0, threads, threads * per_thread)
 
 
 def lagged(y: torch.Tensor, season: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -216,6 +248,40 @@ def forecast_reference(x: torch.Tensor, coeffs: torch.Tensor, horizon: int, seas
     return torch.stack(out).reshape(horizon, b, n).transpose(0, 1)
 
 
+def forecast_ring_mirror(x: torch.Tensor, coeffs: torch.Tensor, horizon: int, season: int) -> torch.Tensor:
+    """``forecast_reference`` in the forecast kernels' order: each window's
+    rows taken once, in time order, into a ring of the last season + 1
+    levels, y_t formed from it as x_u arrives (u = t + s + 1: x_{u-s} in the
+    next slot, x_{u-s-1} in this one), y and e in rings of the same slots,
+    then the steps ahead. Nothing on a card's path calls it: the CPU tests
+    hold it against the plain version."""
+    b, length, n = x.shape
+    xt = x.transpose(0, 1).reshape(length, b * n)
+    phi, sphi, theta, stheta = coeffs[:, None, :].expand(4, b, n).reshape(4, b * n)
+    ps, ts = phi * sphi, theta * stheta
+    size = season + 1
+    zero = torch.zeros_like(xt[0])
+    xr, yr, er = [zero] * size, [zero] * size, [zero] * size
+    x1 = y1 = e1 = zero
+    slot, out = 0, []
+    for u in range(length + horizon):
+        nxt = (slot + 1) % size
+        if u < length:
+            xu = xt[u]
+            if u >= size:
+                yt = (xu - x1) - (xr[nxt] - xr[slot])
+                a = yt - phi * y1 - sphi * yr[nxt] + ps * yr[slot]
+                et = a - theta * e1 - stheta * er[nxt] - ts * er[slot]
+                yr[slot], er[slot], y1, e1 = yt, et, yt, et
+        else:
+            yt = phi * y1 + sphi * yr[nxt] - ps * yr[slot] + theta * e1 + stheta * er[nxt] + ts * er[slot]
+            xu = yt + x1 + xr[nxt] - xr[slot]
+            yr[slot], er[slot], y1, e1 = yt, zero, yt, zero
+            out.append(xu)
+        xr[slot], x1, slot = xu, xu, nxt
+    return torch.stack(out).reshape(horizon, b, n).transpose(0, 1)
+
+
 def _check(name: str, *tensors: torch.Tensor, season: int = 1) -> None:
     if season > MAX_SEASON:
         raise ValueError(f"{name} takes seasons up to {MAX_SEASON}, got {season}")
@@ -303,7 +369,7 @@ def css_loss_and_grad_chunked_reference(
 
 def forecast(x: torch.Tensor, coeffs: torch.Tensor, horizon: int, season: int) -> torch.Tensor:
     """(B, horizon, N) of ``forecast_reference``: the plain version on the
-    CPU, the kernel on the card."""
+    CPU (any season), the kernel on the card (seasons up to MAX_SEASON)."""
     b, length, n = x.shape
     if tuple(coeffs.shape) != (4, n):
         raise ValueError(f"coeffs {tuple(coeffs.shape)} must be (4, {n})")
@@ -312,7 +378,7 @@ def forecast(x: torch.Tensor, coeffs: torch.Tensor, horizon: int, season: int) -
     if x.device.type == "cpu":
         return forecast_reference(x, coeffs, horizon, season)
     _build.refuse_grad(FORECAST, "the forecast is not differentiable on the card", x, coeffs)
-    _check(FORECAST, x, coeffs)
+    _check(FORECAST, x, coeffs, season=season)
     out = torch.empty((b, horizon, n), dtype=torch.float32, device=x.device)
     fn = _build.function("sarima_forecast", FORECAST_ARGTYPES)
     err = fn(x.data_ptr(), coeffs.data_ptr(), out.data_ptr(), b, length, n, season, horizon,

@@ -8,6 +8,10 @@ ops/sarima.py), on the CPU.
   (``css_{forward,backward}_chunked_reference``) against the sequential
   plain versions, within 1e-5 of the largest value, over seasons 1, 4, 12
   and 23 and the edge cases the kernels meet (``CHUNKED_CASES``);
+* the forecast kernels' ring mirror (``forecast_ring_mirror``) against the
+  plain version within 1e-5 of the largest value at ``FORECAST_CASES``, and
+  their launch plan (``forecast_plan``): every season up to ``MAX_SEASON``
+  admitted within the card's shared memory;
 * the JAX package's ``ValueError``s for a short series and a short window;
 * the wrappers take the plain version for a CPU tensor only: a tensor off the
   CPU goes to the kernel, whose build raises here (no CUDA toolchain);
@@ -101,6 +105,44 @@ def test_chunked_mirror_is_the_sequential_recursion(season, steps, nodes, chunk)
         assert not partial_c.any() and not grad_c.any()
 
 
+# (windows, L, N, season, horizon): the compile-time form's shape, the
+# chip_smoke.py forecast edges at a few nodes (a node count below a warp at
+# season 1, the shortest window, season 23, seasons 302 and 528), and a window
+# far longer than 2 (s + 1)
+FORECAST_CASES = [
+    (3, 48, 5, 12, 12), (5, 4, 37, 1, 3), (2, 26, 6, 12, 12), (2, 48, 5, 23, 12), (2, 606, 4, 302, 12),
+    (2, 1060, 3, 528, 12), (2, 100, 3, 4, 7),
+]
+
+
+@pytest.mark.parametrize("windows, length, nodes, season, horizon", FORECAST_CASES)
+def test_forecast_ring_mirror_is_the_plain_version(windows, length, nodes, season, horizon):
+    """The forecast kernels' order (each row taken once into a ring of the
+    last s + 1 levels, y formed from it, y and e in rings of the same slots)
+    against forecast_reference, within 1e-5 of the largest value."""
+    rng = np.random.default_rng(length * 100 + season)
+    x = torch.tensor(rng.standard_normal((windows, length, nodes)).cumsum(axis=1), dtype=torch.float32)
+    coeffs = torch.tensor(0.99 * np.tanh(rng.normal(0, 0.5, (4, nodes))), dtype=torch.float32)
+    want = ops.forecast_reference(x, coeffs, horizon, season)
+    got = ops.forecast_ring_mirror(x, coeffs, horizon, season)
+    assert got.shape == want.shape == (windows, horizon, nodes)
+    assert _rel(got, want) <= 1e-5
+
+
+def test_forecast_plan_admits_every_season():
+    """Every season the fit takes gets the ring form in whole warps (at most
+    FORECAST_THREADS a block) within the card's 232,448-byte opt-in limit,
+    one warp at the largest; only the shipped shape gets the compile-time form."""
+    assert ops.forecast_plan(*ops.FIXED_SHAPE) == (1, ops.FORECAST_THREADS, 0)
+    for season in range(1, ops.MAX_SEASON + 1):
+        for length, horizon in ((2 * (season + 1), 12), (2 * (season + 1) + 7, 1)):
+            plan = ops.forecast_plan(length, season, horizon)
+            assert plan.fixed == 0 and 32 <= plan.threads <= ops.FORECAST_THREADS and plan.threads % 32 == 0
+            assert plan.smem == plan.threads * 3 * (season + 1) * 4 <= 232_448
+    assert ops.forecast_plan(2 * (ops.MAX_SEASON + 1), ops.MAX_SEASON, 12).threads == 32
+    assert ops.forecast_plan(48, 12, 11).fixed == 0 and ops.forecast_plan(49, 12, 12).fixed == 0
+
+
 def test_the_jax_guards():
     with pytest.raises(ValueError, match="too short"):
         fit_sarima(np.zeros((20, 2)), season=12, device="cpu")
@@ -158,6 +200,17 @@ def test_the_fit_kernels_refuse_a_season_past_their_largest():
         ops.css_backward(y, y, coeffs, s, 1.0)
     e, partial = ops.css_forward(torch.zeros(s + 3, 2), torch.zeros(4, 2), s)
     assert e.shape == (s + 3, 2) and float(partial.abs().max()) == 0.0
+
+
+def test_the_forecast_refuses_a_season_past_the_largest():
+    """On the card the forecast takes the fit's seasons, up to MAX_SEASON, and
+    refuses a larger one before any launch; the plain version takes any."""
+    s = ops.MAX_SEASON + 1
+    coeffs = torch.empty(4, 4, device="meta")
+    with pytest.raises(ValueError, match="seasons up to"):
+        ops.forecast(torch.empty(2, 2 * (s + 1), 4, device="meta"), coeffs, 3, s)
+    got = ops.forecast(torch.zeros(2, 2 * (s + 1), 4), torch.zeros(4, 4), 3, s)
+    assert got.shape == (2, 3, 4) and float(got.abs().max()) == 0.0
 
 
 def test_sarima_baseline_needs_statsmodels():

@@ -3,8 +3,8 @@ same numpy inputs, on the CPU (the port's plain versions of its kernels).
 
 Tolerances:
 
-* ``forecast_windows`` with the same coefficients: 1e-5 relative to the
-  largest forecast (both fp32, the same recursion);
+* ``forecast_windows`` with the same coefficients, at seasons 1 to 528: 1e-5
+  relative to the largest forecast (both fp32, the same recursion);
 * the CSS loss and its gradient (the port's hand adjoint) against
   ``jax.value_and_grad`` of JAX's objective: 1e-5 relative;
 * the same through the kernels' chunked decomposition
@@ -56,9 +56,11 @@ def _params(mod, raw: np.ndarray):
     return mod.SarimaParams(*(0.99 * np.tanh(raw[i]) for i in range(4)))
 
 
-@pytest.mark.parametrize("season", [4, 12])
+@pytest.mark.parametrize("season", [1, 4, 12, 23, 302, 528])
 def test_forecast_windows_matches_jax(season):
-    x = _simulate_sarima(200, 5, season, 0.5, 0.3, -0.4, -0.2, seed=3)
+    """Windows of 2 (s + 1) + 6 steps at 5 nodes, from season 1 to the
+    kernels' largest (528), past the seasons the card once refused (302 up)."""
+    x = _simulate_sarima(max(200, 2 * (season + 1) + 90), 5, season, 0.5, 0.3, -0.4, -0.2, seed=3)
     raw = _raw(5, season)
     wins = np.stack([x[40 + 7 * k : 40 + 7 * k + 2 * (season + 1) + 6] for k in range(6)])
     want = jsarima.forecast_windows(_params(jsarima, raw), wins, L_out=9, season=season)
