@@ -1,0 +1,13 @@
+"""The train loop's share of the bf16 peak: the benchmark's count of a train
+step's FLOPs per window (``counts.train_flops``) times the windows the
+untraced window trained, over its wall time."""
+
+from benchmark import counts
+
+
+def read(record: dict) -> float | None:
+    w = record["window"]
+    if record["device_kind"] not in counts.PEAKS or not w.get("windows"):
+        return None
+    rate = counts.train_flops(record["config"]) * w["windows"] / w["elapsed_s"]
+    return 100.0 * rate / counts.peaks(record["device_kind"])["bf16_flops"]
