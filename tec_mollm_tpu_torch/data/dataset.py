@@ -12,6 +12,10 @@ X (T, N, C), Y (T, N, L_out), time_features (T, 4).
 the caller (``training/trainer.py``). With ``index_only`` it yields the window
 starts alone, in the same order and with the same padding, for the
 device-resident archive (``data/device_data.py``).
+
+While a ``torch.profiler`` is active, each batch's gather is a ``data.gather``
+span (on the prefetch thread) and the consumer's wait on the prefetch queue a
+``data.wait`` span (on its own thread): ``utils/profiler.py``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 
 from tec_mollm_tpu_torch.data import native_loader
 from tec_mollm_tpu_torch.data.hdf5_io import valid_window_starts
+from tec_mollm_tpu_torch.utils import profiler
 
 logger = logging.getLogger(__name__)
 
@@ -198,13 +203,15 @@ class BatchLoader:
         n_full = len(order) // self.batch_size
         for b in range(start_step, n_full):
             sl = slice(b * self.batch_size, (b + 1) * self.batch_size)
-            batch = self._gather(order[sl])
+            with profiler.span("data.gather"):
+                batch = self._gather(order[sl])
             batch["valid"] = valid_all[sl].copy()
             yield batch
         rem = len(order) - n_full * self.batch_size
         if rem and not self.drop_remainder and start_step <= n_full:
             idxs = order[n_full * self.batch_size :]
-            batch = self._gather(np.concatenate([idxs, np.repeat(idxs[-1:], self.batch_size - rem)]))
+            with profiler.span("data.gather"):
+                batch = self._gather(np.concatenate([idxs, np.repeat(idxs[-1:], self.batch_size - rem)]))
             valid = np.zeros(self.batch_size, dtype=bool)
             valid[:rem] = valid_all[n_full * self.batch_size :]
             batch["valid"] = valid
@@ -247,7 +254,8 @@ class BatchLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with profiler.span("data.wait"):
+                    item = q.get()
                 if item is sentinel:
                     if error:
                         raise error[0]

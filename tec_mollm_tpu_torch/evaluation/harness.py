@@ -40,6 +40,11 @@ group: the ranks of a model group hold the same rows.
 ``baselines=("sarima",)`` adds the batched SARIMA row
 (``evaluate_sarima_streaming``): fitted once on the train split's TEC and
 scored window by window, on every rank whole, as the JAX package does.
+
+While a ``torch.profiler`` is active, ``EvalExecutor``'s stages are spans
+(``utils/profiler.py``): ``eval.put`` and ``eval.step`` in ``run``,
+``eval.metrics`` (the accumulators' updates) and ``eval.finalize`` in
+``stream_metrics``; the loader adds ``data.wait``.
 """
 
 from __future__ import annotations
@@ -85,6 +90,7 @@ from tec_mollm_tpu_torch.parallel.mesh import (
 from tec_mollm_tpu_torch.parallel.tensor_parallel import shard_model_
 from tec_mollm_tpu_torch.training.checkpoint import find_latest_checkpoint
 from tec_mollm_tpu_torch.training.train_state import make_eval_step, point_forecast, put_batch
+from tec_mollm_tpu_torch.utils import profiler
 
 logger = logging.getLogger(__name__)
 
@@ -159,8 +165,10 @@ class EvalExecutor:
 
     def run(self, batch: dict[str, np.ndarray]):
         """(loss, preds, trues, valid), all on the device."""
-        dev = put_batch(batch, self.device, self.cfg.train.bf16)
-        loss, preds, trues = self.eval_step(dev, self.graph, self._data)
+        with profiler.span("eval.put"):
+            dev = put_batch(batch, self.device, self.cfg.train.bf16)
+        with profiler.span("eval.step"):
+            loss, preds, trues = self.eval_step(dev, self.graph, self._data)
         return loss, preds, trues, dev["valid"]
 
     def stream_metrics(
@@ -182,17 +190,19 @@ class EvalExecutor:
         )
         for batch in self.loader(dataset):
             _, preds, trues, valid = self.run(batch)
+            with profiler.span("eval.metrics"):
+                if acc_q is not None:
+                    acc_q.update(trues, preds, valid)
+                    if acc_qc is not None:
+                        acc_qc.update(trues, preds, valid)
+                    preds = point_forecast(preds, cfg)
+                acc.update(trues, preds, valid)
+        with profiler.span("eval.finalize"):
+            result = acc.all_reduce().finalize()
             if acc_q is not None:
-                acc_q.update(trues, preds, valid)
-                if acc_qc is not None:
-                    acc_qc.update(trues, preds, valid)
-                preds = point_forecast(preds, cfg)
-            acc.update(trues, preds, valid)
-        result = acc.all_reduce().finalize()
-        if acc_q is not None:
-            result["quantile_metrics"] = acc_q.all_reduce().finalize()
-        if acc_qc is not None:
-            result["quantile_metrics_conformal"] = acc_qc.all_reduce().finalize()
+                result["quantile_metrics"] = acc_q.all_reduce().finalize()
+            if acc_qc is not None:
+                result["quantile_metrics_conformal"] = acc_qc.all_reduce().finalize()
         return result
 
 

@@ -28,10 +28,20 @@
 
 ``stats()`` and ``health()`` give the source ("checkpoint" or "artifact")
 and the GAT route.
+
+While a ``torch.profiler`` is active, a request's stages are spans
+(``utils/profiler.py``) that carry its id: ``serve.request`` around
+``serve.parse``, ``serve.queue`` (submit to its batch's dispatch) and
+``serve.respond`` (result in hand to the last byte, ``serve.encode`` within);
+the batcher's ``serve.batcher_wait``, ``serve.batch_window``,
+``serve.dispatch`` (its requests' ids, the forward's ``device_ms``) around
+``serve.gather``, ``serve.h2d``, ``serve.forward`` and ``serve.d2h``, and
+``serve.deliver`` (the results handed to the waiting requests).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
@@ -52,6 +62,7 @@ from tec_mollm_tpu_torch.evaluation.conformal import ConformalOffsets
 from tec_mollm_tpu_torch.evaluation.harness import load_params_for_eval, resolve_checkpoint, warn_on_config_mismatch
 from tec_mollm_tpu_torch.graph.builder import GraphData
 from tec_mollm_tpu_torch.models.tec_mollm import TECMoLLM, graph_inputs, opt_in_kernel_refusal
+from tec_mollm_tpu_torch.utils import profiler
 
 logger = logging.getLogger(__name__)
 
@@ -85,13 +96,18 @@ class _DynamicBatcher:
         self._thread = threading.Thread(target=self._loop, name="forecast-batcher", daemon=True)
         self._thread.start()
 
-    def submit(self, split: str, idx: np.ndarray) -> np.ndarray:
+    def submit(self, split: str, idx: np.ndarray, t0: int, request: int | None = None) -> np.ndarray:
+        """The request's predictions, once the batch that carries it has run.
+        ``t0``: the ``profiler.now()`` reading its latency starts at;
+        ``request``: its id, which the spans carry."""
         if self._closed:
             raise RuntimeError("forecast service is shutting down")
-        slot: dict[str, Any] = {"split": split, "idx": idx, "event": threading.Event()}
+        slot: dict[str, Any] = {"split": split, "idx": idx, "event": threading.Event(), "request": request}
         self.q.put(slot)
         if not slot["event"].wait(timeout=600.0):
             raise RuntimeError("forecast request timed out in the batch queue")
+        if "dispatched" in slot:
+            profiler.record("serve.queue", t0, slot["dispatched"], request=request)
         if "error" in slot:
             raise slot["error"]
         return slot["result"]
@@ -112,48 +128,70 @@ class _DynamicBatcher:
     def _loop(self) -> None:
         carry = None
         while True:
-            first = carry if carry is not None else self.q.get()
+            if carry is None:
+                # timed by readings and recorded after, so that the wait open
+                # when a profiler starts counts from its start
+                t_wait = profiler.now()
+                first = self.q.get()
+                profiler.record("serve.batcher_wait", t_wait, profiler.now())
+            else:
+                first = carry
             carry = None
             if first is self._STOP:
                 return
             group = [first]
             rows = len(first["idx"])
-            deadline = time.perf_counter() + self.window_s
-            while rows < self.service.max_batch:
-                remaining = deadline - time.perf_counter()
-                if remaining <= 0:
-                    break
-                try:
-                    nxt = self.q.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                if (
-                    nxt is self._STOP
-                    or nxt["split"] != first["split"]
-                    or rows + len(nxt["idx"]) > self.service.max_batch
-                ):
-                    carry = nxt  # the next cycle opens with it
-                    break
-                group.append(nxt)
-                rows += len(nxt["idx"])
+            with profiler.span("serve.batch_window") as window:
+                deadline = time.perf_counter() + self.window_s
+                while rows < self.service.max_batch:
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0:
+                        break
+                    try:
+                        nxt = self.q.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    if (
+                        nxt is self._STOP
+                        or nxt["split"] != first["split"]
+                        or rows + len(nxt["idx"]) > self.service.max_batch
+                    ):
+                        carry = nxt  # the next cycle opens with it
+                        break
+                    group.append(nxt)
+                    rows += len(nxt["idx"])
+                if window:
+                    window.set(requests=[g["request"] for g in group], rows=rows)
             try:
                 ds = self.service.datasets[first["split"]]
                 all_idx = np.concatenate([g["idx"] for g in group])
-                with self.service._lock:
-                    preds = self.service._run_padded(ds.gather_batch(all_idx), len(all_idx))
-                off = 0
-                for g in group:
-                    g["result"] = preds[off : off + len(g["idx"])]
-                    off += len(g["idx"])
-                with self.service._stats_lock:
-                    self.batches += 1
-                    self.batched_rows += rows
+                with self.service._lock, profiler.span("serve.dispatch") as dispatch:
+                    if dispatch:
+                        dispatch.set(requests=[g["request"] for g in group], rows=rows)
+                        for g in group:
+                            g["dispatched"] = dispatch.start
+                    with profiler.span("serve.gather") as gather:
+                        batch = ds.gather_batch(all_idx)
+                        t0 = profiler.now()
+                        gather.finish(t0)
+                    preds = self.service._run_padded(batch, len(all_idx), t0, dispatch)
+                with profiler.span("serve.deliver"):
+                    off = 0
+                    for g in group:
+                        g["result"] = preds[off : off + len(g["idx"])]
+                        off += len(g["idx"])
+                    with self.service._stats_lock:
+                        self.batches += 1
+                        self.batched_rows += rows
+                    for g in group:
+                        g["event"].set()
             except Exception as e:  # noqa: BLE001 — delivered to the waiters
                 for g in group:
                     g["error"] = e
             finally:
-                for g in group:
-                    g["event"].set()
+                for g in group:  # the waiters an error left waiting
+                    if not g["event"].is_set():
+                        g["event"].set()
 
 
 class ForecastService:
@@ -292,23 +330,48 @@ class ForecastService:
                 conf_path, off.quantiles, quantiles,
             )
 
-    def _run_padded(self, batch: dict[str, np.ndarray], n: int) -> np.ndarray:
-        """Pad to max_batch, run, return (n, L_out, N, Q) fp32 on the host."""
-        t0 = time.perf_counter()
-        batch = pad_batch_to_size(batch, self.max_batch)
-        # cast x on the host: half the bytes to the card in bf16
-        x = torch.from_numpy(batch["x"]).to(self.dtype)
-        tf = torch.from_numpy(batch["time_features"])
-        with torch.inference_mode():
-            preds = self._forward(x.to(self.device, non_blocking=True), tf.to(self.device, non_blocking=True))
-        out = preds[:n].cpu().numpy()
+    def _run_padded(
+        self, batch: dict[str, np.ndarray], n: int, t0: int | None = None, dispatch=profiler.OFF
+    ) -> np.ndarray:
+        """Pad to max_batch, run, return (n, L_out, N, Q) fp32 on the host.
+        ``t0``: the ``profiler.now()`` reading the forward's interval starts at
+        (read here if None). ``dispatch``: the batch's span, which ends with
+        that interval and, while recording, takes the forward's device time
+        (``device_ms``: CUDA events around it, read after the copy back has
+        synchronised; on the CPU, which runs it in line, its host time)."""
+        t0 = profiler.now() if t0 is None else t0
+        with profiler.span("serve.h2d"):
+            batch = pad_batch_to_size(batch, self.max_batch)
+            # cast x on the host: half the bytes to the card in bf16
+            x = torch.from_numpy(batch["x"]).to(self.dtype)
+            tf = torch.from_numpy(batch["time_features"])
+            x, tf = x.to(self.device, non_blocking=True), tf.to(self.device, non_blocking=True)
+        events = None
+        if dispatch and self.device.type == "cuda":
+            events = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            events[0].record()
+        with torch.inference_mode(), profiler.span("serve.forward") as forward:
+            preds = self._forward(x, tf)
+        if events is not None:
+            events[1].record()
+        with profiler.span("serve.d2h") as d2h:
+            out = preds[:n].cpu().numpy()
+            t1 = profiler.now()
+            d2h.finish(t1)
+        if dispatch:
+            dispatch.finish(t1)
+            if events is not None:
+                dispatch.set(device_ms=events[0].elapsed_time(events[1]))
+            elif forward:
+                dispatch.set(device_ms=(forward.end - forward.start) / 1e6)
         with self._stats_lock:
-            self._forward_ms.append((time.perf_counter() - t0) * 1e3)
+            self._forward_ms.append((t1 - t0) / 1e6)
             if len(self._forward_ms) > 10_000:
                 del self._forward_ms[:-5_000]
         return out
 
-    def forecast(self, indices: list[int], split: str = "test") -> dict[str, Any]:
+    def _parse_indices(self, indices: list[int], split: str) -> tuple[SlidingWindowDataset, np.ndarray]:
+        """The split's dataset and the request's indices, checked."""
         ds = self.datasets.get(split)
         if ds is None:
             raise KeyError(f"split {split!r} not served (have {list(self.datasets)})")
@@ -317,15 +380,34 @@ class ForecastService:
             raise ValueError(f"request must carry 1..{self.max_batch} indices (got {idx.size})")
         if (idx < 0).any() or (idx >= len(ds)).any():
             raise ValueError(f"indices out of range [0, {len(ds)})")
+        return ds, idx
 
-        t0 = time.perf_counter()
+    def _predict(
+        self, ds: SlidingWindowDataset, split: str, idx: np.ndarray, request: int | None = None
+    ) -> tuple[np.ndarray, int, float]:
+        """(scaled predictions, the ``profiler.now()`` reading with them in
+        hand, the latency in ms from submit to that reading)."""
+        t0 = profiler.now()
         if self._batcher is not None:
-            preds = self._batcher.submit(split, idx)
+            preds = self._batcher.submit(split, idx, t0, request)
         else:
             with self._lock:
-                preds = self._run_padded(ds.gather_batch(idx), len(idx))
-        latency_ms = (time.perf_counter() - t0) * 1e3
+                with profiler.span("serve.dispatch") as dispatch:
+                    if dispatch:
+                        dispatch.set(requests=[request], rows=len(idx))
+                    with profiler.span("serve.gather") as gather:
+                        batch = ds.gather_batch(idx)
+                        t_forward = profiler.now()
+                        gather.finish(t_forward)
+                    preds = self._run_padded(batch, len(idx), t_forward, dispatch)
+                if dispatch:
+                    profiler.record("serve.queue", t0, dispatch.start, request=request)
+        t1 = profiler.now()
+        return preds, t1, (t1 - t0) / 1e6
 
+    def _answer(self, idx: np.ndarray, preds: np.ndarray, latency_ms: float) -> dict[str, Any]:
+        """The response: forecasts in TECU (inverse target scaling,
+        ``nan_to_num``, clip to [0, 200]) as lists."""
         phys = preds.astype(np.float64)  # (W, L_out, N, Q)
         if self.tscaler is not None:
             phys = phys * self.tscaler.scale_[0] + self.tscaler.mean_[0]
@@ -347,6 +429,13 @@ class ForecastService:
                 out["forecast_quantiles_conformal"] = self.conformal.apply_physical(phys).tolist()
         return out
 
+    def forecast(self, indices: list[int], split: str = "test", request: int | None = None) -> dict[str, Any]:
+        """Forecasts of the split's windows at ``indices``; ``request``: an id
+        the spans of this request carry."""
+        ds, idx = self._parse_indices(indices, split)
+        preds, _, latency_ms = self._predict(ds, split, idx, request)
+        return self._answer(idx, preds, latency_ms)
+
     def stats(self) -> dict[str, Any]:
         with self._stats_lock:
             lat = np.asarray(self._latencies_ms)
@@ -366,6 +455,7 @@ class ForecastService:
             with self._stats_lock:
                 b, r = batcher.batches, batcher.batched_rows
             out["batches"] = b
+            out["padded_rows"] = b * self.max_batch - r  # the padding of the batcher's dispatches
             if b:
                 out["mean_batch_rows"] = round(r / b, 2)
         return out
@@ -389,6 +479,9 @@ class ForecastService:
                 "# HELP tec_mollm_batches_total Coalesced device dispatches.",
                 "# TYPE tec_mollm_batches_total counter",
                 f"tec_mollm_batches_total {s['batches']}",
+                "# HELP tec_mollm_padded_rows_total Rows of padding run to fill the batcher's dispatches.",
+                "# TYPE tec_mollm_padded_rows_total counter",
+                f"tec_mollm_padded_rows_total {s['padded_rows']}",
             ]
             if "mean_batch_rows" in s:
                 lines += [
@@ -419,6 +512,9 @@ class ForecastService:
             self._batcher = None
 
 
+_request_ids = itertools.count(1)
+
+
 def _make_handler(service: ForecastService):
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code: int, body: bytes, ctype: str = "application/json") -> None:
@@ -429,7 +525,9 @@ def _make_handler(service: ForecastService):
             self.wfile.write(body)
 
         def _json(self, code: int, payload: dict) -> None:
-            self._send(code, json.dumps(payload).encode())
+            with profiler.span("serve.encode"):
+                body = json.dumps(payload).encode()
+            self._send(code, body)
 
         def do_GET(self):
             if self.path == "/healthz":
@@ -445,15 +543,23 @@ def _make_handler(service: ForecastService):
             if self.path != "/forecast":
                 self._json(404, {"error": f"unknown path {self.path}"})
                 return
-            try:
-                length = int(self.headers.get("Content-Length", 0))
-                req = json.loads(self.rfile.read(length) or b"{}")
-                self._json(200, service.forecast(req.get("indices", []), req.get("split", "test")))
-            except (KeyError, ValueError) as e:
-                self._json(400, {"error": str(e)})
-            except Exception as e:  # noqa: BLE001 — keep the server alive
-                logger.exception("forecast request failed")
-                self._json(500, {"error": str(e)})
+            request = next(_request_ids)
+            with profiler.span("serve.request", request=request):
+                try:
+                    with profiler.span("serve.parse", request=request):
+                        length = int(self.headers.get("Content-Length", 0))
+                        req = json.loads(self.rfile.read(length) or b"{}")
+                        split = req.get("split", "test")
+                        ds, idx = service._parse_indices(req.get("indices", []), split)
+                    preds, t_result, latency_ms = service._predict(ds, split, idx, request)
+                    # from the result in hand to the last byte written
+                    with profiler.span("serve.respond", request=request).begin(t_result):
+                        self._json(200, service._answer(idx, preds, latency_ms))
+                except (KeyError, ValueError) as e:
+                    self._json(400, {"error": str(e)})
+                except Exception as e:  # noqa: BLE001 — keep the server alive
+                    logger.exception("forecast request failed")
+                    self._json(500, {"error": str(e)})
 
         def log_message(self, fmt, *args):
             logger.info("%s " + fmt, self.client_address[0], *args)

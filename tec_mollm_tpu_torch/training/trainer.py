@@ -55,6 +55,11 @@ on any layout at an epoch boundary and serve on one card.
 ``remat_llm`` recomputes the GPT-2 blocks in the backward under
 ``remat_policy`` (``models/gpt2.REMAT_POLICIES``: whole blocks, or
 ``dots_saveable``'s saved matrix products).
+
+While a ``torch.profiler`` is active, ``train_epoch``'s stages are spans
+(``utils/profiler.py``): ``train.put`` (the copy to the card), ``train.step``
+(the step's host time; the device runs behind it), ``train.sync`` (each read
+of a loss back to the host) and ``train.save``; the loader adds ``data.wait``.
 """
 
 from __future__ import annotations
@@ -105,7 +110,7 @@ from tec_mollm_tpu_torch.training.train_state import (
     point_forecast,
     put_batch,
 )
-from tec_mollm_tpu_torch.utils.profiler import StepTimer
+from tec_mollm_tpu_torch.utils import profiler
 from tec_mollm_tpu_torch.utils.run_name import make_run_name
 
 logger = logging.getLogger(__name__)
@@ -246,25 +251,32 @@ class Trainer:
         interrupted = False
         sync_every = self.cfg.train.host_sync_every
         ckpt_every = self.cfg.train.checkpoint_every_steps if checkpoints else 0
-        timer = StepTimer(self.device)
+        timer = profiler.StepTimer(self.device)
         timer.start()
         for batch in self.train_loader.iter_from(start_step):
-            self.state, metrics = self._train_step(self.state, self._put(batch), self.graph, self._train_data)
+            with profiler.span("train.put"):
+                dev_batch = self._put(batch)
+            with profiler.span("train.step"):
+                self.state, metrics = self._train_step(self.state, dev_batch, self.graph, self._train_data)
             device_losses.append(metrics["loss"])
             steps += 1
             if sync_every and steps % sync_every == 0:
                 # bounds the queued work, and a diverged loss stops the run
                 # before the next save can overwrite 'latest'
-                self._check_finite(float(metrics["loss"]), steps)
+                with profiler.span("train.sync"):
+                    self._check_finite(float(metrics["loss"]), steps)
             if ckpt_every and steps % ckpt_every == 0:
-                self._check_finite(float(metrics["loss"]), steps)
-                self._save_latest(step_in_epoch=steps)
+                with profiler.span("train.sync"):
+                    self._check_finite(float(metrics["loss"]), steps)
+                with profiler.span("train.save"):
+                    self._save_latest(step_in_epoch=steps)
             # several ranks stop together at the epoch boundary instead: a
             # lone rank leaving the step sequence would wedge the others
             if stop_requested is not None and stop_requested["flag"] and self.world == 1:
                 interrupted = True
                 break
-        total_loss = float(torch.stack(device_losses).sum()) if device_losses else 0.0
+        with profiler.span("train.sync"):
+            total_loss = float(torch.stack(device_losses).sum()) if device_losses else 0.0
         steps_this_run = steps - start_step
         timer.stop(items=steps_this_run * self.macro_batch)
         self._check_finite(total_loss, steps)
