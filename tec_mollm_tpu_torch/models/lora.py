@@ -13,6 +13,17 @@ this rank's output columns (and ``lora_B`` rows) and takes its input through
 ``copy_to_model_group``; ``"row"`` holds this rank's input rows, sums the
 partial products over the model group and adds the bias once, after the sum.
 ``None`` is the whole layer.
+
+Every form but the row-parallel one finishes the layer inside one product:
+``addmm`` on the 2-D view of the input adds the bias in the GEMM's epilogue
+(cuBLASLt's, on the card), and an adapter joins the same product as extra
+columns of its input, ``[x | dropout(x) A] @ [[W], [s B]]``, its scale folded
+into ``lora_B``'s cast weight. So no elementwise pass runs over the layer's
+output. That product's backward (``_AdaptedProduct``) forms only the
+gradients its inputs need: a frozen ``W`` gets none, as it would from its own
+product. The row-parallel form adds its bias after the sum over the group,
+which no epilogue can. Each call counts its form in the tracer
+(``llm.dense.epilogue`` or ``llm.dense.row_parallel``).
 """
 
 from __future__ import annotations
@@ -24,6 +35,35 @@ import torch.nn.functional as F
 from torch import nn
 
 from tec_mollm_tpu_torch.parallel.tensor_parallel import copy_to_model_group, reduce_from_model_group
+from tec_mollm_tpu_torch.utils.profiler import count
+
+
+class _AdaptedProduct(torch.autograd.Function):
+    """``addmm(bias, [x | xa], [[w], [b]])`` for 2-D ``x`` (M, K), ``xa``
+    (M, r), ``w`` (K, F), ``b`` (r, F): one product over K + r, whose backward
+    takes the weights' gradients from their own inputs, so that a weight that
+    needs none costs nothing."""
+
+    @staticmethod
+    def forward(ctx, bias, x, w, xa, b):
+        wb = torch.cat([w, b])
+        ctx.save_for_backward(x if ctx.needs_input_grad[2] else None, xa, wb)
+        return torch.addmm(bias, torch.cat([x, xa], dim=1), wb)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, xa, wb = ctx.saved_tensors
+        need_bias, need_x, need_w, need_xa, need_b = ctx.needs_input_grad
+        g_x = g_xa = None
+        if need_x or need_xa:
+            g_x, g_xa = (g @ wb.t()).split([wb.shape[0] - xa.shape[1], xa.shape[1]], dim=1)
+        return (
+            g.sum(0) if need_bias else None,
+            g_x,
+            x.t() @ g if need_w else None,
+            g_xa,
+            xa.t() @ g if need_b else None,
+        )
 
 
 class LoRADense(nn.Module):
@@ -59,13 +99,18 @@ class LoRADense(nn.Module):
         if self.parallel == "row":
             if self.rank > 0:
                 raise ValueError("a row-parallel layer takes no LoRA adapter")
+            count("llm.dense.row_parallel")
             return reduce_from_model_group(x @ self.weight.to(dt)) + self.bias.to(dt)
         if self.parallel == "column":
             x = copy_to_model_group(x)
-        y = x @ self.weight.to(dt) + self.bias.to(dt)
+        count("llm.dense.epilogue")
+        k = x.shape[-1]
+        x2, w, bias = x.reshape(-1, k), self.weight.to(dt), self.bias.to(dt)
         if self.rank > 0:
-            h = F.dropout(x, self.lora_dropout, self.training)
+            h = F.dropout(x, self.lora_dropout, self.training).reshape(-1, k)
             a = self.lora_A.weight.t().to(dt)
-            b = self.lora_B.weight.t().to(dt)
-            y = y + (h @ a) @ b * self.scaling
-        return y
+            b = (self.lora_B.weight.t() * self.scaling).to(dt)
+            y = _AdaptedProduct.apply(bias, x2, w, h @ a, b)
+        else:
+            y = torch.addmm(bias, x2, w)
+        return y.reshape(*x.shape[:-1], y.shape[-1])

@@ -12,7 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from flax.traverse_util import flatten_dict, unflatten_dict
+from torch.utils.flop_counter import FlopCounterMode
 
 import tec_mollm_tpu.config as jcfg
 import tec_mollm_tpu_torch.config as pcfg
@@ -29,9 +31,12 @@ from tec_mollm_tpu.models.ref_import import reference_state_dict_to_params
 from tec_mollm_tpu.models.temporal import MultiScaleConvBlock as JaxConvBlock
 from tec_mollm_tpu.models.temporal import TemporalEncoder as JaxTemporal
 from tec_mollm_tpu_torch.models import TECMoLLM, graph_inputs, params_to_state_dict
+from tec_mollm_tpu_torch.models.lora import LoRADense
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL, RTOL = 3e-5, 1e-4
+# bf16 (8 significant bits) against bf16, where the two sides round at other points
+BF16_ATOL, BF16_RTOL = 2e-2, 2e-2
 
 
 def _configs(**model_overrides):
@@ -176,6 +181,67 @@ class TestModules:
         with torch.no_grad():
             got = world.port().llm_backbone.model.h[0].attn.c_attn(_t(x))
         _close(got, want)
+
+    @pytest.mark.parametrize("base", ["trained", "frozen"])
+    @pytest.mark.parametrize("training", [False, True], ids=["eval", "train"])
+    @pytest.mark.parametrize("parallel", [None, "column"], ids=["whole", "column"])
+    @pytest.mark.parametrize("lead", [(11,), (5, 3)], ids=["2d", "3d"])
+    @pytest.mark.parametrize("rank", [0, 32])
+    def test_lora_dense_finishes_in_the_product_as_the_separate_passes_did(self, rank, lead, parallel, training, base):
+        """The bias in the product's epilogue and the adapter as extra columns
+        of the same product give what the separate passes gave: ``x @ W + b``,
+        then ``(dropout(x) A) B`` scaled and added, with the same gradients
+        from as many operations (a frozen ``W`` and bias, as under LoRA
+        training, get no gradient product). A nonzero ``lora_B`` and a scale
+        other than a power of two, so the adapter's term counts; in training
+        both sides draw the same dropout mask from the same seed. Without a
+        model group the column-parallel form differs only there."""
+        d_in, d_out = 48, 72
+        layer = LoRADense(d_in, d_out, rank, alpha=48.0, lora_dropout=0.25)
+        layer.parallel = parallel
+        g = torch.Generator().manual_seed(rank + len(lead))
+        with torch.no_grad():
+            for param in layer.parameters():
+                param.copy_(torch.randn(param.shape, generator=g) / param.shape[-1] ** 0.5)
+            layer.bias.copy_(torch.randn(d_out, generator=g))
+        layer.weight.requires_grad_(base == "trained")
+        layer.bias.requires_grad_(base == "trained")
+        layer.train(training)
+        x = torch.randn(*lead, d_in, generator=g)
+        grad_out = torch.randn(*lead, d_out, generator=g)
+
+        def separate_passes(x):
+            dt = x.dtype
+            y = x @ layer.weight.to(dt) + layer.bias.to(dt)
+            if rank > 0:
+                h = F.dropout(x, layer.lora_dropout, layer.training)
+                y = y + (h @ layer.lora_A.weight.t().to(dt)) @ layer.lora_B.weight.t().to(dt) * layer.scaling
+            return y
+
+        grads, flops = [], []
+        for forward in (layer, separate_passes):
+            layer.zero_grad(set_to_none=True)
+            xi = x.clone().requires_grad_(True)
+            torch.manual_seed(7)
+            with FlopCounterMode(display=False) as fc:
+                y = forward(xi)
+                (y * grad_out).sum().backward()
+            grads.append([y, xi.grad] + [p.grad for p in layer.parameters()])
+            flops.append(fc.get_total_flops())
+        assert len(grads[0]) == (6 if rank else 4) and flops[0] == flops[1]
+        assert (layer.weight.grad is None) == (base == "frozen")
+        for got, want in zip(*grads):  # within 1e-5 of each tensor's scale: fp32 sums in another order
+            if want is None:
+                assert got is None
+                continue
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.detach().abs().max()))
+        with torch.no_grad():
+            torch.manual_seed(7)
+            got = layer(x.bfloat16())
+            torch.manual_seed(7)
+            want = separate_passes(x.bfloat16())
+        assert got.dtype == torch.bfloat16 and got.shape == (*lead, d_out)
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
 
     @pytest.mark.parametrize(
         "fused_attn,use_fused_mlp", [(False, False), (True, False), (False, True), (True, True)]

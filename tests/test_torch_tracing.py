@@ -25,6 +25,7 @@ from tec_mollm_tpu_torch.data.synthetic import synthetic_processed_split
 from tec_mollm_tpu_torch.evaluation.harness import EvalExecutor
 from tec_mollm_tpu_torch.graph import GraphData, build_graph, grid_coordinates
 from tec_mollm_tpu_torch.models import TECMoLLM, graph_inputs
+from tec_mollm_tpu_torch.models.gpt2 import GPT2Backbone
 from tec_mollm_tpu_torch.serving import ForecastService, make_server
 from tec_mollm_tpu_torch.training.trainer import Trainer
 from tec_mollm_tpu_torch.utils import profiler
@@ -263,7 +264,8 @@ def test_a_traced_request_over_http_carries_its_id_through_every_stage(service):
     # the batcher was waiting when the profiler started: that wait counts from the session's start
     wait, = _by_name(rec, "serve.batcher_wait")
     assert wait["start_ns"] == rec["window_ns"][0] and wait["end_ns"] <= dispatch["start_ns"]
-    assert rec["counts"] == {}
+    # the one forward's dense layers, each finished in its product's epilogue
+    assert rec["counts"] == {"llm.dense.epilogue": 4 * service.cfg.model.llm_layers}
     stats = service.stats()
     assert stats["batches"] == 2 and stats["padded_rows"] == 2 * service.max_batch - 3  # rows 1 and 2
     assert f"tec_mollm_padded_rows_total {stats['padded_rows']}" in service.metrics_text()
@@ -331,6 +333,29 @@ def test_trace_writes_every_thread_spans_on_the_file_time_base(tmp_path):
     work = spans["main.work"]
     assert work["ts"] - SLACK_NS / 1e3 <= mm["ts"] and mm["ts"] + mm["dur"] <= work["ts"] + work["dur"] + SLACK_NS / 1e3
     assert "programSpans" in doc
+
+
+@pytest.mark.parametrize("layout", ["whole", "megatron"])
+def test_each_dense_call_counts_its_form_only_while_profiled(layout):
+    """A backbone forward counts every dense layer once, by the form it took:
+    the whole layers and the column-parallel ones finish in the product's
+    epilogue; a row-parallel one (here without a model group) adds its bias
+    after the sum. With no profiler active nothing is counted."""
+    m = _cfg().model
+    backbone = GPT2Backbone(m).eval()
+    if layout == "megatron":
+        for block in backbone.h:
+            block.attn.c_attn.parallel = block.mlp.c_fc.parallel = "column"
+            block.attn.c_proj.parallel = block.mlp.c_proj.parallel = "row"
+    x = torch.randn(3, 2, m.d_llm)
+    with torch.no_grad():
+        with profile(activities=CPU):
+            backbone(x)
+        want = ({"llm.dense.epilogue": 4 * m.llm_layers} if layout == "whole" else
+                {"llm.dense.epilogue": 2 * m.llm_layers, "llm.dense.row_parallel": 2 * m.llm_layers})
+        assert profiler.recorded()["counts"] == want
+        backbone(x)
+    assert profiler.recorded()["counts"] == want
 
 
 def test_many_threads_lose_no_span_and_no_count():
