@@ -14,6 +14,52 @@ from typing import Any
 
 
 @dataclass(frozen=True)
+class DeepSeekV2Config:
+    """The DeepSeek-V2 backbone's own sizes, under HF's ``config.json`` names
+    (defaults: DeepSeek-V2-Lite's). Its width, heads and depth are
+    ``ModelConfig``'s ``d_llm``, ``llm_heads`` and ``llm_layers``, its LoRA
+    ``lora_r``, ``lora_alpha`` and ``lora_dropout``. The V2-Lite form only:
+    no query compression (``q_lora_rank`` null), softmax scores, greedy top-k
+    over one group with the weights as scored (``norm_topk_prob`` false,
+    ``routed_scaling_factor`` 1), no dropout and no biases inside the
+    backbone. YaRN's ``rope_scaling`` group is flattened to ``rope_*`` fields."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    intermediate_size: int = 10944       # the leading dense layers' SwiGLU
+    moe_intermediate_size: int = 1408    # one expert's SwiGLU
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    first_k_dense_replace: int = 1
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    rope_factor: float = 40.0
+    rope_original_max_position_embeddings: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 0.707
+    rope_mscale_all_dim: float = 0.707
+
+    @property
+    def q_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    def validate(self, llm_layers: int) -> None:
+        if not 0 < self.num_experts_per_tok <= self.n_routed_experts:
+            raise ValueError(
+                f"num_experts_per_tok={self.num_experts_per_tok} must lie in 1..n_routed_experts="
+                f"{self.n_routed_experts}"
+            )
+        if self.qk_rope_head_dim % 2:
+            raise ValueError(f"qk_rope_head_dim={self.qk_rope_head_dim} must be even (RoPE rotates pairs)")
+        if not 0 <= self.first_k_dense_replace <= llm_layers:
+            raise ValueError(f"first_k_dense_replace={self.first_k_dense_replace} must lie in 0..llm_layers")
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyperparameters (reference defaults: train.py:262-269)."""
 
@@ -75,6 +121,11 @@ class ModelConfig:
     # along the quantile axis. () = the reference's deterministic point model.
     quantiles: tuple[float, ...] = ()
 
+    # The backbone: GPT-2 (None, every preset) or DeepSeek-V2's MLA and
+    # DeepSeekMoE blocks (beyond-reference, from a config file). Written to
+    # JSON only when set, so a GPT-2 config's JSON is the JAX package's.
+    deepseek_v2: DeepSeekV2Config | None = None
+
     @property
     def num_outputs(self) -> int:
         """Output channels per (horizon, node): 1 point value or len(quantiles)."""
@@ -135,6 +186,8 @@ class ModelConfig:
             )
         if self.d_llm % self.llm_heads != 0:
             raise ValueError("d_llm must be divisible by llm_heads")
+        if self.deepseek_v2 is not None:
+            self.deepseek_v2.validate(self.llm_layers)
         if self.quantiles:
             q = self.quantiles
             if any(not (0.0 < v < 1.0) for v in q):
@@ -282,7 +335,10 @@ class Config:
     # ---- JSON round-trip so train/eval/bench share one file ----
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+        raw = dataclasses.asdict(self)
+        if raw["model"]["deepseek_v2"] is None:
+            del raw["model"]["deepseek_v2"]
+        return json.dumps(raw, indent=2, sort_keys=True)
 
     @classmethod
     def from_json(cls, text: str) -> "Config":
@@ -299,6 +355,8 @@ class Config:
                     raise KeyError(f"Unknown config key {k!r} for {dc_cls.__name__}")
                 if isinstance(v, list):
                     v = tuple(v)
+                elif isinstance(v, dict) and k in NESTED:
+                    v = build(NESTED[k], v)
                 kwargs[k] = v
             return dc_cls(**kwargs)
 
@@ -307,6 +365,10 @@ class Config:
             train=build(TrainConfig, raw.get("train", {})),
             data=build(DataConfig, raw.get("data", {})),
         )
+
+
+# fields that hold a dataclass of their own, by name
+NESTED = {"deepseek_v2": DeepSeekV2Config}
 
 
 def scale_up_config() -> Config:

@@ -47,6 +47,7 @@ from torch.utils.checkpoint import (
 )
 
 from tec_mollm_tpu_torch.config import ModelConfig
+from tec_mollm_tpu_torch.models.deepseek_v2 import DeepSeekV2Backbone
 from tec_mollm_tpu_torch.models.lora import LoRADense
 from tec_mollm_tpu_torch.ops.flash_attention import flash_attention
 from tec_mollm_tpu_torch.ops.fused_mlp import fused_ln_mlp
@@ -278,11 +279,14 @@ class GPT2Backbone(nn.Module):
 
 
 class LLMBackbone(nn.Module):
-    """Holder that gives the backbone the reference's ``llm_backbone.model`` prefix."""
+    """Holder that gives the backbone the reference's ``llm_backbone.model``
+    prefix: GPT-2, or DeepSeek-V2 where the config sets ``deepseek_v2``
+    (``models/deepseek_v2.py``)."""
 
     def __init__(self, cfg: ModelConfig, **kwargs):
         super().__init__()
-        self.model = GPT2Backbone(cfg, **kwargs)
+        backbone = GPT2Backbone if cfg.deepseek_v2 is None else DeepSeekV2Backbone
+        self.model = backbone(cfg, **kwargs)
 
     def forward(self, inputs_embeds: torch.Tensor) -> torch.Tensor:
         return self.model(inputs_embeds)

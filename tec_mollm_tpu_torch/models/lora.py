@@ -24,6 +24,9 @@ gradients its inputs need: a frozen ``W`` gets none, as it would from its own
 product. The row-parallel form adds its bias after the sum over the group,
 which no epilogue can. Each call counts its form in the tracer
 (``llm.dense.epilogue`` or ``llm.dense.row_parallel``).
+
+``bias=False`` is the bias-free form (DeepSeek-V2's projections): the same
+one product, ``mm`` in place of ``addmm``, adapter columns and all.
 """
 
 from __future__ import annotations
@@ -38,17 +41,22 @@ from tec_mollm_tpu_torch.parallel.tensor_parallel import copy_to_model_group, re
 from tec_mollm_tpu_torch.utils.profiler import count
 
 
+def _product(bias: torch.Tensor | None, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``, plus ``bias`` in the product's epilogue where there is one."""
+    return torch.mm(x, w) if bias is None else torch.addmm(bias, x, w)
+
+
 class _AdaptedProduct(torch.autograd.Function):
     """``addmm(bias, [x | xa], [[w], [b]])`` for 2-D ``x`` (M, K), ``xa``
     (M, r), ``w`` (K, F), ``b`` (r, F): one product over K + r, whose backward
     takes the weights' gradients from their own inputs, so that a weight that
-    needs none costs nothing."""
+    needs none costs nothing. ``bias`` None: ``mm`` of the same."""
 
     @staticmethod
     def forward(ctx, bias, x, w, xa, b):
         wb = torch.cat([w, b])
         ctx.save_for_backward(x if ctx.needs_input_grad[2] else None, xa, wb)
-        return torch.addmm(bias, torch.cat([x, xa], dim=1), wb)
+        return _product(bias, torch.cat([x, xa], dim=1), wb)
 
     @staticmethod
     def backward(ctx, g):
@@ -74,12 +82,13 @@ class LoRADense(nn.Module):
         rank: int = 0,
         alpha: float = 0.0,
         lora_dropout: float = 0.0,
+        bias: bool = True,
     ):
         super().__init__()
         self.rank = rank
         self.parallel: str | None = None
         self.weight = nn.Parameter(torch.empty(in_features, features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
         if rank > 0:
             self.lora_A = nn.Linear(in_features, rank, bias=False)
             self.lora_B = nn.Linear(rank, features, bias=False)
@@ -88,7 +97,8 @@ class LoRADense(nn.Module):
 
     def reset_parameters(self, g: torch.Generator) -> None:
         nn.init.normal_(self.weight, 0.0, 0.02, generator=g)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
         if self.rank > 0:
             bound = 1.0 / math.sqrt(self.weight.shape[0])
             nn.init.uniform_(self.lora_A.weight, -bound, bound, generator=g)
@@ -100,17 +110,19 @@ class LoRADense(nn.Module):
             if self.rank > 0:
                 raise ValueError("a row-parallel layer takes no LoRA adapter")
             count("llm.dense.row_parallel")
-            return reduce_from_model_group(x @ self.weight.to(dt)) + self.bias.to(dt)
+            y = reduce_from_model_group(x @ self.weight.to(dt))
+            return y if self.bias is None else y + self.bias.to(dt)
         if self.parallel == "column":
             x = copy_to_model_group(x)
         count("llm.dense.epilogue")
         k = x.shape[-1]
-        x2, w, bias = x.reshape(-1, k), self.weight.to(dt), self.bias.to(dt)
+        x2, w = x.reshape(-1, k), self.weight.to(dt)
+        bias = None if self.bias is None else self.bias.to(dt)
         if self.rank > 0:
             h = F.dropout(x, self.lora_dropout, self.training).reshape(-1, k)
             a = self.lora_A.weight.t().to(dt)
             b = (self.lora_B.weight.t() * self.scaling).to(dt)
             y = _AdaptedProduct.apply(bias, x2, w, h @ a, b)
         else:
-            y = torch.addmm(bias, x2, w)
+            y = _product(bias, x2, w)
         return y.reshape(*x.shape[:-1], y.shape[-1])

@@ -4,6 +4,9 @@
       --> (B*N, L, 22) --multi-scale conv--> (B*N, 12, 128) --patch--> (B*N, 3, 768)
       --> GPT-2 (3 LoRA blocks) --> dropout --> head --> (B, L_out, N, Q) fp32
 
+A config with ``deepseek_v2`` set puts DeepSeek-V2's MLA and DeepSeekMoE blocks
+(``models/deepseek_v2.py``) in the GPT-2 backbone's place; the rest is the same.
+
 Module names are the reference's state_dict names, so its checkpoints and the
 JAX package's parameters (``models/convert.py``) load without renaming.
 Parameters stay fp32; ``dtype`` is the compute dtype each layer casts to, as the
@@ -51,8 +54,15 @@ def opt_in_kernel_refusal(
     """Why the opt-in kernels cannot run this model on the card, or None: the
     fused MLP takes bf16 and d_llm <= 1536 in multiples of 128
     (``ops/fused_mlp.py``), the short attention head dims 32 and 64
-    (``ops/short_attention.py``). Callers that know the device is CUDA ask it
-    before loading weights."""
+    (``ops/short_attention.py``), both GPT-2's block only. Callers that know
+    the device is CUDA ask it before loading weights."""
+    if cfg.deepseek_v2 is not None and (fused_attn or use_fused_mlp):
+        ds = cfg.deepseek_v2
+        return (
+            "the DeepSeek-V2 backbone takes neither opt-in kernel: the fused MLP computes GPT-2's GELU MLP, "
+            f"and MLA's heads are {ds.q_head_dim} wide for q.k and {ds.v_head_dim} for v, where the short "
+            "attention takes equal head dims of 32 or 64"
+        )
     d, dh = cfg.d_llm, cfg.llm_mlp_ratio * cfg.d_llm
     if use_fused_mlp and (dtype != torch.bfloat16 or d > 1536 or d % 128 or dh % 128):
         return (

@@ -130,12 +130,23 @@ def tp_plan(shapes: Mapping[str, Sequence[int]], heads: int, mp: int) -> dict[st
     return plan
 
 
+def check_splittable(cfg: Any, mp: int) -> None:
+    """Raise where a model of ``cfg`` (a ``ModelConfig``) cannot be split
+    ``mp`` ways: the DeepSeek-V2 backbone has no tensor-parallel form."""
+    if mp > 1 and cfg.deepseek_v2 is not None:
+        raise ValueError(
+            f"model_parallel={mp}: the DeepSeek-V2 backbone has no tensor-parallel form (its experts and "
+            "latent attention are not split); run it on one process a replica"
+        )
+
+
 @functools.lru_cache(maxsize=8)
 def model_plan(cfg: Any, mp: int) -> dict[str, Split]:
     """``tp_plan`` of a ``TECMoLLM`` of ``cfg`` (a ``ModelConfig``), from the
     shapes of a model built on the meta device."""
     from tec_mollm_tpu_torch.models.tec_mollm import TECMoLLM
 
+    check_splittable(cfg, mp)
     with torch.device("meta"):
         shapes = {k: tuple(v.shape) for k, v in TECMoLLM(cfg, seed=None).state_dict().items()}
     return tp_plan(shapes, cfg.llm_heads, mp)
@@ -227,6 +238,7 @@ def shard_model_(model: nn.Module, model_rank: int, mp: int) -> nn.Module:
     from tec_mollm_tpu_torch.models.gpt2 import GPT2Attention, GPT2Block
 
     cfg = model.cfg
+    check_splittable(cfg, mp)
     plan = tp_plan({k: tuple(v.shape) for k, v in model.state_dict().items()}, cfg.llm_heads, mp)
     with torch.no_grad():
         for name, p in model.named_parameters():

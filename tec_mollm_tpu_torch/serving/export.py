@@ -97,6 +97,11 @@ def export_forecaster(
     from tec_mollm_tpu_torch.models.tec_mollm import TECMoLLM, graph_inputs, opt_in_kernel_refusal
 
     cfg = cfg.resolved()
+    if cfg.model.deepseek_v2 is not None:
+        raise ValueError(
+            "export takes the GPT-2 backbone only: the DeepSeek-V2 backbone's grouped expert products have "
+            "no exportable op here"
+        )
     platforms = check_platforms(platforms)
     device = resolve_device(platforms[0])
     dtype = torch.bfloat16 if cfg.train.bf16 else torch.float32

@@ -2,7 +2,10 @@
 
 The reference's policy (``training/optimizer.py`` of the JAX package): every
 parameter outside the GPT-2 backbone trains, and inside it only ``lora_A``,
-``lora_B``, the LayerNorms ``ln_1``, ``ln_2``, ``ln_f`` and ``wpe``. AdamW with
+``lora_B``, the LayerNorms ``ln_1``, ``ln_2``, ``ln_f`` and ``wpe``. In the
+DeepSeek-V2 backbone the same: LoRA and the RMSNorm weights
+(``input_layernorm``, ``post_attention_layernorm``, ``kv_a_layernorm``,
+``norm``); the router and the experts stay frozen. AdamW with
 b1 0.9, b2 0.999, eps 1e-8 and weight decay on every trainable tensor
 (``torch.optim.AdamW`` computes optax's ``adamw`` update), after clipping by
 global norm with optax's factor ``min(1, max_norm / norm)``.
@@ -20,7 +23,10 @@ from torch import nn
 from tec_mollm_tpu_torch.config import TrainConfig
 from tec_mollm_tpu_torch.parallel.mesh import all_reduce_sum, model_group
 
-TRAINABLE_LLM_TOKENS = ("lora_A", "lora_B", "ln_1", "ln_2", "ln_f", "wpe")
+TRAINABLE_LLM_TOKENS = (
+    "lora_A", "lora_B", "ln_1", "ln_2", "ln_f", "wpe",
+    "input_layernorm", "post_attention_layernorm", "kv_a_layernorm", "norm",
+)
 LLM_MODULE = "llm_backbone"
 
 

@@ -263,6 +263,12 @@ class Span:
         s.add(self.name, self._tid, self.start, self.end, self.id, self.parent, self.attrs)
 
 
+def recording() -> bool:
+    """Whether a profiler is active, so spans and counters record: a caller
+    that must read the device for a counter asks this first."""
+    return bool(_autograd_profiler._is_profiler_enabled)
+
+
 def span(name: str, parent: int | None = None, **attrs) -> Span | _Off:
     """A span named ``name`` under ``parent`` (a span's id; by default the
     calling thread's innermost open span), with ``attrs``; ``OFF`` while no
