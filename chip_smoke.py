@@ -34,7 +34,10 @@ Phases (any failure exits non-zero):
      back as the short kernel's is) and on a view that is not 16-byte aligned,
      at head dims 32 and 128, at T = 300 non-causal and at T = 1024 causal
      (B = 8), with SDPA as the library call, and its bare C entry timed beside
-     the wrapper (flash_bare_entry);
+     the wrapper (flash_bare_entry). The temporal encoder's conv kernel
+     (csrc/temporal_conv.cu) runs at TEMPORAL_CASES against its mirror (the same
+     bits twice, one launch a call), timed through the wrapper, bare and on the
+     device's clock at the eval batch beside the plain blocks (check_temporal);
   4. serve: a synthetic processed dir at the 41x71 grid, ForecastService on the
      flagship Config() with seeded random weights at max_batch=8 in bf16,
      forecast requests over HTTP on localhost (some concurrent, so the batcher
@@ -57,7 +60,8 @@ Phases (any failure exits non-zero):
      an epoch, 8 validation batches). Run A trains TRAINER_EPOCHS epochs with a
      checkpoint every 2 macro steps: 2 finite history records, config.json,
      latest.pt, latest.meta.json and best_params.pt, and the GAT kernel launched
-     once per validation forward (16) and no other kernel. Run B is stopped by
+     once per validation forward (16), the temporal conv kernel as often and no
+     other kernel. Run B is stopped by
      a SIGTERM to this process after 2 macro steps (fit's handler checkpoints
      and stops), then --resume: it must restart at step 2 of epoch 0, make run
      A's 8 updates, and its per-epoch losses lie within RESUME_RTOL of run A's.
@@ -93,7 +97,8 @@ Phases (any failure exits non-zero):
      bf16, eval batch 16 over the 91 test windows, with a rollout of
      EVAL_ROLLOUT_STEPS steps over EVAL_ROLLOUT_WINDOWS windows. Both CSV rows
      finite, rollout_results.csv written, and the GAT kernel launched exactly
-     once per eval batch and once per rollout chunk, no other kernel. The same
+     once per eval batch and once per rollout chunk, no other kernel than the
+     temporal conv kernel (see gat_launches). The same
      evaluation on the plain GAT within VAL_RTOL on MAE and RMSE; the eval loop
      timed on a warm executor (windows/s, ms a batch) and profiled (busy share
      over the unprofiled wall); the rollout timed and profiled. The weights
@@ -115,7 +120,8 @@ Phases (any failure exits non-zero):
  10. device data: the train CLI at phase 6's policy and cut on that archive
      (strides that leave about TRAINER_WINDOWS windows), on the host pipeline
      and with --device-data: first-epoch losses within DEVICE_DATA_RTOL of each
-     other, exactly one GAT launch per validation batch and no other kernel, a
+     other, exactly one GAT launch per validation batch and no other kernel
+     than the temporal conv kernel, a
      gathered fp32 batch within 1e-6 of the host mirror; the device-resident
      bytes, and each mode's warm epoch (windows/s, busy share of a profiled
      epoch over the unprofiled wall, HtoD copy ms).
@@ -210,6 +216,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import inspect
 import json
 import os
@@ -413,6 +420,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# csrc/temporal_conv.cu runs once in every eval forward of a bf16 model at the
+# flagship's temporal widths and length, beside the GAT kernel: the checks of
+# the GAT's launches compare the counts without it, and the phases that know
+# their forwards check its own count.
+TEMPORAL = "temporal_conv"
+
+
+def gat_launches(counts: dict) -> dict:
+    """Launch counts without the temporal conv kernel's."""
+    return {k: v for k, v in counts.items() if k != TEMPORAL}
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -606,6 +625,7 @@ def check_kernels(args, graph, results: dict) -> list[dict]:
     # --- 3. fused LN -> MLP -> residual at (B*N*T, d) ---
     entries.append(check_mlp(cfg, rand, failures))
     entries.append(check_flash(cfg, rand, failures))
+    entries.append(check_temporal(cfg, failures))
 
     for e in entries:
         e["bound_ms"], e["bound_by"] = bound(e["bytes"], e["flops"], e.pop("flop_rate"))
@@ -1012,6 +1032,123 @@ def check_mlp(cfg, rand, failures: list) -> dict:
     return entry
 
 
+# temporal conv kernel: the flagship eval batch (16 windows x 2,944 padded
+# nodes, as EvalExecutor runs it), a ragged count (one window's 2,911 nodes
+# + 5) and the serve batch (8 windows)
+TEMPORAL_CASES = {"eval": (16, 2944), "ragged": (1, 2911 + 5), "path": (BATCH, 2944)}
+
+
+def temporal_bare_entry(x, wpack, params):
+    """A call of the temporal kernel's C entry with its arguments marshalled
+    once, into a fresh output: the wrapper's launch without its checks and
+    Python. x is a (B, N, 48, C) view with unit channel stride. Not counted."""
+    import torch
+
+    from tec_mollm_tpu_torch.ops import _build
+
+    tc = importlib.import_module("tec_mollm_tpu_torch.ops.temporal_conv")  # ops.temporal_conv is the function
+    b, n = x.shape[:2]
+    out = torch.empty(b * n, tc.OUT_LENGTH, tc.CHANNELS[-1], dtype=x.dtype, device=x.device)
+    fn = _build.function("temporal_conv_forward", tc.ARGTYPES)
+    args = (x.data_ptr(), b * n, n, x.stride(0), x.stride(1), x.stride(2), x.shape[-1], wpack.data_ptr(),
+            wpack.numel() * wpack.element_size(), params.data_ptr(), out.data_ptr(), _build.stream_handle(x.device))
+
+    def call():
+        _build.check(tc.NAME, fn(*args))
+        return out
+
+    return call
+
+
+def check_temporal(cfg, failures: list) -> dict:
+    """The temporal encoder's conv blocks (csrc/temporal_conv.cu) against the
+    mirror (ops/temporal_conv.py:temporal_conv_mirror) at TEMPORAL_CASES, on
+    the (B, N, L, C) view of a (B, L, N, C) tensor as the model hands it, on
+    seeded blocks whose GroupNorm affines are not the identity: the same bits
+    twice, one launch a call. Timed through the wrapper, the bare C entry and
+    on the device's clock at the eval batch, beside the plain blocks the
+    model ran before (the unfused MultiScaleConvBlock pair in bf16)."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+    from tec_mollm_tpu_torch.models.temporal import TemporalEncoder
+
+    tc = importlib.import_module("tec_mollm_tpu_torch.ops.temporal_conv")
+    dev = torch.device("cuda")
+    enc = TemporalEncoder(cfg)
+    g = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for block in enc.conv_embedder.embedder:
+            block.reset_parameters(g)
+            for _, norm, _ in block.convs:
+                norm.weight.add_(0.2 * torch.randn(norm.weight.shape, generator=g))
+                norm.bias.add_(0.2 * torch.randn(norm.bias.shape, generator=g))
+            for conv in [c for c, _, _ in block.convs] + [block.final_conv]:
+                conv.bias.add_(0.1 * torch.randn(conv.bias.shape, generator=g))
+    enc = enc.to(dev).eval()
+    blocks = enc.conv_embedder.embedder
+    wpack, params = tc.pack_blocks(blocks, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    length, cin = cfg.temporal_seq_len, cfg.spatial_channels
+    b, n = TEMPORAL_CASES["eval"]
+    entry = {
+        "name": "temporal_conv", "source": "tec_mollm_tpu_torch/csrc/temporal_conv.cu",
+        "replaces": "none (the port's own)",
+        "shape": f"x ({b},{n},{length},{cin}) bf16 view -> ({b * n},{tc.OUT_LENGTH},{tc.CHANNELS[-1]})",
+    }
+    views = {}
+    for label, (bb, nn_) in TEMPORAL_CASES.items():
+        x = torch.randn(bb, length, nn_, cin, generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+        views[label] = x
+        ops.reset_counts()
+        got = ops.temporal_conv(x, wpack, params)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts().get("temporal_conv", 0)
+        again = ops.temporal_conv(x, wpack, params)
+        want = ops.temporal_conv_mirror(x, wpack, params)
+        torch.cuda.synchronize()
+        tag = "bf16" if label == "eval" else label
+        entry[f"max_abs_err_{tag}"], entry[f"max_rel_err_{tag}"], ok = compare(got, want, "bf16")
+        entry[f"tol_{tag}"] = TOL["bf16"]
+        entry[f"same_bits_{label}"] = bool(torch.equal(got, again))
+        entry[f"launches_a_call_{label}"] = launches
+        if not ok:
+            failures.append(f"temporal_conv {label}")
+        if not entry[f"same_bits_{label}"] or launches != 1:
+            failures.append(f"temporal_conv {label}: not the same bits twice or not one launch a call")
+    x = views["eval"]
+    rows = b * n
+
+    def plain():
+        return enc.conv_embedder(x.reshape(-1, length, cin).transpose(1, 2)).transpose(1, 2)
+
+    with torch.no_grad():
+        plain_out = plain()
+        entry["max_abs_vs_plain_blocks"] = float((ops.temporal_conv(x, wpack, params).float() - plain_out.float()).abs().max())
+        entry["plain_ms"] = time_ms(plain, 5)
+    entry["ms"] = time_ms(lambda: ops.temporal_conv(x, wpack, params), REPS)
+    entry["bare_ms"] = time_ms(temporal_bare_entry(x, wpack, params), REPS)
+    entry["device_ms"], entry["device_launches"] = kernel_device_ms(
+        lambda: ops.temporal_conv(x, wpack, params), REPS, "temporal_conv_kernel")
+    c1, c2 = tc.CHANNELS
+    taps = sum(tc.KERNEL_SIZES)
+    entry.update({
+        "max_abs_err": entry["max_abs_err_bf16"],
+        "library_ms": None,
+        # the products' operations at each branch's own taps (benchmark/counts.py's
+        # temporal.* terms), the input read and the output written once
+        "flops": 2 * rows * (length * cin * c1 * taps + length // 2 * 3 * c1 * c1
+                             + length // 2 * c1 * c2 * taps + length // 4 * 3 * c2 * c2),
+        "bytes": rows * (length * cin + tc.OUT_LENGTH * c2) * 2,
+        "flop_rate": PEAK_FLOPS["bf16_tensor"],
+    })
+    log(f"temporal_conv: bare {entry['bare_ms']:.4f} ms, on the device "
+        + ("not measured" if entry["device_ms"] is None else f"{entry['device_ms']:.4f} ms")
+        + f"; the plain blocks {entry['plain_ms']:.4f} ms; kernel against the plain blocks max abs "
+        f"{entry['max_abs_vs_plain_blocks']:.3e}")
+    return entry
+
+
 def flash_mask_check(failures: list) -> dict:
     """The flash kernel's own keep mask at the path shape, read back through its
     output: with q = k = 0 every causal weight of query i is 1/(i+1), and for a
@@ -1339,7 +1476,7 @@ def serve_phase(args, graph, data_dir: str, results: dict) -> dict:
         for row in prof["top"][:8]:
             log(f"  {row['ms']:8.3f} ms x{row['calls']:<4d} {row['name']}")
 
-    need = {"default": ["gat_stencil"], "fused": ["gat_stencil", "short_attention", "fused_mlp"]}
+    need = {"default": ["gat_stencil", TEMPORAL], "fused": ["gat_stencil", TEMPORAL, "short_attention", "fused_mlp"]}
     for path, names in need.items():
         missing = [k for k in names if paths[path]["launches"].get(k, 0) == 0]
         if missing:
@@ -1615,7 +1752,8 @@ def trainer_phase(args, graph, data_dir: str, train_windows_per_s: float) -> dic
         raise RuntimeError(f"trainer[A]: history {hist_a}")
     if files_a != want_files:
         raise RuntimeError(f"trainer[A]: checkpoint dir holds {files_a}, want {want_files}")
-    if counts_a.get("gat_stencil", 0) != TRAINER_EPOCHS * val_batches or set(counts_a) - {"gat_stencil"}:
+    if (counts_a.get("gat_stencil", 0) != TRAINER_EPOCHS * val_batches or set(gat_launches(counts_a)) - {"gat_stencil"}
+            or counts_a.get(TEMPORAL, 0) != counts_a["gat_stencil"]):
         raise RuntimeError(f"trainer[A]: launches {counts_a}, want gat_stencil = {TRAINER_EPOCHS * val_batches} "
                            "(one a validation forward) and nothing else")
 
@@ -1677,7 +1815,7 @@ def trainer_phase(args, graph, data_dir: str, train_windows_per_s: float) -> dic
     trainer_c.model.gat_kernel = False
     val_plain = trainer_c.validate()
     trainer_c.model.gat_kernel = True
-    if ops.launch_counts():
+    if gat_launches(ops.launch_counts()):
         raise RuntimeError(f"trainer: the plain validation launched {ops.launch_counts()}")
     val_rel = abs(val_kernel[0] - val_plain[0]) / abs(val_plain[0])
     mae_diff = float(np.abs(np.asarray(val_kernel[1]["mae_by_horizon"]) - np.asarray(val_plain[1]["mae_by_horizon"])).max())
@@ -1747,7 +1885,7 @@ def trainer_phase(args, graph, data_dir: str, train_windows_per_s: float) -> dic
     )
     if not finite or served["stencil"]["route"] != "kernel" or not served["stencil"]["launches"].get("gat_stencil"):
         raise RuntimeError(f"trainer serve: stencil service {served['stencil']['route']}, {served['stencil']['launches']}")
-    if served["padded"]["launches"] or not diff <= SERVE_TOL_SCALED:
+    if gat_launches(served["padded"]["launches"]) or not diff <= SERVE_TOL_SCALED:
         raise RuntimeError(f"trainer serve: padded graph launched {served['padded']['launches']} or differs by {diff}")
 
     # --- a config the JAX package takes and the tiled kernel does not: 1 head x
@@ -1770,7 +1908,7 @@ def trainer_phase(args, graph, data_dir: str, train_windows_per_s: float) -> dic
         f"max |kernel - plain GAT| {diff_122:.4e} scaled (tol {SERVE_TOL_SCALED}); plain launches {counts_plain}"
     )
     if (not route_122.startswith("kernel, general form: ") or "1x22" not in route_122
-            or set(counts_122) != {"gat_stencil_general"} or counts_plain or not finite_122
+            or set(gat_launches(counts_122)) != {"gat_stencil_general"} or gat_launches(counts_plain) or not finite_122
             or not diff_122 <= SERVE_TOL_SCALED):
         raise RuntimeError(f"general form: route {route_122!r}, launches {counts_122}, finite {finite_122}, "
                            f"diff {diff_122}")
@@ -1925,7 +2063,7 @@ def device_data_phase(args, archive: str) -> dict:
     if not rel <= DEVICE_DATA_RTOL or not gather_err <= 1e-6 or not tf_same:
         raise RuntimeError(f"device data: losses {rel:.3e}, gather {gather_err:.3e}, time features {tf_same}")
     for mode, r in runs.items():
-        if r["launches"] != want_launches or len(r["history"]) != TRAINER_EPOCHS:
+        if gat_launches(r["launches"]) != want_launches or len(r["history"]) != TRAINER_EPOCHS:
             raise RuntimeError(f"device data[{mode}]: launches {r['launches']}, want {want_launches}; {r['history']}")
     return {
         "strides": strides, "train_windows": len(dev_ds), "val_windows": val_windows, "val_batches": val_batches,
@@ -1989,11 +2127,22 @@ def export_phase(args, data_dir: str) -> dict:
             reference[path] = serve_http(service)
         finally:
             service.close()
+    # traced on the CPU, an artifact holds the plain conv blocks (the temporal
+    # kernel takes CUDA tensors): its reference runs the same blocks
+    from tec_mollm_tpu_torch.models import temporal
+
+    devices, temporal.KERNEL_DEVICES = temporal.KERNEL_DEVICES, ()
+    service = ForecastService(cfg, data_dir, checkpoint=best, max_batch=BATCH)
+    try:
+        reference["plain_blocks"] = serve_http(service)
+    finally:
+        service.close()
+        temporal.KERNEL_DEVICES = devices
 
     cases = {
         "default": ([], "default"), "default_b8": (["--batch-size", str(BATCH)], "default"),
         "fused": (["--fused"], "fused"), "fused_b8": (["--fused", "--batch-size", str(BATCH)], "fused"),
-        "cpu_traced": (["--cpu", "--platforms", "cpu", "cuda"], "default"),
+        "cpu_traced": (["--cpu", "--platforms", "cpu", "cuda"], "plain_blocks"),
     }
     results, failures = {}, []
     for label, (extra, ref) in cases.items():
@@ -2010,6 +2159,8 @@ def export_phase(args, data_dir: str) -> dict:
         per_forward = {"gat_stencil": 1, **({"short_attention": layers, "fused_mlp": layers} if ref == "fused" else {})}
         want_nodes = {"tec_mollm.gat_stencil": 1, **({"tec_mollm.short_attention": layers,
                                                        "tec_mollm.fused_ln_mlp": layers} if ref == "fused" else {})}
+        if label != "cpu_traced":  # traced on the card: the temporal op; on the CPU: the plain blocks
+            per_forward[TEMPORAL], want_nodes["tec_mollm.temporal_conv"] = 1, 1
         service = ForecastService(cfg, data_dir, artifact=art, max_batch=BATCH)
         try:
             served = serve_http(service)
@@ -2055,7 +2206,7 @@ def export_phase(args, data_dir: str) -> dict:
     cli_counts = ops.launch_counts()
     cli_stats = json.loads(stdout.getvalue().strip().splitlines()[-1])
     log(f"serve --artifact --bench {SERVE_CLI_BENCH}: {cli_stats}; launches {cli_counts}")
-    if cli_counts != {"gat_stencil": SERVE_CLI_BENCH + 1} or cli_stats.get("source") != "artifact":
+    if cli_counts != {"gat_stencil": SERVE_CLI_BENCH + 1, TEMPORAL: SERVE_CLI_BENCH + 1} or cli_stats.get("source") != "artifact":
         failures.append(f"serve CLI: launches {cli_counts}, stats {cli_stats}")
     if failures:
         raise RuntimeError(f"export phase: {failures}")
@@ -2301,7 +2452,7 @@ def data_parallel_phase(args, data_dir: str, trainer: dict) -> dict:
     )
     if a["backend"] != "nccl" or len(a["history"]) != TRAINER_EPOCHS or not rel_a <= RESUME_RTOL:
         raise RuntimeError(f"ddp[a]: backend {a['backend']}, history {a['history']}, distance {rel_a}")
-    if a["launches"].get("gat_stencil", 0) != TRAINER_EPOCHS * val_batches or set(a["launches"]) - {"gat_stencil"}:
+    if a["launches"].get("gat_stencil", 0) != TRAINER_EPOCHS * val_batches or set(gat_launches(a["launches"])) - {"gat_stencil"}:
         raise RuntimeError(f"ddp[a]: launches {a['launches']}, want gat_stencil = {TRAINER_EPOCHS * val_batches}")
 
     # --- (b) DDP_RANKS gloo ranks on the one card, fp32 and no dropout, against one process ---
@@ -2352,7 +2503,7 @@ def data_parallel_phase(args, data_dir: str, trainer: dict) -> dict:
         raise RuntimeError(f"ddp[b]: the ranks report different losses {losses}")
     if not (rel_b <= DDP_RTOL and mae_b <= DDP_MAE_RTOL):
         raise RuntimeError(f"ddp[b]: losses {rel_b:.3e} or MAE {mae_b:.3e} from one process")
-    if gat_b != want_gat or any(set(r["launches"]) - {"gat_stencil"} for r in ranks):
+    if gat_b != want_gat or any(set(gat_launches(r["launches"])) - {"gat_stencil"} for r in ranks):
         raise RuntimeError(f"ddp[b]: launches {[r['launches'] for r in ranks]}, want gat_stencil {want_gat}")
     if counts_1.get("gat_stencil", 0) != TRAINER_EPOCHS * val_batches + val_batches:
         raise RuntimeError(f"ddp[b]: the one-process run launched {counts_1}")
@@ -2450,7 +2601,7 @@ def check_tp_ranks(name: str, ranks: list[dict], hist_1: list[dict], val_1: dict
     if any(r["c_attn_shape"] != [768, 3 * 768 // TP_RANKS] for r in ranks):
         raise RuntimeError(f"tp[{name}]: c_attn slices {[r['c_attn_shape'] for r in ranks]}")
     if gat != [want_val] * len(ranks) or gat_eval != [want_eval] * len(ranks) or any(
-            set(r["launches"]) - {"gat_stencil"} for r in ranks):
+            set(gat_launches(r["launches"])) - {"gat_stencil"} for r in ranks):
         raise RuntimeError(f"tp[{name}]: launches {[(r['launches'], r['launches_eval']) for r in ranks]}")
     return {"max_rel_loss_diff": rel, "val_mae_by_horizon_max_rel_diff": mae, "gat_launches_by_rank": gat,
             "eval_gat_launches_by_rank": gat_eval,
@@ -2674,7 +2825,7 @@ def eval_phase(args, graph, data_dir: str) -> dict:
     )
     if list(rows) != ["TEC-MoLLM", "HistoricalAverage"] or not finite or len(test_ds) < 64:
         raise RuntimeError(f"eval[point]: rows {list(rows)}, finite {finite}, {len(test_ds)} windows")
-    if not os.path.exists(os.path.join(point_dir, "rollout_results.csv")) or counts_point != want_counts:
+    if not os.path.exists(os.path.join(point_dir, "rollout_results.csv")) or gat_launches(counts_point) != want_counts:
         raise RuntimeError(f"eval[point]: launches {counts_point}, want {want_counts}, or no rollout_results.csv")
 
     # the same evaluation with the GAT on its plain path: same weights, same batches
@@ -2697,7 +2848,7 @@ def eval_phase(args, graph, data_dir: str) -> dict:
               for k in ("mae_avg", "rmse_avg", "mae_by_horizon", "rmse_by_horizon"))
     log(f"eval[point] through the GAT kernel vs the plain GAT: MAE/RMSE largest relative difference {rel:.3e} "
         f"(tol {VAL_RTOL}); plain launches {plain_counts}")
-    if plain_counts or not rel <= VAL_RTOL:
+    if gat_launches(plain_counts) or not rel <= VAL_RTOL:
         raise RuntimeError(f"eval[point]: kernel vs plain GAT {rel:.3e}, plain launches {plain_counts}")
 
     # --- the eval loop timed on a warm executor, then profiled ---
@@ -2813,8 +2964,8 @@ def eval_phase(args, graph, data_dir: str) -> dict:
         raise RuntimeError(f"eval[operational]: adaptive run wrote {q_csvs}")
     if bands_diff is None or not bands_diff <= BANDS_TOL_TECU:
         raise RuntimeError(f"eval[operational]: service vs predict conformal bands {bands_diff}")
-    if set(launches) != {"gat_stencil"}:
-        raise RuntimeError(f"eval: launches {launches}, want the GAT kernel alone")
+    if set(gat_launches(launches)) != {"gat_stencil"}:
+        raise RuntimeError(f"eval: launches {launches}, want the GAT kernel alone beside the temporal kernel")
     phase_s = time.perf_counter() - phase_t0
     log(f"eval phase: {phase_s:.1f} s; launches over its CLI and service runs {launches}")
     return {
@@ -3473,6 +3624,10 @@ def main() -> int:
         if "css_" in k["entry"] or "forecast_" in k["entry"]:  # dynamic shared memory: phase 14 prints it
             log(f"  sarima {k['entry']}: {k.get('registers')} registers, {k.get('spill_store_bytes')} bytes "
                 f"spilled, {k.get('static_smem_bytes')} bytes static smem")
+    results["temporal_ptxas"] = ptxas_entries(ptxas, "temporal_conv.cu")
+    for k in results["temporal_ptxas"]:
+        log(f"  temporal_conv {k['entry']}: {k.get('registers')} registers, {k.get('spill_store_bytes')} bytes "
+            f"spilled")
     results["build_s"] = build_s
     results["ptxas"] = ptxas
 

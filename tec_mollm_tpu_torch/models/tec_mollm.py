@@ -1,7 +1,7 @@
 """TEC-MoLLM, the full model.
 
     x (B,L,N,6) --embed--> (B,L,N,22) --[pad N]--> GATv2 + residual
-      --> (B*N, L, 22) --multi-scale conv--> (B*N, 12, 128) --patch--> (B*N, 3, 768)
+      --> (B, N, L, 22) view --multi-scale conv--> (B*N, 12, 128) --patch--> (B*N, 3, 768)
       --> GPT-2 (3 LoRA blocks) --> dropout --> head --> (B, L_out, N, Q) fp32
 
 A config with ``deepseek_v2`` set puts DeepSeek-V2's MLA and DeepSeekMoE blocks
@@ -154,7 +154,7 @@ class TECMoLLM(nn.Module):
         neighbor_mask: torch.Tensor | None = None,  # (N, D) bool; None in stencil mode
     ) -> torch.Tensor:
         cfg = self.cfg
-        b, l, n, _ = x.shape
+        b, _, n, _ = x.shape
 
         # RevIN (opt-in): the TEC channel normalised per (window, node)
         if cfg.revin:
@@ -189,9 +189,7 @@ class TECMoLLM(nn.Module):
 
         h = self.spatial_encoder(h, neighbors, neighbor_mask, use_kernel=self.gat_kernel)
 
-        c = h.shape[-1]
-        h = h.transpose(1, 2).reshape(b * n, l, c)             # (B*N, L, C)
-        h = self.temporal_encoder(h)                           # (B*N, P, d_llm)
+        h = self.temporal_encoder(h.transpose(1, 2))           # (B, N, L, C) view -> (B*N, P, d_llm)
         h = self.post_llm_dropout(self.llm_backbone(h))
         preds = self.prediction_head(h)                        # (B*N, L_out*Q)
 

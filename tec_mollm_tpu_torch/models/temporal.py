@@ -21,6 +21,12 @@ the same state_dict:
   by summed per-branch matrix products. It takes precedence over the others,
   and ``im2col`` over ``fuse_branches``, as in the JAX block.
 
+On eval calls on the card, ``TemporalEncoder`` runs the default block pair
+as one CUDA kernel (``ops/temporal_conv.py``: no intermediate in device
+memory, fp32 two-pass GroupNorm statistics, exact GELU) wherever
+``TemporalEncoder.kernel_refusal`` finds nothing against it; training, the
+arms and the shapes the kernel does not take run the blocks below.
+
 Module names follow the reference's state_dict
 (``conv_embedder.embedder.{b}.convs.{j}.{0,1}``, ``final_conv``,
 ``patcher.projection``). The public layout is the JAX package's (B, L, C).
@@ -36,6 +42,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from tec_mollm_tpu_torch.config import ModelConfig
+from tec_mollm_tpu_torch.ops.temporal_conv import pack_blocks, temporal_conv, temporal_takes
+from tec_mollm_tpu_torch.utils.profiler import count
+
+# the devices whose tensors take the kernel on eval calls (its op runs the
+# plain mirror on a CPU tensor, which a test reaches by adding "cpu")
+KERNEL_DEVICES = ("cuda",)
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
@@ -174,8 +186,46 @@ class TemporalEncoder(nn.Module):
         self.patcher = LatentPatchingProjection(
             cfg.effective_patch_len, cfg.temporal_channel_list[-1], cfg.d_llm
         )
+        self.arm = next((a for a, on in (("fuse_branches", fuse_branches), ("lean_gn", lean_gn),
+                                         ("im2col", im2col)) if on), None)
+        self.widths = (tuple(cfg.temporal_channel_list), tuple(cfg.conv_kernel_sizes), tuple(cfg.temporal_strides))
+        self._packed = None  # (key, packed weights, fp32 parameters) of the kernel
+
+    def kernel_refusal(self, x: torch.Tensor) -> str | None:
+        """None when this call runs the kernel, else why the plain blocks run
+        it: the kernel takes eval calls on the card that need no gradient,
+        on the default (unfused) blocks, at the widths, length and dtype that
+        ``temporal_takes`` accepts."""
+        if x.device.type not in KERNEL_DEVICES:
+            return f"a {x.device.type} tensor: the kernel runs on the card"
+        if self.training:
+            return "train mode: the training forward and its backward stay with autograd"
+        if self.arm is not None:
+            return f"the {self.arm} arm runs its own path"
+        if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in self.conv_embedder.parameters())):
+            return "an input requires grad under grad mode: the kernel has no backward"
+        return temporal_takes(x.shape[-1], *self.widths, x.shape[-2], x.dtype)
+
+    def _packed_weights(self, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        """The kernel's packed weights, packed again only when a parameter
+        changed (its version or storage) or under tracing, which packs in the
+        traced graph."""
+        blocks = self.conv_embedder.embedder
+        tensors = list(blocks.parameters())
+        if torch.compiler.is_compiling() or any(type(t) not in (torch.Tensor, nn.Parameter) for t in tensors):
+            return pack_blocks(blocks, dtype)
+        key = (dtype, tuple((t.data_ptr(), t._version) for t in tensors))
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, *pack_blocks(blocks, dtype))
+        return self._packed[1:]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, L_in, C) -> (B, num_patches, d_llm)."""
-        h = self.conv_embedder(x.transpose(1, 2))
-        return self.patcher(h.transpose(1, 2))
+        """x: (..., L_in, C), e.g. (B, L_in, C) or the (B, N, L_in, C) view of
+        the spatial encoder's output -> (prod(...), num_patches, d_llm)."""
+        if self.kernel_refusal(x) is None:
+            count("temporal.kernel")
+            h = temporal_conv(x, *self._packed_weights(x.dtype))
+        else:
+            length, c = x.shape[-2:]
+            h = self.conv_embedder(x.reshape(-1, length, c).transpose(1, 2)).transpose(1, 2)
+        return self.patcher(h)

@@ -19,6 +19,7 @@ from tec_mollm_tpu_torch.ops.short_attention import (
     short_causal_attention_backward_reference,
     short_causal_attention_reference,
 )
+from tec_mollm_tpu_torch.ops.temporal_conv import temporal_conv, temporal_conv_mirror
 
 __all__ = [
     "FLASH_MIN_SEQ",
@@ -36,4 +37,6 @@ __all__ = [
     "short_causal_attention",
     "short_causal_attention_backward_reference",
     "short_causal_attention_reference",
+    "temporal_conv",
+    "temporal_conv_mirror",
 ]
