@@ -6,45 +6,43 @@
 It needs one card. Phases 12 and 13 start this script again as the ranks of
 a torchrun group (``--ddp-rank JOB``); a user never passes that flag.
 
+Each CUDA kernel is held to its plain PyTorch version by the ``cuda`` cases of
+its own test file, run on the card with ``python -m pytest <file> -m cuda
+--noconftest``: csrc/gat_stencil.cu by tests/test_torch_gat_stencil_card.py,
+short_attention.cu by tests/test_torch_short_attention_card.py, fused_mlp.cu
+by tests/test_torch_fused_mlp_card.py, flash_attention.cu by
+tests/test_torch_flash_attention_card.py, temporal_conv.cu by
+tests/test_torch_temporal_kernel.py and sarima.cu by tests/test_torch_sarima.py.
+They and this script's kernel table take their shapes and inputs from
+card_cases.py. This script runs what needs the whole program, and times the
+kernels at their main-path shapes after holding each to its plain version
+there.
+
+Launch checks name the kernels their phase is about (``launched``): another
+kernel's launches never change their verdict. A phase that builds the model
+without the opt-in GPT-2 kernels names those too (OPT_IN), at 0.
+
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: compile the kernels from csrc/ (one nvcc per source, in parallel);
-  3. kernels: each kernel against its plain PyTorch version on the card, at the
-     shapes the flagship batch of 8 gives it, with its error, its time (CUDA
-     events around back-to-back calls, see time_ms), the plain version's time,
-     a library call's time where one computes the same function, and its bound
-     on this card. The stencil GAT's tiled kernel runs at GAT_CASES in fp32 and
-     bf16 (the flagship eval batch, the eval step's, the trainer's validation
-     batch, the 300 km stencil, the unpadded node axis, 70,000 slices) and its
-     general form at GAT_GENERAL_CASES (1 head x 22 channels, the 450 km
-     stencil's 81 offsets, 4 x 16 on the unpadded axis, the flagship 2 x 11
-     forced through it beside the tiled form, a span past its window, shifts
-     past N); padded lanes must be exactly 0, each call must launch its form,
-     the general form must give the same bits twice and the plan of
-     ops/gat_stencil.py:general_plan (gat_plan), and the bare C entry is
-     timed beside the wrapper, with each case's share of its bound. The short attention runs with dropout p = 0.1 (the training
-     call) and 0; its keep mask is read back through the kernel's output and
-     must equal the plain hash bit for bit, keep 0.9 +- 0.001 of the draws and
-     change with the seed. Its backward is checked in fp32 and bf16 at p = 0
-     and 0.1. The fused MLP runs at 70656 rows (the serve batch), 8832 (one
-     window) and 1000 (ragged), and with x scaled by 2^-6 (the branch alone);
-     the cuBLAS time of its two products alone is printed as an anchor. Flash
-     attention runs at the byte LM's (64, 129, 12, 64) causal on views of a
-     c_attn output in fp32 and bf16, in bf16 with dropout p = 0.1 (its mask read
-     back as the short kernel's is) and on a view that is not 16-byte aligned,
-     at head dims 32 and 128, at T = 300 non-causal and at T = 1024 causal
-     (B = 8), with SDPA as the library call, and its bare C entry timed beside
-     the wrapper (flash_bare_entry). The temporal encoder's conv kernel
-     (csrc/temporal_conv.cu) runs at TEMPORAL_CASES against its mirror (the same
-     bits twice, one launch a call), timed through the wrapper, bare and on the
-     device's clock at the eval batch beside the plain blocks (check_temporal);
+  2. build: compile the kernels from csrc/ (one nvcc per source, in parallel),
+     with the registers, spills and shared memory of each kernel instance;
+  3. kernels: the kernel table (kernel_cases, KernelCase), one row for each
+     row of PERF.md's kernel table, at the shapes the main path gives each
+     kernel: first its output against its plain version's (check_case: within
+     card_cases.TOL, the SARIMA kernels within SARIMA_RTOL of the largest
+     magnitude), then its time through the wrapper (CUDA events around back-to-back
+     calls, see time_ms), through its bare C entry, on the device's clock
+     (kernel_device_ms), its bound on this card and by what, its plain
+     version's time and a library call's where one computes the same
+     function;
   4. serve: a synthetic processed dir at the 41x71 grid, ForecastService on the
      flagship Config() with seeded random weights at max_batch=8 in bf16,
      forecast requests over HTTP on localhost (some concurrent, so the batcher
      coalesces), first on the default path and then with fused_attn and
      use_fused_mlp; launch counts are zeroed before and read after each run;
      forecasts are checked for shape and finiteness, against an fp32 forward of
-     the plain path, and the two paths against each other;
+     the plain path, and the two paths against each other (no timings: the
+     cell flagship-serve measures this path);
   5. train: the port's bench train step (tec_mollm_tpu_torch/bench.py) on
      Config() at B = 8 x accumulation 1, bf16 with bf16 frozen weights,
      fused_attn=True and every dropout at 0.1: 2 warm-up and 10 timed steps,
@@ -59,9 +57,9 @@ Phases (any failure exits non-zero):
      phase 4 with TRAINER_WINDOWS stride-1 train and val windows (4 macro steps
      an epoch, 8 validation batches). Run A trains TRAINER_EPOCHS epochs with a
      checkpoint every 2 macro steps: 2 finite history records, config.json,
-     latest.pt, latest.meta.json and best_params.pt, and the GAT kernel launched
-     once per validation forward (16), the temporal conv kernel as often and no
-     other kernel. Run B is stopped by
+     latest.pt, latest.meta.json and best_params.pt, and the GAT kernel's tiled
+     form launched once per validation forward (16), its general form never,
+     the temporal conv kernel once per validation forward. Run B is stopped by
      a SIGTERM to this process after 2 macro steps (fit's handler checkpoints
      and stops), then --resume: it must restart at step 2 of epoch 0, make run
      A's 8 updates, and its per-epoch losses lie within RESUME_RTOL of run A's.
@@ -96,12 +94,11 @@ Phases (any failure exits non-zero):
      latest on phase 6's workdir: the newest best_params.pt at flagship width,
      bf16, eval batch 16 over the 91 test windows, with a rollout of
      EVAL_ROLLOUT_STEPS steps over EVAL_ROLLOUT_WINDOWS windows. Both CSV rows
-     finite, rollout_results.csv written, and the GAT kernel launched exactly
-     once per eval batch and once per rollout chunk, no other kernel than the
-     temporal conv kernel (see gat_launches). The same
-     evaluation on the plain GAT within VAL_RTOL on MAE and RMSE; the eval loop
-     timed on a warm executor (windows/s, ms a batch) and profiled (busy share
-     over the unprofiled wall); the rollout timed and profiled. The weights
+     finite, rollout_results.csv written, and the GAT kernel's tiled form
+     launched exactly once per eval batch and once per rollout chunk, its
+     general form never. The same evaluation on the plain GAT within VAL_RTOL
+     on MAE and RMSE; the rollout timed and profiled (no timing of the scoring
+     loop: the cell flagship-forecast measures it). The weights
      resaved as a reference .pth with DDP's module. prefixes score an
      identical CSV. A seeded operational_config() checkpoint (quantiles
      0.1/0.5/0.9, RevIN): --split val --conformal fit writes conformal.npz and
@@ -120,44 +117,46 @@ Phases (any failure exits non-zero):
  10. device data: the train CLI at phase 6's policy and cut on that archive
      (strides that leave about TRAINER_WINDOWS windows), on the host pipeline
      and with --device-data: first-epoch losses within DEVICE_DATA_RTOL of each
-     other, exactly one GAT launch per validation batch and no other kernel
-     than the temporal conv kernel, a
-     gathered fp32 batch within 1e-6 of the host mirror; the device-resident
-     bytes, and each mode's warm epoch (windows/s, busy share of a profiled
-     epoch over the unprofiled wall, HtoD copy ms).
+     other, exactly one launch of the GAT kernel's tiled form per validation
+     batch and none of its general form, a gathered fp32 batch within 1e-6 of
+     the host mirror; the device-resident bytes, and each mode's warm epoch
+     (windows/s, busy share of a profiled epoch over the unprofiled wall, HtoD
+     copy ms).
  11. export: phase 6's run A best_params.pt through the export CLI (python -m
      tec_mollm_tpu_torch.export), on the default path and at the fused config
      (fused_attn, use_fused_mlp, bf16), each with a symbolic batch and at
      --batch-size 8, and a default artifact traced on the CPU for both
      platforms and moved to the card: its export and load wall and .pt2 size;
-     its op nodes (tec_mollm.gat_stencil once, tec_mollm.short_attention and
+     its op nodes (tec_mollm.gat_stencil once, tec_mollm.temporal_conv once
+     where traced on the card, tec_mollm.short_attention and
      tec_mollm.fused_ln_mlp once per block in a fused one, no aten.roll); 16
      HTTP requests through ForecastService(artifact=...) against the
      checkpoint service of the same flags, within EXPORT_TOL_SCALED, with
-     exactly one GAT launch per forward (and 3 attention and 3 MLP launches
-     per fused forward); full-batch forward ms and request p50/p95 beside the
-     checkpoint service's; and python -m tec_mollm_tpu_torch.serve --artifact
-     --bench SERVE_CLI_BENCH, one GAT launch per forward.
+     exactly one GAT and one temporal conv launch per forward where its op is
+     in the artifact (and 3 attention and 3 MLP launches per fused forward);
+     full-batch forward ms and request p50/p95 beside the checkpoint
+     service's; and python -m tec_mollm_tpu_torch.serve --artifact --bench
+     SERVE_CLI_BENCH, one GAT and one temporal conv launch per forward.
  12. data parallel (after phase 8), at phase 6's width and cut: (a) torchrun
      --standalone --nproc_per_node 1 runs this script as a rank, which joins
      the NCCL group and calls the train CLI (train.main) with --multihost and
      phase 6's run-A flags (bf16, dropout 0.1, a checkpoint every 2 macro
-     steps): per-epoch losses within RESUME_RTOL of run A's, the GAT kernel
-     launched once per validation batch and nothing else; then a second DDP
-     trainer's warm epoch, staged macro step and busy share (epoch_timings,
-     its profile of the card's activity alone) beside phase 6's, and its
-     staged step through DDP and without it in turns (ddp_vs_bare_step). (b)
-     DDP_RANKS ranks on the one card over gloo (init_distributed(backend=
-     "gloo")), Config() in fp32 without dropout at batch 1 a rank, against
-     one process at batch 2 (the same global macro batch): per-epoch train
-     and val losses within DDP_RTOL, validation MAE by horizon within
-     DDP_MAE_RTOL, identical on every rank, and each rank's GAT launches
-     equal to its validation batches (no launch lost to a rank). Then
-     run_evaluation and get_model_predictions on the ranks' best_params.pt:
-     every rank the same metrics and predictions, equal to one process on
-     the same checkpoint within DDP_EVAL_TOL, the predictions in window
-     order, and the GAT launches its shards need. Each rank writes its
-     launch counts to a JSON file, and the kernels line sums them.
+     steps): per-epoch losses within RESUME_RTOL of run A's, the GAT kernel's
+     tiled form launched once per validation batch and its general form
+     never; then a second DDP trainer's warm epoch, staged macro step and busy
+     share (epoch_timings, its profile of the card's activity alone) beside
+     phase 6's, and its staged step through DDP and without it in turns
+     (ddp_vs_bare_step). (b) DDP_RANKS ranks on the one card over gloo
+     (init_distributed(backend="gloo")), Config() in fp32 without dropout at
+     batch 1 a rank, against one process at batch 2 (the same global macro
+     batch): per-epoch train and val losses within DDP_RTOL, validation MAE by
+     horizon within DDP_MAE_RTOL, identical on every rank, and each rank's GAT
+     launches equal to its validation batches (no launch lost to a rank).
+     Then run_evaluation and get_model_predictions on the ranks'
+     best_params.pt: every rank the same metrics and predictions, equal to one
+     process on the same checkpoint within DDP_EVAL_TOL, the predictions in
+     window order, and the GAT launches its shards need. Each rank writes its
+     launch counts to a JSON file, and the launches line sums them.
  13. tensor parallel (after phase 12), at phase 6's width and cut: (a)
      TP_RANKS gloo ranks on the one card (dp 1 x mp TP_RANKS: the GPT-2
      backbone and head split Megatron-style over the model group), Config()
@@ -174,47 +173,43 @@ Phases (any failure exits non-zero):
      torchrun --nproc_per_node 1 (NCCL, DDP at world 1) beside the bare bench.
      (d) (a) over NCCL, one card a rank, where the host has TP_RANKS cards;
      on one card it logs why it did not run. Each rank writes its launch
-     counts; the kernels line sums them.
+     counts; the launches line sums them.
  14. ablation (after phase 13): (a) the SARIMA baseline (models/sarima.py) on
-     a seeded simulated AR-dominated SARIMA series of (SARIMA_T, 2911): its
-     three kernels (csrc/sarima.cu: the CSS innovations, their adjoint, the
-     forecast of SARIMA_BATCH windows) against their plain versions at random
-     coefficients within SARIMA_RTOL, 3 Adam steps through the kernels
-     against the plain versions within SARIMA_ADAM_ATOL; the fit's two
-     kernels also at SARIMA_EDGES (short T, few nodes at season 1, season 23,
-     T below season + 1) within SARIMA_RTOL, and two launches on the same
-     inputs bit-identical; the forecast at SARIMA_FORECAST_EDGES (the eval
-     CLI's last partial batch, one window, a node count below a warp at
-     season 1, the shortest window, season 23, seasons 302 and 528) within
-     SARIMA_RTOL, twice for the same bits (the flagship's too), its launch
-     plan that of ops/sarima.py:forecast_plan (forecast_plan_of); each kernel
-     timed beside its plain version and its bytes bound (and through their
-     bare C entries, sarima_bare_entry and forecast_bare_entry; the forecast
-     also on the device's own clock, kernel_device_ms, and at
-     SARIMA_FORECAST_LARGE windows; the kernels' registers and spills from
-     the build's ptxas log), and one fit step's loss and gradient (back to
-     back, its share of a fit step's wall); then
+     a seeded simulated AR-dominated SARIMA series of (SARIMA_T, 2911)
+     (sarima_inputs): one fit step's loss and gradient timed back to back,
      the full fit of SARIMA_FIT_STEPS steps through the kernels (its wall, ms
-     a step, one launch of each pass a step; the fitted phi's node mean within
-     SARIMA_PHI_TOL of the truth, as the JAX test asks) and a forecast batch;
-     SARIMA_PROFILE_STEPS warm fit steps timed, and as many profiled (the
-     device's busy share);
-     then the test CLI with --baseline sarima on phase 8's checkpoint and
-     data: a finite SARIMA row beside the model's and the HA's, the fit's
-     launches and one forecast launch a batch of SARIMA_BATCH. (b) phase 5's
-     train step (B = 8, bf16, fused_attn) with every dropout at 0, the same
-     weights and batch under each of ARMS (the default, fuse_conv, lean_gn,
-     im2col_conv, the two-pass LayerNorm, remat 'full' and 'dots_saveable'):
-     one step's loss and gradients against the default's within GRAD_TOL,
-     then step ms and peak memory over ARM_STEPS steps.
-The phases run in the order 1-6, 9-11, 8, 12, 13, 14, 7; the total time is printed. The
-last line is {"ok": true, "device": {...}}; the line before it holds the
-per-kernel JSON. Details also go to chiprun_out/chip_smoke.json.
+     a step, one launch of each pass a step; the fitted phi's node mean
+     within SARIMA_PHI_TOL of the truth, as the JAX test asks) and a forecast
+     batch; SARIMA_PROFILE_STEPS warm fit steps timed, and as many profiled
+     (the device's busy share); then the test CLI with --baseline sarima on
+     phase 8's checkpoint and data: a finite SARIMA row beside the model's and
+     the HA's, the fit's launches and one forecast launch a batch of
+     SARIMA_BATCH. (b) phase 5's train step (B = 8, bf16, fused_attn) with
+     every dropout at 0, the same weights and batch under each of ARMS (the
+     default, fuse_conv, lean_gn, im2col_conv, the two-pass LayerNorm, remat
+     'full' and 'dots_saveable'): one step's loss and gradients against the
+     default's within GRAD_TOL, then step ms and peak memory over ARM_STEPS
+     steps.
+ 15. DeepSeek-V2-Lite (after phase 7): the configuration of the cell
+     DSV2_CELL (benchmark/configs/dsv2_lite.json, every dropout at 0) on a
+     seeded processed dir at the 41x71 grid: Trainer's first two macro steps
+     of B 1 x 8 from the benchmark's seeded weights
+     (benchmark/drivers/forecast_moe.seeded_weights), each step's loss within
+     DSV2_LOSS_GAP of the plain reference's (benchmark/reference/
+     deepseek_v2.py, float32, TF32 off) on the same rows and on the program's
+     weights of that step; then the train CLI for one epoch on the
+     configuration file, and the test CLI (EvalExecutor) and the serve CLI
+     (ForecastService, 4 requests) on the run it wrote.
+The phases run in the order 1-6, 9-11, 8, 12, 13, 14, 7, 15; the total time is
+printed. The last line is {"ok": true, "device": {...}}; the line before it
+holds the kernel table and each kernel's launches over the main-path runs.
+Details also go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import importlib
 import inspect
@@ -227,31 +222,31 @@ import tempfile
 import threading
 import time
 import urllib.request
+from typing import Callable, NamedTuple
 
 import numpy as np
+
+from card_cases import (BATCH, DROPOUT, DROPOUT_SEED, FLASH_CASES, FLASH_HEADS, GAT, GAT_CASES, GAT_GENERAL_CASES,
+                        MLP_ROWS, PADDED_NODES, SARIMA_BATCH, SARIMA_FORECAST_LARGE, SARIMA_RTOL, SARIMA_SEASON,
+                        SARIMA_T, SARIMA_TRUTH, TOL, attention_inputs, flash_bare_entry, flash_views,
+                        forecast_bare_entry, gat_bare_entry, gat_inputs, launched, mlp_inputs, sarima_bare_entry,
+                        sarima_inputs, sarima_windows, temporal_bare_entry)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bf16_tensor": 989e12, "fp32": 67e12}
-
-# kernel vs plain version on the card: |kernel - plain| <= ATOL + RTOL * |plain|.
-# Both compute in fp32 and round the output to the tensor's dtype; they differ
-# in the order of fp32 sums (and, in the fused MLP, in the bf16 rounding of the
-# hidden activations), so a bf16 output may differ by one bf16 ulp (2^-8 relative).
-TOL = {"bf16": (1e-2, 1e-2), "fp32": (1e-5, 1e-5)}
 # served forecasts, in scaled units: bf16 through 3 GPT-2 blocks against an fp32
 # forward, and the fused kernels against the default path (two-pass vs lean LN,
 # fp32 vs bf16 q*k products)
 SERVE_TOL_SCALED = 0.1
-# attention dropout of the training path (ModelConfig.llm_dropout) and the seed
-# of the kernel checks; the kept share of ~1.7 M draws must lie within
-# KEPT_TOL of 1 - p (about 4 standard deviations)
-DROPOUT, DROPOUT_SEED, KEPT_TOL = 0.1, 12345, 1e-3
-# the flagship eval batch (the service's max_batch, and the kernels' batch),
+# launch-count names of the GPT-2 kernels that a model runs only when its flags
+# ask (fused_attn, use_fused_mlp, use_flash): a phase that builds the model
+# without them checks that each launched 0 times
+OPT_IN = ("short_attention", "short_attention_bwd", "fused_mlp", "flash_attention")
 # back-to-back calls in one CUDA-event timing and the timings whose median is
 # kept, timesteps of the synthetic test split, forecast requests and the
 # threads that send the concurrent ones
-BATCH, REPS, TIMING_RUNS, STEPS, REQUESTS, THREADS = 8, 20, 5, 150, 16, 6
+REPS, TIMING_RUNS, STEPS, REQUESTS, THREADS = 20, 5, 150, 16, 6
 # train phase: warm-up and timed steps of the flagship train step, and the
 # windows of the gradient check
 TRAIN_WARMUP, TRAIN_STEPS, GRAD_BATCH = 2, 10, 2
@@ -260,63 +255,6 @@ TRAIN_WARMUP, TRAIN_STEPS, GRAD_BATCH = 2, 10, 2
 # by a few percent (the bf16 plain path, printed beside it); a wrong attention
 # backward moves lora_A/lora_B and everything below the blocks by order 1.
 GRAD_TOL = 0.1
-# flash attention checks: (batch, T, causal, head dim, dtypes) by label; "path"
-# is the byte LM's pretraining batch (64 rows of seq_len 128 + 1 tokens, 12 heads
-# of 64); "t300" makes the JAX wrapper pad T to 512 and mask keys >= t_valid;
-# "t1024" is the shape of scripts/bench_flash_attention.py; "d32" and "d128" the
-# kernel's other head dims
-FLASH_CASES = {
-    "path": (64, 129, True, 64, ("fp32", "bf16")),
-    "t300": (8, 300, False, 64, ("fp32", "bf16")),
-    "t1024": (8, 1024, True, 64, ("fp32", "bf16")),
-    "d32": (64, 129, True, 32, ("bf16",)),
-    "d128": (64, 129, True, 128, ("bf16",)),
-}
-# stencil GAT checks of the tiled kernel: (slices M, stencil radius km, nodes N)
-# by label; "path" is the flagship eval batch (8 windows x 48 steps, N padded to
-# 2944), "eval" the eval step's batch of 16 windows, "r300" the 300 km
-# (long_horizon) stencil (33 offsets, largest |shift| 144), "n2911" the
-# unpadded node axis (rows not 16-byte aligned), "m70000" more slices than a
-# grid's y axis held (65535) on the GAT_SMALL_GRID stencil padded to 64 nodes;
-# check_gat adds "trainer", the trainer's validation batch (batch_size x L_in
-# slices of Config()).
-GAT_CASES = {
-    "path": (BATCH * 48, 150.0, 2944),
-    "eval": (2 * BATCH * 48, 150.0, 2944),
-    "r300": (2 * BATCH * 48, 300.0, 2944),
-    "n2911": (BATCH * 48, 150.0, 2911),
-    "m70000": (70_000, 150.0, 64),
-}
-# and of its general form: (slices M, stencil, nodes N, heads, channels), the
-# stencil a radius in km or a synthetic one by name (GAT_SYNTHETIC); "path" is
-# the serve batch of a 1 head x 22 channel config (trainer phase), "r450" the
-# 450 km stencil (81 offsets, largest |shift| 284) at the trainer's validation
-# batch, "n2911" 4 heads x 16 channels on the unpadded node axis; "forced" the
-# flagship 2 x 11 eval batch through the bare C entry with general = 1 (the
-# tiled form's own shape, timed beside the tiled form's bare entry: the
-# general form's yardstick); "overflow" a span past the widest window that
-# fits (the offsets outside it read from device memory); "oob" shifts past N
-# marked valid, whose neighbours the kernel must count out of range
-GAT_GENERAL_CASES = {
-    "path": (BATCH * 48, 150.0, 2944, 1, 22),
-    "r450": (2 * 48, 450.0, 2944, 2, 11),
-    "n2911": (2 * 48, 150.0, 2911, 4, 16),
-    "forced": (BATCH * 48, 150.0, 2944, 2, 11),
-    "overflow": (2 * 48, "overflow", 2944, 2, 11),
-    "oob": (2 * 48, "oob", 2944, 1, 22),
-}
-# the synthetic stencils: shifts added to the 150 km stencil's, each valid on
-# every real lane whose neighbour is in range ("overflow": a span of 5,100
-# nodes, about three times the widest window a block holds in bf16) or on
-# every real lane ("oob": N, -N - 3 and 5,000 nodes, no neighbour in range; the
-# plain version, which wraps around, is given the mask with the range check
-# folded in)
-GAT_SYNTHETIC = {"overflow": lambda n: (1400, -1400, 2500, -2600), "oob": lambda n: (n, -n - 3, 5000)}
-GAT_SMALL_GRID = (6, 8)
-# fused MLP checks: rows by label; "path" is the serve batch (8 windows x 2944
-# padded nodes x 3 patches), "window" one window's rows, "ragged" a row count
-# that no tile divides
-MLP_ROWS = {"path": BATCH * 2944 * 3, "window": 2944 * 3, "ragged": 1000}
 # pretrain phase: the pretraining script's batch and length, warm-up and timed
 # steps, its peak rate reached after PRETRAIN_LR_WARMUP updates (the script
 # warms up over 100 of 3000), and the rows of its gradient check
@@ -369,41 +307,11 @@ TP_RANKS, TP_RTOL = 2, 2e-4
 # same flags, in scaled units (the same kernels and arithmetic), and the serve
 # CLI's --bench requests
 EXPORT_TOL_SCALED, SERVE_CLI_BENCH = 1e-3, 4
-# ablation phase, SARIMA: the simulated series' steps (the eval harness's
-# fit_window), the season, Adam steps of a fit and the forecast batch (the
-# harness's); the series is AR-dominated (the JAX test's recovery case), and
-# the fitted phi's node mean must lie within SARIMA_PHI_TOL of its truth, as
-# that test asks. Kernel against plain: each output's largest difference over
-# its largest magnitude within SARIMA_RTOL (fp32 both; the kernel contracts
-# multiply-adds and sums a node's terms in time order, the plain version sums
-# with torch's reductions, and the recursion is stable with |coefficients| <
-# 0.99, so the two differ at fp32 rounding); the raw parameters after 3 Adam
-# steps within SARIMA_ADAM_ATOL. A step moves a raw parameter by lr * m / (sqrt(v)
-# + eps), about lr = 0.05 where its gradient is large; where a node's gradient
-# is near eps = 1e-8 (the loss is a mean over 2911 nodes, so a gradient is
-# ~1e-4 at most), a gradient difference d moves the step by up to lr * d /
-# (4 eps), about 4e-4 for d = 1e-6 of the largest gradient: three steps
-# stay within 1e-3, where a wrong gradient moves the parameters by ~lr.
-SARIMA_T, SARIMA_SEASON, SARIMA_FIT_STEPS, SARIMA_BATCH = 2000, 12, 400, 64
-SARIMA_TRUTH, SARIMA_PHI_TOL = (0.6, 0.0, 0.0, 0.0), 0.15
-SARIMA_RTOL, SARIMA_ADAM_ATOL = 1e-4, 1e-3
-# the fit kernels' edge shapes (T, N, season), held against the plain versions
-# as the flagship is: the test CLI's 94-step fit, a node count below one tile
-# at season 1, the CLI's largest season at L_in 48, and T below season + 1
-# (no loss term); then the warm fit steps timed and profiled
-SARIMA_EDGES = ((94, 2911, 12), (1987, 37, 1), (500, 2911, 23), (10, 2911, 12))
-# the forecast's edge shapes (windows, L, N, season, horizon), held against
-# forecast_reference as the flagship is: the eval CLI's last partial batch (91
-# test windows), one window, a node count below a warp at season 1, the
-# shortest window at season 12, the CLI's largest season at L_in 48, and
-# seasons 302 and 528 (one warp a block: its rings fill shared memory)
-SARIMA_FORECAST_EDGES = ((27, 48, 2911, 12, 12), (1, 48, 2911, 12, 12), (5, 4, 37, 1, 3), (8, 26, 2911, 12, 12),
-                         (8, 48, 2911, 23, 12), (2, 606, 64, 302, 12), (2, 1060, 64, 528, 12))
-# the forecast's windows in a batch large enough that no call's host cost
-# hides its device time (a year's test split is 4,380 windows)
-SARIMA_FORECAST_LARGE = 1024
-# kernel_device_ms: the launches a reading of the forecast's device time is
-# taken over
+# ablation phase, SARIMA: Adam steps of a fit; the fitted phi's node mean must
+# lie within SARIMA_PHI_TOL of its truth (SARIMA_TRUTH), as the JAX package's
+# recovery test asks
+SARIMA_FIT_STEPS, SARIMA_PHI_TOL = 400, 0.15
+# kernel_device_ms: the calls a kernel's device time is read over
 DEVICE_REPS = 200
 SARIMA_PROFILE_STEPS = 20
 # ablation phase, the arms of phase 5's train step: the model's arguments and
@@ -414,22 +322,18 @@ ARMS = {
     "remat_full": ({}, "full"), "dots_saveable": ({}, "dots_saveable"),
 }
 ARM_WARMUP, ARM_STEPS = 2, 5
+# DeepSeek-V2-Lite phase: the benchmark's cell whose configuration it runs, the
+# seed of that cell's weights, the (train, val, test) windows of its processed
+# dir, and the distance allowed between a Trainer step's loss and the
+# reference's (the train cells' loss limit, benchmark/workloads/scale_up-train.json)
+DSV2_CELL, DSV2_WEIGHT_SEED, DSV2_WINDOWS, DSV2_LOSS_GAP = "dsv2_lite-forecast", 20261018, (16, 2, 32), 0.035
+# every dropout of ModelConfig at 0 (the gradient checks, the fp32 ranks, the
+# arms and the DeepSeek-V2-Lite steps)
+NO_DROPOUT = dict(gat_dropout=0.0, lora_dropout=0.0, llm_dropout=0.0, head_dropout=0.0, post_llm_dropout=0.0)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-# csrc/temporal_conv.cu runs once in every eval forward of a bf16 model at the
-# flagship's temporal widths and length, beside the GAT kernel: the checks of
-# the GAT's launches compare the counts without it, and the phases that know
-# their forwards check its own count.
-TEMPORAL = "temporal_conv"
-
-
-def gat_launches(counts: dict) -> dict:
-    """Launch counts without the temporal conv kernel's."""
-    return {k: v for k, v in counts.items() if k != TEMPORAL}
 
 
 def gpu_line() -> str:
@@ -463,356 +367,10 @@ def time_ms(fn, reps: int, runs: int = TIMING_RUNS) -> float:
     return statistics.median(times)
 
 
-def compare(got, want, dtype_name: str) -> tuple[float, float, bool]:
-    atol, rtol = TOL[dtype_name]
-    g, w = got.float(), want.float()
-    diff = (g - w).abs()
-    max_abs = float(diff.max())
-    max_rel = float((diff / w.abs().clamp_min(1e-6)).max())
-    ok = bool(((diff <= atol + rtol * w.abs()) & g.isfinite()).all())
-    return max_abs, max_rel, ok
-
-
 def bound(bytes_moved: float, flops: float, flop_rate: float) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def dropout_mask_check(rows: int, t: int, d: int, heads: int, failures: list) -> dict:
-    """The forward kernel's own keep mask, read back through its output: with
-    q = k = 0 every causal weight is 1/(tq+1), and v[m, s, h, j] = [j == s]
-    puts weight s of head h in output lane h*Dh + s. The mask must be the plain
-    hash's bit for bit, keep 1 - p of the draws, and change with the seed."""
-    import torch
-
-    from tec_mollm_tpu_torch import ops
-    from tec_mollm_tpu_torch.ops.short_attention import dropout_bits, dropout_threshold
-
-    dev = torch.device("cuda")
-    hd = d // heads
-    zeros = torch.zeros(rows, t, d, device=dev)
-    v = torch.zeros(rows, t, heads, hd, device=dev)
-    idx = torch.arange(t, device=dev)
-    v[:, idx, :, idx] = 1.0
-    v = v.reshape(rows, t, d)
-    causal = torch.ones(t, t, dtype=torch.bool, device=dev).tril()
-    unscale = (idx + 1.0)[None, :, None, None] * (1.0 - DROPOUT)
-
-    def kernel_mask(seed: int) -> torch.Tensor:  # (M, H, Tq, Ts)
-        out = ops.short_attention_forward(zeros, zeros, v, heads, DROPOUT, seed)
-        return (out.reshape(rows, t, heads, hd)[..., :t] * unscale > 0.5).permute(0, 2, 1, 3) & causal
-
-    mask, other = kernel_mask(DROPOUT_SEED), kernel_mask(DROPOUT_SEED + 1)
-    plain = (dropout_bits(DROPOUT_SEED, rows, heads, t, dev) >= dropout_threshold(DROPOUT)) & causal
-    draws = rows * heads * int(causal.sum())
-    kept = float(mask.sum()) / draws
-    out = {
-        "dropout_draws": draws, "kept_fraction": kept, "kept_tol": KEPT_TOL,
-        "mask_equals_plain_hash": bool(torch.equal(mask, plain)),
-        "mask_share_changed_by_next_seed": float((mask != other).sum()) / draws,
-    }
-    log(
-        f"dropout p={DROPOUT}: kernel kept {kept:.6f} of {draws} draws (want {1 - DROPOUT} +- {KEPT_TOL}); "
-        f"mask equals the plain hash: {out['mask_equals_plain_hash']}; seed+1 changes "
-        f"{out['mask_share_changed_by_next_seed']:.4f} of it"
-    )
-    if abs(kept - (1.0 - DROPOUT)) > KEPT_TOL:
-        failures.append("short_attention kept fraction")
-    if not out["mask_equals_plain_hash"]:
-        failures.append("short_attention mask differs from the plain hash")
-    if out["mask_share_changed_by_next_seed"] < 0.1:
-        failures.append("short_attention mask does not change with the seed")
-    return out
-
-
-def check_kernels(args, graph, results: dict) -> list[dict]:
-    import torch
-
-    from tec_mollm_tpu_torch import ops
-    from tec_mollm_tpu_torch.config import Config
-
-    cfg = Config().resolved().model
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    n = -(-cfg.num_nodes // 128) * 128  # the model pads the node axis to 2944
-    rows = BATCH * n
-    rows_llm = rows * cfg.num_patches
-    d, heads = cfg.d_llm, cfg.llm_heads
-    entries, failures = [], []
-
-    def rand(*shape, dtype=torch.bfloat16, std=1.0):
-        return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
-
-    # --- 1. stencil GAT at (B*L, H*C, N): the tiled kernel, then its general form ---
-    train_cfg = Config().resolved().train
-    hc = (cfg.spatial_heads, cfg.spatial_out_channels)
-    tiled = {k: (*v, *hc) for k, v in GAT_CASES.items()}
-    tiled["trainer"] = (train_cfg.batch_size * train_cfg.L_in, 150.0, n, *hc)
-    entries.append(check_gat(graph, rand, failures, "gat_stencil", tiled))
-    general = check_gat(graph, rand, failures, "gat_stencil_general", GAT_GENERAL_CASES)
-    general["ptxas"] = [k for k in results.get("gat_ptxas", []) if "gat_stencil_general_kernel" in k["entry"]]
-    entries.append(general)
-
-    # --- 2. short causal attention at (B*N, T, D), q/k/v views of the c_attn output ---
-    t = cfg.num_patches
-    hd = d // heads
-    qkv = rand(rows, t, 3 * d)
-    q, k, v = qkv.split(d, dim=-1)
-    attn = {
-        "name": "short_attention", "source": "tec_mollm_tpu_torch/csrc/short_attention.cu",
-        "replaces": "tec_mollm_tpu/ops/short_attention.py:253",
-        "shape": f"q,k,v ({rows},{t},{d}) bf16, {heads} heads, dropout {DROPOUT}",
-        "bytes": 4 * rows * t * d * 2,
-        "flops": rows * heads * (t * (t + 1) // 2) * hd * 4,
-        "flop_rate": PEAK_FLOPS["fp32"],
-    }
-    for rate, tag in ((0.0, "p0"), (DROPOUT, "bf16")):  # tag "bf16": the training call, p = 0.1
-        got = ops.short_attention_forward(q, k, v, heads, rate, DROPOUT_SEED)
-        want = ops.short_causal_attention_reference(q, k, v, heads, rate, DROPOUT_SEED)
-        torch.cuda.synchronize()
-        attn[f"max_abs_err_{tag}"], attn[f"max_rel_err_{tag}"], ok = compare(got, want, "bf16")
-        attn[f"tol_{tag}"] = TOL["bf16"]
-        if not ok:
-            failures.append(f"short_attention bf16 p={rate}")
-    attn["max_abs_err"] = attn["max_abs_err_bf16"]
-    attn.update(dropout_mask_check(rows, t, d, heads, failures))
-    q4, k4, v4 = (a.reshape(rows, t, heads, hd).transpose(1, 2) for a in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    attn["ms_p0"] = time_ms(lambda: ops.short_attention_forward(q, k, v, heads), REPS)
-    attn["ms"] = time_ms(lambda: ops.short_attention_forward(q, k, v, heads, DROPOUT, DROPOUT_SEED), REPS)
-    attn["plain_ms"] = time_ms(
-        lambda: ops.short_causal_attention_reference(q, k, v, heads, DROPOUT, DROPOUT_SEED), REPS
-    )
-    attn["library_ms"] = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True, dropout_p=DROPOUT), REPS)
-    entries.append(attn)
-
-    # --- 2b. its backward: q, k, v, g -> (B*N, T, 3D) = [dq | dk | dv] ---
-    bwd = {
-        "name": "short_attention_bwd", "source": "tec_mollm_tpu_torch/csrc/short_attention.cu",
-        "replaces": "tec_mollm_tpu/ops/short_attention.py:279",
-        "shape": f"q,k,v,g ({rows},{t},{d}) -> dqkv ({rows},{t},{3 * d}), {heads} heads, dropout {DROPOUT}",
-        "bytes": 7 * rows * t * d * 2,
-        # per causal (query, key) pair and head: q.k, g.v, and the dv, dq, dk
-        # multiply-adds, 2 * Dh each
-        "flops": rows * heads * (t * (t + 1) // 2) * hd * 10,
-        "flop_rate": PEAK_FLOPS["fp32"],
-    }
-    g = rand(rows, t, d)
-    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        qkv_d, g_d = qkv.to(dt), g.to(dt)
-        qd, kd, vd = qkv_d.split(d, dim=-1)
-        for rate in (0.0, DROPOUT):
-            tag = name if rate else f"{name}_p0"
-            got = ops.short_attention_backward(qd, kd, vd, g_d, heads, rate, DROPOUT_SEED)
-            want = ops.short_causal_attention_backward_reference(qd, kd, vd, g_d, heads, rate, DROPOUT_SEED)
-            torch.cuda.synchronize()
-            bwd[f"max_abs_err_{tag}"], bwd[f"max_rel_err_{tag}"], ok = compare(got, want, name)
-            bwd[f"tol_{tag}"] = TOL[name]
-            if not ok:
-                failures.append(f"short_attention_bwd {name} p={rate}")
-    bwd["max_abs_err"] = bwd["max_abs_err_bf16"]
-    bwd["ms"] = time_ms(lambda: ops.short_attention_backward(q, k, v, g, heads, DROPOUT, DROPOUT_SEED), REPS)
-    bwd["plain_ms"] = time_ms(
-        lambda: ops.short_causal_attention_backward_reference(q, k, v, g, heads, DROPOUT, DROPOUT_SEED), REPS
-    )
-    q4, k4, v4 = (a.detach().requires_grad_() for a in (q4, k4, v4))
-    g4 = g.reshape(rows, t, heads, hd).transpose(1, 2)
-    lib_out = sdpa(q4, k4, v4, is_causal=True, dropout_p=DROPOUT)
-    bwd["library_ms"] = time_ms(lambda: torch.autograd.grad(lib_out, (q4, k4, v4), g4, retain_graph=True), REPS)
-    entries.append(bwd)
-
-    # --- 3. fused LN -> MLP -> residual at (B*N*T, d) ---
-    entries.append(check_mlp(cfg, rand, failures))
-    entries.append(check_flash(cfg, rand, failures))
-    entries.append(check_temporal(cfg, failures))
-
-    for e in entries:
-        e["bound_ms"], e["bound_by"] = bound(e["bytes"], e["flops"], e.pop("flop_rate"))
-        e["route"] = "cuda"
-        lib_ms = "-" if e["library_ms"] is None else "%.4f ms" % e["library_ms"]
-        errs = ", ".join(
-            "%s max_abs %.3e max_rel %.3e (tol atol %g rtol %g)" % (
-                name, e[f"max_abs_err_{name}" if f"max_abs_err_{name}" in e else "max_abs_err"],
-                e[f"max_rel_err_{name}"], *e[f"tol_{name}"])
-            for name in [key[len("max_rel_err_"):] for key in e if key.startswith("max_rel_err_")]
-        )
-        log(
-            f"kernel {e['name']}: {e['shape']}: {errs}; kernel {e['ms']:.4f} ms, "
-            f"plain {e['plain_ms']:.4f} ms, library {lib_ms}, bound {e['bound_ms']:.4f} ms ({e['bound_by']})"
-        )
-    results["kernel_failures"] = failures
-    if failures:
-        raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
-    return entries
-
-
-def gat_bare_entry(xl, xr, valid, att, shifts, general: bool = False):
-    """A call of the GAT kernel's C entry with its arguments marshalled once,
-    into a fresh output: the wrapper's launch without its checks and Python
-    (the timing cap); with ``general`` the general form whatever the layout.
-    Not counted."""
-    import torch
-
-    from tec_mollm_tpu_torch.ops import _build
-    from tec_mollm_tpu_torch.ops import gat_stencil as g
-
-    att32 = att.float().contiguous()
-    out = torch.empty_like(xl)
-    fn = _build.function("gat_stencil_forward", g.ARGTYPES)
-    shifts = g.check_stencil(shifts)
-    args = list(g.entry_args(xl, xr, valid, att32, shifts, out, 0.2))
-    if general:
-        args[4], args[14] = g._device_shifts(shifts, xl.device).data_ptr(), 1
-
-    def call():
-        _build.check(g.NAME, fn(*args))
-        return out
-
-    return call
-
-
-def gat_plan(shifts, channels: int, n: int, bf16: bool) -> dict:
-    """The general form's plan for a call, from the C entry
-    gat_stencil_general_plan; raises where it differs from the Python mirror
-    (ops/gat_stencil.py:general_plan)."""
-    import ctypes
-
-    from tec_mollm_tpu_torch.ops import _build
-    from tec_mollm_tpu_torch.ops import gat_stencil as g
-
-    out = (ctypes.c_longlong * len(g.GeneralPlan._fields))()
-    host = g._shift_array(tuple(shifts))
-    fn = _build.function("gat_stencil_general_plan", g.PLAN_ARGTYPES)
-    _build.check("gat_stencil_general_plan", fn(ctypes.cast(host, ctypes.c_void_p), len(shifts), channels, n,
-                                                 int(bf16), ctypes.cast(out, ctypes.c_void_p)))
-    plan = g.GeneralPlan(*out)
-    mirror = g.general_plan(shifts, channels, n, 2 if bf16 else 4)
-    if plan != mirror:
-        raise RuntimeError(f"the general form's plan {plan} differs from the mirror's {mirror}")
-    return plan._asdict()
-
-
-def flash_bare_entry(q, k, v, causal: bool):
-    """A call of the flash kernel's C entry with its arguments marshalled
-    once (``flash_attention.entry_args``), into a fresh output: the wrapper's
-    launch without its checks and Python. Not counted."""
-    import importlib
-
-    import torch
-
-    from tec_mollm_tpu_torch.ops import _build
-
-    # the module (ops re-exports its function under the same name)
-    fa = importlib.import_module("tec_mollm_tpu_torch.ops.flash_attention")
-    q, k, v = (fa._aligned16(a) for a in (q, k, v))
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    fn = _build.function("flash_attention_forward", fa.ARGTYPES)
-    args = fa.entry_args(q, k, v, out, causal, 0.0, 0)
-
-    def call():
-        _build.check(fa.NAME, fn(*args))
-        return out
-
-    return call
-
-
-def sarima_bare_entry(y, coeffs, season: int, e=None, scale: float = 0.0):
-    """A call of a SARIMA fit kernel's C entry (the forward, or with ``e``
-    the adjoint) with its arguments marshalled once, into fresh outputs: the
-    wrapper's launch without its checks and Python. Not counted."""
-    import torch
-
-    from tec_mollm_tpu_torch.ops import _build
-    from tec_mollm_tpu_torch.ops import sarima as sops
-
-    steps, n = y.shape
-    stream = _build.stream_handle(y.device)
-    if e is None:
-        name, out = sops.FORWARD, (torch.empty_like(y), torch.empty(n, dtype=torch.float32, device=y.device))
-        fn = _build.function("sarima_css_forward", sops.FORWARD_ARGTYPES)
-        args = (y.data_ptr(), coeffs.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), steps, n, season, stream)
-    else:
-        name, out = sops.BACKWARD, torch.empty((4, n), dtype=torch.float32, device=y.device)
-        fn = _build.function("sarima_css_backward", sops.BACKWARD_ARGTYPES)
-        args = (y.data_ptr(), e.data_ptr(), coeffs.data_ptr(), out.data_ptr(), scale, steps, n, season, stream)
-
-    def call():
-        _build.check(name, fn(*args))
-        return out
-
-    return call
-
-
-def forecast_bare_entry(x, coeffs, horizon: int, season: int):
-    """A call of the SARIMA forecast kernel's C entry with its arguments
-    marshalled once, into a fresh output: the wrapper's launch without its
-    checks and Python. Not counted."""
-    import torch
-
-    from tec_mollm_tpu_torch.ops import _build
-    from tec_mollm_tpu_torch.ops import sarima as sops
-
-    b, length, n = x.shape
-    out = torch.empty((b, horizon, n), dtype=torch.float32, device=x.device)
-    fn = _build.function("sarima_forecast", sops.FORECAST_ARGTYPES)
-    args = (x.data_ptr(), coeffs.data_ptr(), out.data_ptr(), b, length, n, season, horizon,
-            _build.stream_handle(x.device))
-
-    def call():
-        _build.check(sops.FORECAST, fn(*args))
-        return out
-
-    return call
-
-
-def forecast_plan_of(length: int, season: int, horizon: int) -> dict:
-    """The SARIMA forecast's launch plan for a call, from the C entry
-    sarima_forecast_plan; raises where it differs from the Python mirror
-    (ops/sarima.py:forecast_plan)."""
-    import ctypes
-
-    from tec_mollm_tpu_torch.ops import _build
-    from tec_mollm_tpu_torch.ops import sarima as sops
-
-    out = (ctypes.c_longlong * len(sops.ForecastPlan._fields))()
-    fn = _build.function("sarima_forecast_plan", sops.FORECAST_PLAN_ARGTYPES)
-    _build.check("sarima_forecast_plan", fn(length, season, horizon, ctypes.cast(out, ctypes.c_void_p)))
-    plan, mirror = sops.ForecastPlan(*out), sops.forecast_plan(length, season, horizon)
-    if plan != mirror:
-        raise RuntimeError(f"the forecast's plan {plan} differs from the mirror's {mirror}")
-    return plan._asdict()
-
-
-def kernel_device_ms(fn, reps: int, match: str) -> tuple[float | None, int]:
-    """One launch's device time of the kernels whose names hold ``match``,
-    and the launches it was taken over: torch.profiler's CUDA kernel events
-    (CUPTI) over ``reps`` calls of ``fn`` after two warm-up calls, summed and
-    divided by the launches the trace saw. The host's cost of a call does
-    not enter it. Late in this script the trace misses the first launches
-    it should see (about 40 in phase 14 on the H100, 2 fit steps in the
-    fit's profile), so many are traced; (None, 0) where it saw none: a time
-    not measured, not a failed kernel."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [r for r in device_rows(prof.key_averages()) if match in r[2]]
-    launches = sum(c for _, c, _ in rows)
-    return (sum(ms for ms, _, _ in rows) / launches if launches else None), launches
-
-
-def device_note(ms: float | None, launches: int, reps: int, bound_ms: float) -> str:
-    """kernel_device_ms's reading for a log line, beside the bound."""
-    if ms is None:
-        return f"on the device not measured (the profiler saw none of {reps} launches)"
-    return f"on the device {ms:.4f} ms over {launches} of {reps} launches, the bound {bound_ms / ms:.1%} of it"
 
 
 def ptxas_entries(log_text: str, source: str) -> list[dict]:
@@ -833,451 +391,6 @@ def ptxas_entries(log_text: str, source: str) -> list[dict]:
             if "bytes smem" in line:
                 cur["static_smem_bytes"] = int(line.split("bytes smem")[0].split(",")[-1])
     return out
-
-
-def check_gat(graph, rand, failures: list, name: str, cases: dict) -> dict:
-    """One form of the stencil GAT kernel against its plain version at
-    ``cases`` (label: (M, stencil, N, heads, channels)) in fp32 and bf16,
-    padded lanes exactly 0; the entry's times are the "path" case's in bf16,
-    through the wrapper and through the bare C entry, with the other cases'
-    times, bounds and shares of bound under their labels. Every call must
-    launch this form (``name``), but "forced", which goes through the bare
-    entry with general = 1. The general form also launches twice on the same
-    inputs (the same bits) and checks its plan (gat_plan)."""
-    import torch
-
-    from tec_mollm_tpu_torch import ops
-    from tec_mollm_tpu_torch.graph import build_graph, grid_coordinates
-    from tec_mollm_tpu_torch.graph.builder import build_grid_stencil
-
-    dev = torch.device("cuda")
-    general = name == "gat_stencil_general"
-
-    def stencil(km, n: int, small: bool = False):
-        """shifts, the kernel's mask, and the plain version's (the range check folded in for "oob")"""
-        if small:
-            g_small = build_graph(*grid_coordinates(*GAT_SMALL_GRID))
-            shifts, v = g_small.stencil_shifts, g_small.stencil_valid
-        elif km == 150.0 or km in GAT_SYNTHETIC:
-            shifts, v = graph.stencil_shifts, graph.stencil_valid
-        else:
-            shifts, v = build_grid_stencil(*grid_coordinates(41, 71), km)
-        shifts = [int(s) for s in shifts]
-        valid = torch.zeros(len(shifts), n, dtype=torch.bool, device=dev)
-        valid[:, :v.shape[1]] = torch.as_tensor(v, device=dev)
-        if km in GAT_SYNTHETIC:
-            real = v.shape[1]
-            extra = list(GAT_SYNTHETIC[km](n))
-            nodes = torch.arange(n, device=dev)
-            rows = []
-            for s in extra:
-                row = nodes < real
-                if km == "overflow":
-                    row &= (nodes + s >= 0) & (nodes + s < n)
-                rows.append(row)
-            shifts += extra
-            valid = torch.cat([valid, torch.stack(rows)])
-        j = torch.arange(n, device=dev)[None, :] + torch.tensor(shifts, device=dev)[:, None]
-        return tuple(shifts), valid, valid & (j >= 0) & (j < n)
-
-    entry = {
-        "name": name, "source": "tec_mollm_tpu_torch/csrc/gat_stencil.cu",
-        "replaces": "tec_mollm_tpu/ops/gat_stencil.py:104", "library_ms": None,
-    }
-    for label, (m, km, n, heads, channels) in cases.items():
-        shifts, valid, valid_plain = stencil(km, n, small=label == "m70000")
-        att = rand(heads, channels, dtype=torch.float32, std=0.3)
-        hc = heads * channels
-        real = int(valid.any(dim=0).nonzero().max()) + 1  # lanes past the grid's nodes are padding
-        reach = max(map(abs, shifts))
-        case = {"shape": f"xl,xr ({m},{hc},{n}), {heads}x{channels}; valid ({len(shifts)},{n}); "
-                         f"{km if isinstance(km, str) else f'{km:g} km'}; largest |shift| {reach}"}
-        forced = label == "forced"
-        for dname, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-            xl, xr = rand(m, hc, n, dtype=dt), rand(m, hc, n, dtype=dt)
-            ops.reset_counts()
-            if forced:
-                got = gat_bare_entry(xl, xr, valid, att, shifts, general=True)().clone()
-            else:
-                got = ops.gat_stencil_attention(xl, xr, valid, att, shifts)
-            counts = ops.launch_counts()
-            want = ops.gat_stencil_reference(xl, xr, valid_plain, att, shifts)
-            torch.cuda.synchronize()
-            tag = dname if label == "path" else f"{label}_{dname}"
-            entry[f"max_abs_err_{tag}"], entry[f"max_rel_err_{tag}"], ok = compare(got, want, dname)
-            entry[f"tol_{tag}"] = TOL[dname]
-            if not ok:
-                failures.append(f"{name} {label} {dname}")
-            if counts != ({} if forced else {name: 1}):
-                failures.append(f"{name} {label} {dname}: launched {counts}")
-            if real < n and not bool((got[..., real:] == 0).all()):
-                failures.append(f"{name} {label} {dname}: padded lanes not exactly 0")
-            case[f"padded_lanes_{dname}"] = n - real
-            if general:
-                again = (gat_bare_entry(xl, xr, valid, att, shifts, general=True)() if forced
-                         else ops.gat_stencil_attention(xl, xr, valid, att, shifts))
-                case[f"same_bits_{dname}"] = bool(torch.equal(got, again))
-                if not case[f"same_bits_{dname}"]:
-                    failures.append(f"{name} {label} {dname}: two launches differ")
-                case[f"plan_{dname}"] = gat_plan(shifts, channels, n, dt == torch.bfloat16)
-                del again
-            del got, want
-        if general:
-            plan = case["plan_bf16"]
-            if label == "overflow" and not 0 < plan["window_offsets"] < plan["reach"]:
-                failures.append(f"{name} overflow: the plan reads no offset from device memory: {plan}")
-            if label == "oob" and plan["reach"] != len(graph.stencil_shifts):
-                failures.append(f"{name} oob: shifts past N counted as reaching a node: {plan}")
-        valid_pairs = int(valid_plain.sum())
-        run = gat_bare_entry(xl, xr, valid, att, shifts, general=forced)
-        case.update({
-            "bare_ms": time_ms(run, REPS),
-            "bytes": 3 * m * hc * n * 2 + valid.numel() + att.numel() * 4,
-            # per valid (node, offset) pair and slice: add, leaky-relu, multiply-add
-            # per channel for the score, exp, and a multiply-add per channel for the sum
-            "flops": m * valid_pairs * (hc * 5 + 2 * hc + 4),
-        })
-        if not forced:
-            case["ms"] = time_ms(lambda: ops.gat_stencil_attention(xl, xr, valid, att, shifts), REPS)
-        else:
-            case["tiled_bare_ms"] = time_ms(gat_bare_entry(xl, xr, valid, att, shifts), REPS)
-        case["bound_ms"], case["bound_by"] = bound(case["bytes"], case["flops"], PEAK_FLOPS["fp32"])
-        case["share_of_bound_bare"] = case["bound_ms"] / case["bare_ms"]
-        if label == "path":
-            case["plain_ms"] = time_ms(lambda: ops.gat_stencil_reference(xl, xr, valid, att, shifts), REPS)
-            case["share_of_bound"] = case["bound_ms"] / case["ms"]
-            entry.update(case, flop_rate=PEAK_FLOPS["fp32"])
-            log(f"kernel {name}[path]: bare entry {case['bare_ms']:.4f} ms (wrapper {case['ms']:.4f}), "
-                f"the bound {case['share_of_bound_bare']:.1%} of it")
-        else:
-            entry[label] = case
-            times = (f"kernel {case['ms']:.4f} ms (bare {case['bare_ms']:.4f})" if not forced else
-                     f"bare {case['bare_ms']:.4f} ms (the tiled form's bare {case['tiled_bare_ms']:.4f})")
-            log(
-                f"kernel {name}[{label}]: {case['shape']}: {times}, bound {case['bound_ms']:.4f} ms "
-                f"({case['bound_by']}; {case['share_of_bound_bare']:.1%} of the bare time)"
-                + (f"; plan {case['plan_bf16']}" if general else "")
-            )
-        del xl, xr
-    entry["max_abs_err"] = entry["max_abs_err_bf16"]
-    return entry
-
-
-def check_mlp(cfg, rand, failures: list) -> dict:
-    """The fused MLP against its plain version at MLP_ROWS, plus the branch
-    alone at the path's rows; the entry's times are the path's. Beside it, the
-    cuBLAS time of the two products alone, and the kernel's launches by name
-    from one profiled call."""
-    import torch
-
-    from tec_mollm_tpu_torch import ops
-
-    d = cfg.d_llm
-    dh = cfg.llm_mlp_ratio * d
-    ln_w = 1.0 + rand(d, dtype=torch.float32, std=0.1)
-    ln_b = rand(d, dtype=torch.float32, std=0.1)
-    w1, b1 = rand(d, dh, std=0.02), rand(dh, dtype=torch.float32, std=0.02)
-    w2, b2 = rand(dh, d, std=0.02), rand(d, dtype=torch.float32, std=0.02)
-    weights = (ln_w, ln_b, w1, b1, w2, b2)
-    rows = MLP_ROWS["path"]
-    entry = {
-        "name": "fused_mlp", "source": "tec_mollm_tpu_torch/csrc/fused_mlp.cu",
-        "replaces": "tec_mollm_tpu/ops/fused_mlp.py:78",
-        "shape": f"x ({rows},{d}) bf16, w1 ({d},{dh}), w2 ({dh},{d}) bf16",
-    }
-    for label, n in MLP_ROWS.items():
-        x = rand(n, d)
-        got = ops.fused_ln_mlp(x, *weights)
-        want = ops.fused_ln_mlp_reference(x, *weights)
-        torch.cuda.synchronize()
-        tag = "bf16" if label == "path" else label
-        entry[f"max_abs_err_{tag}"], entry[f"max_rel_err_{tag}"], ok = compare(got, want, "bf16")
-        entry[f"tol_{tag}"] = TOL["bf16"]
-        if not ok:
-            failures.append(f"fused_mlp {label} ({n} rows)")
-        if label == "path":
-            x_path = x
-    # The residual (|x| ~ 1) dominates the output, so the check above barely sees
-    # an error in the MLP branch (~0.35). Scaled by 2^-6 (exact in bf16), x keeps
-    # its LN output and the same branch, and the output is about the branch alone:
-    # the same tolerance then bounds the GEMMs and their epilogues.
-    x_small = x_path * 2.0**-6
-    got = ops.fused_ln_mlp(x_small, *weights)
-    want = ops.fused_ln_mlp_reference(x_small, *weights)
-    torch.cuda.synchronize()
-    entry["max_abs_err_branch"], entry["max_rel_err_branch"], ok = compare(got, want, "bf16")
-    entry["tol_branch"] = TOL["bf16"]
-    if not ok:
-        failures.append("fused_mlp bf16, branch alone")
-    args = (x_path, *weights)
-    hidden = rand(rows, dh)
-    entry.update({
-        "max_abs_err": entry["max_abs_err_bf16"],
-        "ms": time_ms(lambda: ops.fused_ln_mlp(*args), REPS),
-        "plain_ms": time_ms(lambda: ops.fused_ln_mlp_reference(*args), REPS),
-        "library_ms": None,
-        # not library_ms (no one call computes the fused function): the two
-        # products alone through cuBLAS, an anchor for the GEMMs' time
-        "cublas_products_ms": time_ms(lambda: (x_path @ w1, hidden @ w2), REPS),
-        "bytes": 2 * rows * d * 2 + 2 * d * dh * 2 + (3 * d + dh) * 4,
-        "flops": 4 * rows * d * dh,
-        "flop_rate": PEAK_FLOPS["bf16_tensor"],
-        "profile": profile_call(lambda: ops.fused_ln_mlp(*args), top=6),
-    })
-    log(
-        f"anchor: cuBLAS x@w1 + h@w2 (bf16, {rows} rows) {entry['cublas_products_ms']:.4f} ms; the fused "
-        f"MLP kernel {entry['ms']:.4f} ms; one profiled call: "
-        + ", ".join(f"{r['name'][:48]} {r['ms']:.4f} ms" for r in entry["profile"]["top"])
-    )
-    return entry
-
-
-# temporal conv kernel: the flagship eval batch (16 windows x 2,944 padded
-# nodes, as EvalExecutor runs it), a ragged count (one window's 2,911 nodes
-# + 5) and the serve batch (8 windows)
-TEMPORAL_CASES = {"eval": (16, 2944), "ragged": (1, 2911 + 5), "path": (BATCH, 2944)}
-
-
-def temporal_bare_entry(x, wpack, params):
-    """A call of the temporal kernel's C entry with its arguments marshalled
-    once, into a fresh output: the wrapper's launch without its checks and
-    Python. x is a (B, N, 48, C) view with unit channel stride. Not counted."""
-    import torch
-
-    from tec_mollm_tpu_torch.ops import _build
-
-    tc = importlib.import_module("tec_mollm_tpu_torch.ops.temporal_conv")  # ops.temporal_conv is the function
-    b, n = x.shape[:2]
-    out = torch.empty(b * n, tc.OUT_LENGTH, tc.CHANNELS[-1], dtype=x.dtype, device=x.device)
-    fn = _build.function("temporal_conv_forward", tc.ARGTYPES)
-    args = (x.data_ptr(), b * n, n, x.stride(0), x.stride(1), x.stride(2), x.shape[-1], wpack.data_ptr(),
-            wpack.numel() * wpack.element_size(), params.data_ptr(), out.data_ptr(), _build.stream_handle(x.device))
-
-    def call():
-        _build.check(tc.NAME, fn(*args))
-        return out
-
-    return call
-
-
-def check_temporal(cfg, failures: list) -> dict:
-    """The temporal encoder's conv blocks (csrc/temporal_conv.cu) against the
-    mirror (ops/temporal_conv.py:temporal_conv_mirror) at TEMPORAL_CASES, on
-    the (B, N, L, C) view of a (B, L, N, C) tensor as the model hands it, on
-    seeded blocks whose GroupNorm affines are not the identity: the same bits
-    twice, one launch a call. Timed through the wrapper, the bare C entry and
-    on the device's clock at the eval batch, beside the plain blocks the
-    model ran before (the unfused MultiScaleConvBlock pair in bf16)."""
-    import torch
-
-    from tec_mollm_tpu_torch import ops
-    from tec_mollm_tpu_torch.models.temporal import TemporalEncoder
-
-    tc = importlib.import_module("tec_mollm_tpu_torch.ops.temporal_conv")
-    dev = torch.device("cuda")
-    enc = TemporalEncoder(cfg)
-    g = torch.Generator().manual_seed(7)
-    with torch.no_grad():
-        for block in enc.conv_embedder.embedder:
-            block.reset_parameters(g)
-            for _, norm, _ in block.convs:
-                norm.weight.add_(0.2 * torch.randn(norm.weight.shape, generator=g))
-                norm.bias.add_(0.2 * torch.randn(norm.bias.shape, generator=g))
-            for conv in [c for c, _, _ in block.convs] + [block.final_conv]:
-                conv.bias.add_(0.1 * torch.randn(conv.bias.shape, generator=g))
-    enc = enc.to(dev).eval()
-    blocks = enc.conv_embedder.embedder
-    wpack, params = tc.pack_blocks(blocks, torch.bfloat16)
-    gen = torch.Generator(device=dev).manual_seed(11)
-    length, cin = cfg.temporal_seq_len, cfg.spatial_channels
-    b, n = TEMPORAL_CASES["eval"]
-    entry = {
-        "name": "temporal_conv", "source": "tec_mollm_tpu_torch/csrc/temporal_conv.cu",
-        "replaces": "none (the port's own)",
-        "shape": f"x ({b},{n},{length},{cin}) bf16 view -> ({b * n},{tc.OUT_LENGTH},{tc.CHANNELS[-1]})",
-    }
-    views = {}
-    for label, (bb, nn_) in TEMPORAL_CASES.items():
-        x = torch.randn(bb, length, nn_, cin, generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
-        views[label] = x
-        ops.reset_counts()
-        got = ops.temporal_conv(x, wpack, params)
-        torch.cuda.synchronize()
-        launches = ops.launch_counts().get("temporal_conv", 0)
-        again = ops.temporal_conv(x, wpack, params)
-        want = ops.temporal_conv_mirror(x, wpack, params)
-        torch.cuda.synchronize()
-        tag = "bf16" if label == "eval" else label
-        entry[f"max_abs_err_{tag}"], entry[f"max_rel_err_{tag}"], ok = compare(got, want, "bf16")
-        entry[f"tol_{tag}"] = TOL["bf16"]
-        entry[f"same_bits_{label}"] = bool(torch.equal(got, again))
-        entry[f"launches_a_call_{label}"] = launches
-        if not ok:
-            failures.append(f"temporal_conv {label}")
-        if not entry[f"same_bits_{label}"] or launches != 1:
-            failures.append(f"temporal_conv {label}: not the same bits twice or not one launch a call")
-    x = views["eval"]
-    rows = b * n
-
-    def plain():
-        return enc.conv_embedder(x.reshape(-1, length, cin).transpose(1, 2)).transpose(1, 2)
-
-    with torch.no_grad():
-        plain_out = plain()
-        entry["max_abs_vs_plain_blocks"] = float((ops.temporal_conv(x, wpack, params).float() - plain_out.float()).abs().max())
-        entry["plain_ms"] = time_ms(plain, 5)
-    entry["ms"] = time_ms(lambda: ops.temporal_conv(x, wpack, params), REPS)
-    entry["bare_ms"] = time_ms(temporal_bare_entry(x, wpack, params), REPS)
-    entry["device_ms"], entry["device_launches"] = kernel_device_ms(
-        lambda: ops.temporal_conv(x, wpack, params), REPS, "temporal_conv_kernel")
-    c1, c2 = tc.CHANNELS
-    taps = sum(tc.KERNEL_SIZES)
-    entry.update({
-        "max_abs_err": entry["max_abs_err_bf16"],
-        "library_ms": None,
-        # the products' operations at each branch's own taps (benchmark/counts.py's
-        # temporal.* terms), the input read and the output written once
-        "flops": 2 * rows * (length * cin * c1 * taps + length // 2 * 3 * c1 * c1
-                             + length // 2 * c1 * c2 * taps + length // 4 * 3 * c2 * c2),
-        "bytes": rows * (length * cin + tc.OUT_LENGTH * c2) * 2,
-        "flop_rate": PEAK_FLOPS["bf16_tensor"],
-    })
-    log(f"temporal_conv: bare {entry['bare_ms']:.4f} ms, on the device "
-        + ("not measured" if entry["device_ms"] is None else f"{entry['device_ms']:.4f} ms")
-        + f"; the plain blocks {entry['plain_ms']:.4f} ms; kernel against the plain blocks max abs "
-        f"{entry['max_abs_vs_plain_blocks']:.3e}")
-    return entry
-
-
-def flash_mask_check(failures: list) -> dict:
-    """The flash kernel's own keep mask at the path shape, read back through its
-    output: with q = k = 0 every causal weight of query i is 1/(i+1), and for a
-    window of 64 keys starting at w, v[b, j, h, c] = [j == w + c] puts key
-    w + c's weight in output lane c. The mask must be the plain hash's bit for
-    bit, keep 1 - p of the draws, and change with the seed."""
-    import torch
-
-    from tec_mollm_tpu_torch import ops
-    from tec_mollm_tpu_torch.ops.short_attention import dropout_bits, dropout_threshold
-
-    b, t, _, hd, _ = FLASH_CASES["path"]
-    heads = 12
-    dev = torch.device("cuda")
-    zeros = torch.zeros(b, t, heads, hd, device=dev, dtype=torch.bfloat16)
-    unscale = (torch.arange(t, device=dev) + 1.0)[None, :, None, None] * (1.0 - DROPOUT)
-
-    def kernel_mask(seed: int) -> torch.Tensor:  # (B, H, Tq, Tk)
-        mask = torch.zeros(b, heads, t, t, dtype=torch.bool, device=dev)
-        for w in range(0, t, hd):
-            width = min(hd, t - w)
-            v = torch.zeros_like(zeros)
-            idx = torch.arange(width, device=dev)
-            v[:, w + idx, :, idx] = 1.0
-            out = ops.flash_attention_forward(zeros, zeros, v, True, DROPOUT, seed)
-            mask[..., w:w + width] = (out[..., :width].float() * unscale > 0.5).permute(0, 2, 1, 3)
-        return mask
-
-    causal = torch.ones(t, t, dtype=torch.bool, device=dev).tril()
-    mask, other = kernel_mask(DROPOUT_SEED) & causal, kernel_mask(DROPOUT_SEED + 1) & causal
-    plain = (dropout_bits(DROPOUT_SEED, b, heads, t, dev) >= dropout_threshold(DROPOUT)) & causal
-    draws = b * heads * int(causal.sum())
-    kept = float(mask.sum()) / draws
-    out = {
-        "flash_dropout_draws": draws, "flash_kept_fraction": kept,
-        "flash_mask_equals_plain_hash": bool(torch.equal(mask, plain)),
-        "flash_mask_share_changed_by_next_seed": float((mask != other).sum()) / draws,
-    }
-    log(
-        f"flash dropout p={DROPOUT}: kernel kept {kept:.6f} of {draws} draws (want {1 - DROPOUT} +- {KEPT_TOL}); "
-        f"mask equals the plain hash: {out['flash_mask_equals_plain_hash']}; seed+1 changes "
-        f"{out['flash_mask_share_changed_by_next_seed']:.4f} of it"
-    )
-    if abs(kept - (1.0 - DROPOUT)) > KEPT_TOL:
-        failures.append("flash_attention kept fraction")
-    if not out["flash_mask_equals_plain_hash"]:
-        failures.append("flash_attention mask differs from the plain hash")
-    if out["flash_mask_share_changed_by_next_seed"] < 0.1:
-        failures.append("flash_attention mask does not change with the seed")
-    return out
-
-
-def check_flash(cfg, rand, failures: list) -> dict:
-    """Flash attention against its plain version at FLASH_CASES, on q, k, v
-    that are (B, T, H, Dh) views of one (B, T, 3D) c_attn output, as the model
-    hands them over; at the path shape also with dropout p = 0.1 (the
-    pretraining call) and on a view that is not 16-byte aligned (the wrapper
-    copies it). The entry's times are the path shape's at p = 0, the function
-    SDPA computes; the other shapes go under their labels with their own
-    bounds."""
-    import torch
-
-    from tec_mollm_tpu_torch import ops
-
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    heads = cfg.llm_heads
-    entry = {
-        "name": "flash_attention", "source": "tec_mollm_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "tec_mollm_tpu/ops/flash_attention.py:114",
-    }
-
-    def views(b, t, hd, dt, pad=0):
-        d = heads * hd
-        qkv = rand(b, t, 3 * d + pad, dtype=dt)[..., pad:]
-        return [a.reshape(b, t, heads, hd) for a in qkv.split(d, dim=-1)]
-
-    def check(label, tag, dtype_name, q, k, v, causal, rate=0.0):
-        got = ops.flash_attention_forward(q, k, v, causal, rate, DROPOUT_SEED)
-        want = ops.flash_attention_reference(q, k, v, causal, rate, DROPOUT_SEED)
-        torch.cuda.synchronize()
-        entry[f"max_abs_err_{tag}"], entry[f"max_rel_err_{tag}"], ok = compare(got, want, dtype_name)
-        entry[f"tol_{tag}"] = TOL[dtype_name]
-        if not ok:
-            failures.append(f"flash_attention {label} {tag}")
-
-    for label, (b, t, causal, hd, dtypes) in FLASH_CASES.items():
-        for name in dtypes:
-            q, k, v = views(b, t, hd, torch.float32 if name == "fp32" else torch.bfloat16)
-            check(label, name if label == "path" else f"{label}_{name}", name, q, k, v, causal)
-        # the bf16 views, (B, H, T, Dh) for SDPA
-        q4, k4, v4 = (a.transpose(1, 2) for a in (q, k, v))
-        pairs = t * (t + 1) // 2 if causal else t * t
-        case = {
-            "shape": f"q,k,v ({b},{t},{heads},{hd}) bf16 views of ({b},{t},{3 * heads * hd}), causal {causal}",
-            "ms": time_ms(lambda: ops.flash_attention_forward(q, k, v, causal), REPS),
-            "plain_ms": time_ms(lambda: ops.flash_attention_reference(q, k, v, causal), REPS),
-            "library_ms": time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal), REPS),
-            # q, k, v read and the output written once; q.k and p.v, 2 * Dh each
-            "bytes": 4 * b * t * heads * hd * 2,
-            "flops": b * heads * pairs * hd * 4,
-        }
-        if label == "path":
-            entry.update(case, flop_rate=PEAK_FLOPS["bf16_tensor"])
-            # the bare C entry beside the wrapper: is the wrapper's host cost the time?
-            bare = flash_bare_entry(q, k, v, causal)
-            torch.testing.assert_close(bare(), ops.flash_attention_forward(q, k, v, causal), rtol=0, atol=0)
-            entry["bare_ms"] = time_ms(bare, REPS)
-            check(label, "bf16_p01", "bf16", q, k, v, causal, DROPOUT)
-            entry["ms_p01"] = time_ms(lambda: ops.flash_attention_forward(q, k, v, causal, DROPOUT, DROPOUT_SEED), REPS)
-            entry["library_ms_p01"] = time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal, dropout_p=DROPOUT), REPS)
-            entry["x_sdpa"] = case["ms"] / case["library_ms"]
-            qm, km, vm = views(b, t, hd, torch.bfloat16, pad=1)  # 2-byte offset, odd token stride
-            check(label, "misaligned", "bf16", qm, km, vm, causal)
-            log(
-                f"kernel flash_attention[path]: p=0.1 {entry['ms_p01']:.4f} ms (SDPA dropout_p 0.1 "
-                f"{entry['library_ms_p01']:.4f} ms); p=0 {case['ms']:.4f} ms = {entry['x_sdpa']:.2f} x SDPA; "
-                f"bare entry {entry['bare_ms']:.4f} ms (wrapper {case['ms']:.4f}, SDPA {case['library_ms']:.4f})"
-            )
-        else:
-            case["bound_ms"], case["bound_by"] = bound(case["bytes"], case["flops"], PEAK_FLOPS["bf16_tensor"])
-            entry[label] = case
-            log(
-                f"kernel flash_attention[{label}]: {case['shape']}: kernel {case['ms']:.4f} ms, plain "
-                f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
-                f"({case['bound_by']})"
-            )
-    entry.update(flash_mask_check(failures))
-    entry["max_abs_err"] = entry["max_abs_err_bf16"]
-    return entry
 
 
 def ptxas_summary(log_text: str) -> list[str]:
@@ -1348,6 +461,302 @@ def profile_call(fn, top: int = 12, cpu_ops: bool = True) -> dict:
     }
 
 
+def kernel_device_ms(fn, reps: int, kernels: tuple[str, ...]) -> tuple[float | None, int]:
+    """One call's device time of the CUDA kernels whose names hold one of
+    ``kernels`` (the first launched once a call), and the calls it was taken
+    over: torch.profiler's CUDA kernel events (CUPTI) over ``reps`` calls of
+    ``fn`` after two warm-up calls, summed and divided by the calls the trace
+    saw. The host's cost of a call does not enter it. Late in a long process
+    the trace can miss the first launches it should see, so many are traced;
+    (None, 0) where it saw none: a time not measured, not a failed kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [r for r in device_rows(prof.key_averages()) if any(k in r[2] for k in kernels)]
+    calls = sum(c for _, c, name in rows if kernels[0] in name)
+    return (sum(ms for ms, _, _ in rows) / calls if calls else None), calls
+
+
+class KernelCase(NamedTuple):
+    """A row of the kernel table: a kernel (its launch-count name) at one
+    shape, its wrapper's call (None where the wrapper never takes this form
+    at this shape), its bare C entry (None where it has none), its plain
+    version, a library call that computes the same function (or None), the
+    bytes and operations the call needs, the peak FLOP/s of its arithmetic,
+    and the CUDA kernels it launches (kernel_device_ms's ``kernels``);
+    ``want``, the plain version the output is held to where it is not
+    ``plain``, and ``rtol_of_max``, where set, the output's distance from it
+    over its largest magnitude (instead of TOL["bf16"] elementwise)."""
+
+    name: str
+    label: str
+    shape: str
+    wrapper: Callable | None
+    bare: Callable | None
+    plain: Callable
+    library: Callable | None
+    bytes: float
+    flops: float
+    peak: float
+    kernels: tuple[str, ...]
+    plain_reps: int = REPS
+    want: Callable | None = None
+    rtol_of_max: float | None = None
+
+
+def gat_case(graph, name: str, label: str, case: tuple, seed: int) -> KernelCase:
+    """The stencil GAT's ``name`` form at a case of GAT_CASES (with the
+    flagship's heads and channels) or GAT_GENERAL_CASES, in bf16; "forced"
+    through the bare entry alone."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+
+    m, _, n, heads, channels = case
+    xl, xr, valid, valid_plain, att, shifts = gat_inputs(graph, case, torch.bfloat16, torch.device("cuda"), seed)
+    forced = label == "forced"
+    hc = heads * channels
+    return KernelCase(
+        name, label, f"xl,xr ({m},{hc},{n}) bf16, {heads}x{channels}, {len(shifts)} offsets",
+        wrapper=None if forced else (lambda: ops.gat_stencil_attention(xl, xr, valid, att, shifts)),
+        bare=gat_bare_entry(xl, xr, valid, att, shifts, general=forced),
+        plain=lambda: ops.gat_stencil_reference(xl, xr, valid_plain, att, shifts), library=None,
+        bytes=3 * m * hc * n * 2 + valid.numel() + att.numel() * 4,
+        # per valid (node, offset) pair and slice: add, leaky-relu, multiply-add
+        # per channel for the score, exp, and a multiply-add per channel for the sum
+        flops=m * int(valid_plain.sum()) * (hc * 5 + 2 * hc + 4),
+        peak=PEAK_FLOPS["fp32"], kernels=(f"{name}_kernel",))
+
+
+def attention_cases(seed: int) -> list[KernelCase]:
+    """The short causal attention's forward and backward at the serve batch,
+    with the training call's dropout; SDPA (its backward) the library call."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+    from tec_mollm_tpu_torch.config import Config
+
+    heads = Config().resolved().model.llm_heads
+    q, k, v, g = attention_inputs(torch.device("cuda"), seed)
+    rows, t, d = q.shape
+    hd = d // heads
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (a.reshape(rows, t, heads, hd).transpose(1, 2) for a in (q, k, v))
+    g4 = g.reshape(rows, t, heads, hd).transpose(1, 2)
+    leaves = [a.detach().requires_grad_() for a in (q4, k4, v4)]
+    lib_out = sdpa(*leaves, is_causal=True, dropout_p=DROPOUT)
+    pairs = t * (t + 1) // 2
+    fwd = KernelCase(
+        "short_attention", "path", f"q,k,v ({rows},{t},{d}) bf16, {heads} heads, dropout {DROPOUT}",
+        wrapper=lambda: ops.short_attention_forward(q, k, v, heads, DROPOUT, DROPOUT_SEED), bare=None,
+        plain=lambda: ops.short_causal_attention_reference(q, k, v, heads, DROPOUT, DROPOUT_SEED),
+        library=lambda: sdpa(q4, k4, v4, is_causal=True, dropout_p=DROPOUT),
+        bytes=4 * rows * t * d * 2, flops=rows * heads * pairs * hd * 4, peak=PEAK_FLOPS["fp32"],
+        kernels=("short_attention_kernel",))
+    bwd = KernelCase(
+        "short_attention_bwd", "path",
+        f"q,k,v,g ({rows},{t},{d}) -> dqkv ({rows},{t},{3 * d}), {heads} heads, dropout {DROPOUT}",
+        wrapper=lambda: ops.short_attention_backward(q, k, v, g, heads, DROPOUT, DROPOUT_SEED), bare=None,
+        plain=lambda: ops.short_causal_attention_backward_reference(q, k, v, g, heads, DROPOUT, DROPOUT_SEED),
+        library=lambda: torch.autograd.grad(lib_out, leaves, g4, retain_graph=True),
+        # per causal (query, key) pair and head: q.k, g.v, and the dv, dq, dk
+        # multiply-adds, 2 * Dh each
+        bytes=7 * rows * t * d * 2, flops=rows * heads * pairs * hd * 10, peak=PEAK_FLOPS["fp32"],
+        kernels=("short_attention_bwd_kernel",))
+    return [fwd, bwd]
+
+
+def mlp_case(seed: int) -> KernelCase:
+    """The fused LN -> MLP -> residual at the serve batch's rows."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+
+    rows = MLP_ROWS["path"]
+    x, *weights = mlp_inputs(rows, torch.device("cuda"), seed)
+    d, dh = weights[2].shape
+    return KernelCase(
+        "fused_mlp", "path", f"x ({rows},{d}) bf16, w1 ({d},{dh}), w2 ({dh},{d}) bf16",
+        wrapper=lambda: ops.fused_ln_mlp(x, *weights), bare=None,
+        plain=lambda: ops.fused_ln_mlp_reference(x, *weights), library=None,
+        bytes=2 * rows * d * 2 + 2 * d * dh * 2 + (3 * d + dh) * 4, flops=4 * rows * d * dh,
+        peak=PEAK_FLOPS["bf16_tensor"], kernels=("layer_norm_kernel", "gemm_kernel"))
+
+
+def flash_case(seed: int) -> KernelCase:
+    """Flash attention at the byte LM's pretraining batch without dropout,
+    the function SDPA computes."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+
+    b, t, causal, hd, _ = FLASH_CASES["path"]
+    q, k, v = flash_views(b, t, hd, torch.bfloat16, torch.device("cuda"), seed)
+    q4, k4, v4 = (a.transpose(1, 2) for a in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = t * (t + 1) // 2 if causal else t * t
+    return KernelCase(
+        "flash_attention", "path",
+        f"q,k,v ({b},{t},{FLASH_HEADS},{hd}) bf16 views of ({b},{t},{3 * FLASH_HEADS * hd}), causal {causal}",
+        wrapper=lambda: ops.flash_attention_forward(q, k, v, causal), bare=flash_bare_entry(q, k, v, causal),
+        plain=lambda: ops.flash_attention_reference(q, k, v, causal),
+        library=lambda: sdpa(q4, k4, v4, is_causal=causal),
+        # q, k, v read and the output written once; q.k and p.v, 2 * Dh each
+        bytes=4 * b * t * FLASH_HEADS * hd * 2, flops=b * FLASH_HEADS * pairs * hd * 4,
+        peak=PEAK_FLOPS["bf16_tensor"], kernels=("flash_attention",))
+
+
+def temporal_case() -> KernelCase:
+    """The temporal encoder's conv blocks at the flagship eval batch (16
+    windows x 2,944 padded nodes, as EvalExecutor runs it), on the (B, N, L,
+    C) view of a (B, L, N, C) tensor as the model hands it; the plain blocks
+    are the unfused MultiScaleConvBlock pair the model runs without it."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+    from tec_mollm_tpu_torch.config import Config
+    from tec_mollm_tpu_torch.models.temporal import TemporalEncoder
+
+    tc = importlib.import_module("tec_mollm_tpu_torch.ops.temporal_conv")  # ops.temporal_conv is the function
+    cfg = Config().resolved().model
+    dev = torch.device("cuda")
+    enc = TemporalEncoder(cfg).to(dev).eval()
+    wpack, params = tc.pack_blocks(enc.conv_embedder.embedder, torch.bfloat16)
+    b, n, length, cin = 2 * BATCH, PADDED_NODES, cfg.temporal_seq_len, cfg.spatial_channels
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(b, length, n, cin, generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+    rows = b * n
+    c1, c2 = tc.CHANNELS
+    taps = sum(tc.KERNEL_SIZES)
+
+    @torch.no_grad()
+    def plain():
+        return enc.conv_embedder(x.reshape(-1, length, cin).transpose(1, 2)).transpose(1, 2)
+
+    return KernelCase(
+        "temporal_conv", "eval", f"x ({b},{n},{length},{cin}) bf16 view -> ({rows},{tc.OUT_LENGTH},{c2})",
+        wrapper=lambda: ops.temporal_conv(x, wpack, params), bare=temporal_bare_entry(x, wpack, params),
+        plain=plain, library=None,
+        # the products' operations at each branch's own taps (benchmark/counts.py's
+        # temporal.* terms), the input read and the output written once
+        bytes=rows * (length * cin + tc.OUT_LENGTH * c2) * 2,
+        flops=2 * rows * (length * cin * c1 * taps + length // 2 * 3 * c1 * c1
+                          + length // 2 * c1 * c2 * taps + length // 4 * 3 * c2 * c2),
+        peak=PEAK_FLOPS["bf16_tensor"], kernels=("temporal_conv_kernel",), plain_reps=5,
+        want=lambda: tc.temporal_conv_mirror(x, wpack, params))
+
+
+def sarima_cases(seed: int) -> list[KernelCase]:
+    """The SARIMA fit's two kernels on the flagship series (sarima_inputs) and
+    its forecast at SARIMA_BATCH and at SARIMA_FORECAST_LARGE windows; bytes:
+    each input read once, each output written once."""
+    import torch
+
+    from tec_mollm_tpu_torch.ops import sarima as sops
+
+    dev = torch.device("cuda")
+    inp = sarima_inputs(seed, dev)
+    y, coeffs, s, scale, horizon, L_in = (inp[k] for k in ("y", "coeffs", "season", "scale", "horizon", "L_in"))
+    steps, n = y.shape
+    e = sops.css_forward(y, coeffs, s)[0]
+    arr = steps * n * 4
+    fp32 = PEAK_FLOPS["fp32"]
+    cases = [
+        KernelCase(sops.FORWARD, "path", f"y ({steps},{n}) fp32, coeffs (4,{n}) -> e, partial",
+                   wrapper=lambda: sops.css_forward(y, coeffs, s), bare=sarima_bare_entry(y, coeffs, s),
+                   plain=lambda: sops.css_forward_reference(y, coeffs, s), library=None,
+                   bytes=2 * arr + 20 * n, flops=14 * steps * n, peak=fp32, kernels=("css_forward_kernel",),
+                   plain_reps=1, rtol_of_max=SARIMA_RTOL),
+        KernelCase(sops.BACKWARD, "path", f"y, e ({steps},{n}) fp32, coeffs (4,{n}) -> grad (4,{n})",
+                   wrapper=lambda: sops.css_backward(y, e, coeffs, s, scale),
+                   bare=sarima_bare_entry(y, coeffs, s, e, scale),
+                   plain=lambda: sops.css_backward_reference(y, e, coeffs, s, scale), library=None,
+                   bytes=2 * arr + 32 * n, flops=20 * steps * n, peak=fp32, kernels=("css_backward_kernel",),
+                   plain_reps=1, rtol_of_max=SARIMA_RTOL),
+    ]
+    for label, windows in (("path", SARIMA_BATCH), ("large", SARIMA_FORECAST_LARGE)):
+        wins = sarima_windows(inp["series"], windows, L_in, dev)
+        cases.append(KernelCase(
+            sops.FORECAST, label, f"windows ({windows},{L_in},{n}) fp32 -> ({windows},{horizon},{n})",
+            wrapper=lambda wins=wins: sops.forecast(wins, coeffs, horizon, s),
+            bare=forecast_bare_entry(wins, coeffs, horizon, s),
+            plain=lambda wins=wins: sops.forecast_reference(wins, coeffs, horizon, s), library=None,
+            bytes=windows * (L_in + horizon) * n * 4 + 16 * n, flops=windows * n * 16 * (L_in + horizon),
+            peak=fp32, kernels=("forecast_",), plain_reps=1, rtol_of_max=SARIMA_RTOL))
+    return cases
+
+
+def kernel_cases(graph, seed: int):
+    """The kernel table's rows, one kernel's at a time (its inputs freed
+    before the next's): a row for each of PERF.md's."""
+    from tec_mollm_tpu_torch.config import Config
+
+    cfg = Config().resolved().model
+    hc = (cfg.spatial_heads, cfg.spatial_out_channels)
+    for label in ("path", "eval"):
+        yield gat_case(graph, "gat_stencil", label, (*GAT_CASES[label], *hc), seed)
+    for label in ("path", "r450", "n2911", "forced"):
+        yield gat_case(graph, "gat_stencil_general", label, GAT_GENERAL_CASES[label], seed)
+    yield from attention_cases(seed)
+    yield mlp_case(seed)
+    yield flash_case(seed)
+    yield temporal_case()
+    yield from sarima_cases(seed)
+
+
+def check_case(c: KernelCase) -> None:
+    """The wrapper's output (the bare entry's where the wrapper does not
+    take the case) against its plain version's; raises on a miss."""
+    import torch
+
+    with torch.no_grad():
+        got, want = (c.wrapper or c.bare)(), (c.want or c.plain)()
+    got, want = (o if isinstance(o, tuple) else (o,) for o in (got, want))
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        g, w = g.float(), w.float()
+        if c.rtol_of_max is None:
+            atol, rtol = TOL["bf16"]
+            miss = not bool(torch.isclose(g, w, rtol=rtol, atol=atol).all())
+        else:
+            miss = not float((g - w).abs().max()) <= c.rtol_of_max * float(w.abs().max())
+        if miss or not bool(g.isfinite().all()):
+            raise RuntimeError(f"kernel {c.name}[{c.label}]: output {i} differs from its plain version's by "
+                               f"{float((g - w).abs().max()):.4e} at most")
+
+
+def kernel_table(cases) -> list[dict]:
+    """Each case's output checked (check_case), then its columns: its time
+    through the wrapper and the bare entry, on the device's clock (the bare
+    entry's where it has one), its bound and by what, its plain version's and
+    the library call's times (ms)."""
+    rows = []
+    for c in cases:
+        check_case(c)
+        bound_ms, bound_by = bound(c.bytes, c.flops, c.peak)
+        row = {"name": c.name, "label": c.label, "shape": c.shape,
+               "ms": time_ms(c.wrapper, REPS) if c.wrapper else None,
+               "bare_ms": time_ms(c.bare, REPS) if c.bare else None}
+        row["device_ms"], row["device_calls"] = kernel_device_ms(c.bare or c.wrapper, DEVICE_REPS, c.kernels)
+        row.update(bound_ms=bound_ms, bound_by=bound_by, plain_ms=time_ms(c.plain, c.plain_reps),
+                   library_ms=time_ms(c.library, REPS) if c.library else None)
+
+        def ms(key: str) -> str:
+            return "-" if row[key] is None else f"{row[key]:.4f}"
+
+        log(f"kernel {c.name}[{c.label}]: {c.shape}: wrapper {ms('ms')} ms, bare {ms('bare_ms')}, device "
+            f"{ms('device_ms')} (over {row['device_calls']} of {DEVICE_REPS} calls), bound {bound_ms:.4f} "
+            f"({bound_by}), plain {ms('plain_ms')}, library {ms('library_ms')}")
+        rows.append(row)
+    return rows
+
+
 def write_processed_dir(path: str, graph, cfg, seed: int, steps: int) -> None:
     """A processed dir as the preprocess CLI writes it: the test split of
     `steps` timesteps, train and val splits of TRAINER_WINDOWS stride-1
@@ -1413,7 +822,10 @@ def drive_http(service, requests: list[list[int]], threads: int) -> tuple[dict, 
     return dict(results), wall
 
 
-def serve_phase(args, graph, data_dir: str, results: dict) -> dict:
+def serve_phase(args, graph, data_dir: str) -> dict:
+    """Phase 4: forecast requests over HTTP to ForecastService on the default
+    path and with the opt-in kernels (no timings: the cell flagship-serve
+    measures this path)."""
     import torch
 
     from tec_mollm_tpu_torch import ops
@@ -1429,58 +841,30 @@ def serve_phase(args, graph, data_dir: str, results: dict) -> dict:
     rng = np.random.default_rng(args.seed)
     n_windows = STEPS - cfg.train.L_in - cfg.train.L_out + 1
     requests = [rng.integers(0, n_windows, size=int(rng.integers(1, 4))).tolist() for _ in range(REQUESTS)]
-    n_req_windows = sum(len(r) for r in requests)
     paths = {}
     for path, flags in (("default", {}), ("fused", {"fused_attn": True, "use_fused_mlp": True})):
         service = ForecastService(cfg, data_dir, state_dict=state, max_batch=BATCH, **flags)
         try:
             ops.reset_counts()
-            forecasts, wall = drive_http(service, requests, THREADS)
+            forecasts, _ = drive_http(service, requests, THREADS)
             counts = ops.launch_counts()
-            stats = service.stats()
-            # one full batch of 8 windows through the model, timed on the host
-            full = service.datasets["test"].gather_batch(np.arange(BATCH))
-            fwd = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                service._run_padded(full, BATCH)
-                fwd.append(time.perf_counter() - t0)
-            prof = profile_call(lambda: service._run_padded(full, BATCH))
+            forwards = service.stats().get("batches")
         finally:
             service.close()
         for idx, f in forecasts.items():
             if f.shape != (len(idx), cfg.train.L_out, cfg.model.num_nodes) or not np.isfinite(f).all():
                 raise RuntimeError(f"{path}: forecast for {idx} has shape {f.shape} or is not finite")
-        fwd_s = statistics.median(fwd)
-        paths[path] = {
-            "forecasts": forecasts, "launches": counts, "stats": stats,
-            "requests": len(requests), "windows": n_req_windows, "wall_s": wall,
-            "windows_per_s_served": n_req_windows / wall,
-            "batch_forward_ms": fwd_s * 1e3,
-            "windows_per_s_full_batch": BATCH / fwd_s,
-            "forwards": stats.get("batches"),
-            "profile": prof,
-        }
-        log(
-            f"serve[{path}]: {len(requests)} requests ({n_req_windows} windows) in {wall:.3f} s "
-            f"-> {n_req_windows / wall:.2f} windows/s; p50 {stats.get('p50_ms')} ms, "
-            f"p95 {stats.get('p95_ms')} ms; {stats.get('batches')} device batches "
-            f"(mean {stats.get('mean_batch_rows')} rows, padded forward p50 "
-            f"{stats.get('forward_p50_ms')} ms); full batch of {BATCH}: "
-            f"{fwd_s * 1e3:.2f} ms = {BATCH / fwd_s:.1f} windows/s; launches {counts}"
-        )
-        log(
-            f"profile[{path}]: one batch of {BATCH}: wall {prof['wall_ms']:.2f} ms, device "
-            f"{prof['device_ms']:.2f} ms (busy {prof['device_busy_share']:.2%})"
-        )
-        for row in prof["top"][:8]:
-            log(f"  {row['ms']:8.3f} ms x{row['calls']:<4d} {row['name']}")
+        paths[path] = {"forecasts": forecasts, "launches": counts, "forwards": forwards}
+        log(f"serve[{path}]: {len(requests)} requests in {forwards} device batches; launches {counts}")
 
-    need = {"default": ["gat_stencil", TEMPORAL], "fused": ["gat_stencil", TEMPORAL, "short_attention", "fused_mlp"]}
+    need = {"default": ("gat_stencil", "temporal_conv"),
+            "fused": ("gat_stencil", "temporal_conv", "short_attention", "fused_mlp")}
     for path, names in need.items():
-        missing = [k for k in names if paths[path]["launches"].get(k, 0) == 0]
+        missing = [k for k, v in launched(paths[path]["launches"], *names).items() if not v]
         if missing:
             raise RuntimeError(f"serve[{path}] never launched {missing}")
+    if any(launched(paths["default"]["launches"], *OPT_IN).values()):
+        raise RuntimeError(f"serve[default] launched an opt-in kernel: {paths['default']['launches']}")
 
     # the two paths against each other, and against an fp32 forward of the plain path
     a, b = paths["default"]["forecasts"], paths["fused"]["forecasts"]
@@ -1500,11 +884,6 @@ def serve_phase(args, graph, data_dir: str, results: dict) -> dict:
         )[..., 0].cpu().numpy().astype(np.float64)
     ref = np.clip(ref * TARGET_SCALE + TARGET_MEAN, 0.0, 200.0)
     diff_ref = float(np.abs(a[tuple(first)] - ref).max()) / TARGET_SCALE
-    results["serve_check"] = {
-        "max_abs_diff_fused_vs_default_scaled": diff_paths,
-        "max_abs_diff_default_vs_fp32_plain_scaled": diff_ref,
-        "tol_scaled": SERVE_TOL_SCALED,
-    }
     log(
         f"serve check: fused vs default max |diff| {diff_paths:.4e}, default (bf16, kernels) vs "
         f"fp32 plain path {diff_ref:.4e} (scaled units; tol {SERVE_TOL_SCALED})"
@@ -1513,7 +892,8 @@ def serve_phase(args, graph, data_dir: str, results: dict) -> dict:
         raise RuntimeError("served forecasts disagree beyond the stated tolerance")
     for p in paths.values():
         del p["forecasts"]
-    return paths
+    return {**paths, "max_abs_diff_fused_vs_default_scaled": diff_paths,
+            "max_abs_diff_default_vs_fp32_plain_scaled": diff_ref, "tol_scaled": SERVE_TOL_SCALED}
 
 
 def grad_check(args, cfg) -> dict:
@@ -1532,9 +912,7 @@ def grad_check(args, cfg) -> dict:
     from tec_mollm_tpu_torch.training import create_train_state, make_sum_loss_fn
 
     dev = torch.device("cuda")
-    m = dataclasses.replace(
-        cfg.model, gat_dropout=0.0, lora_dropout=0.0, llm_dropout=0.0, head_dropout=0.0, post_llm_dropout=0.0
-    )
+    m = dataclasses.replace(cfg.model, **NO_DROPOUT)
     cfg = dataclasses.replace(cfg, model=m, train=dataclasses.replace(cfg.train, batch_size=GRAD_BATCH, accumulation_steps=1))
     shifts, graph_pair = graph_inputs(build_graph(*grid_coordinates(m.grid_h, m.grid_w)), dev)
     base = TECMoLLM(m, shifts, seed=args.seed).state_dict()
@@ -1752,10 +1130,10 @@ def trainer_phase(args, graph, data_dir: str, train_windows_per_s: float) -> dic
         raise RuntimeError(f"trainer[A]: history {hist_a}")
     if files_a != want_files:
         raise RuntimeError(f"trainer[A]: checkpoint dir holds {files_a}, want {want_files}")
-    if (counts_a.get("gat_stencil", 0) != TRAINER_EPOCHS * val_batches or set(gat_launches(counts_a)) - {"gat_stencil"}
-            or counts_a.get(TEMPORAL, 0) != counts_a["gat_stencil"]):
-        raise RuntimeError(f"trainer[A]: launches {counts_a}, want gat_stencil = {TRAINER_EPOCHS * val_batches} "
-                           "(one a validation forward) and nothing else")
+    want_a = {"gat_stencil": TRAINER_EPOCHS * val_batches, "gat_stencil_general": 0,
+              "temporal_conv": TRAINER_EPOCHS * val_batches, **dict.fromkeys(OPT_IN, 0)}
+    if launched(counts_a, *want_a) != want_a:
+        raise RuntimeError(f"trainer[A]: launches {counts_a}, want {want_a} (one a validation forward)")
 
     # --- run B: stopped by SIGTERM after TRAINER_STOP_AFTER macro steps, then --resume ---
     args_b = train.parse_args(argv("b"))
@@ -1815,7 +1193,7 @@ def trainer_phase(args, graph, data_dir: str, train_windows_per_s: float) -> dic
     trainer_c.model.gat_kernel = False
     val_plain = trainer_c.validate()
     trainer_c.model.gat_kernel = True
-    if gat_launches(ops.launch_counts()):
+    if any(launched(ops.launch_counts(), *GAT).values()):
         raise RuntimeError(f"trainer: the plain validation launched {ops.launch_counts()}")
     val_rel = abs(val_kernel[0] - val_plain[0]) / abs(val_plain[0])
     mae_diff = float(np.abs(np.asarray(val_kernel[1]["mae_by_horizon"]) - np.asarray(val_plain[1]["mae_by_horizon"])).max())
@@ -1883,9 +1261,11 @@ def trainer_phase(args, graph, data_dir: str, train_windows_per_s: float) -> dic
         f"{served['padded']['launches']}; max |stencil - padded| {diff:.4e} scaled (tol {SERVE_TOL_SCALED}); "
         f"finite {finite}"
     )
-    if not finite or served["stencil"]["route"] != "kernel" or not served["stencil"]["launches"].get("gat_stencil"):
+    stencil_gat = launched(served["stencil"]["launches"], *GAT)
+    if not finite or served["stencil"]["route"] != "kernel" or not stencil_gat["gat_stencil"] or stencil_gat[
+            "gat_stencil_general"]:
         raise RuntimeError(f"trainer serve: stencil service {served['stencil']['route']}, {served['stencil']['launches']}")
-    if gat_launches(served["padded"]["launches"]) or not diff <= SERVE_TOL_SCALED:
+    if any(launched(served["padded"]["launches"], *GAT).values()) or not diff <= SERVE_TOL_SCALED:
         raise RuntimeError(f"trainer serve: padded graph launched {served['padded']['launches']} or differs by {diff}")
 
     # --- a config the JAX package takes and the tiled kernel does not: 1 head x
@@ -1907,9 +1287,10 @@ def trainer_phase(args, graph, data_dir: str, train_windows_per_s: float) -> dic
         f"trainer serve (1 head x 22 channels): route {route_122!r}; launches {counts_122}; finite {finite_122}; "
         f"max |kernel - plain GAT| {diff_122:.4e} scaled (tol {SERVE_TOL_SCALED}); plain launches {counts_plain}"
     )
+    gat_122 = launched(counts_122, *GAT)
     if (not route_122.startswith("kernel, general form: ") or "1x22" not in route_122
-            or set(gat_launches(counts_122)) != {"gat_stencil_general"} or gat_launches(counts_plain) or not finite_122
-            or not diff_122 <= SERVE_TOL_SCALED):
+            or gat_122["gat_stencil"] or not gat_122["gat_stencil_general"] or any(launched(counts_plain, *GAT).values())
+            or not finite_122 or not diff_122 <= SERVE_TOL_SCALED):
         raise RuntimeError(f"general form: route {route_122!r}, launches {counts_122}, finite {finite_122}, "
                            f"diff {diff_122}")
 
@@ -2011,7 +1392,8 @@ def device_data_phase(args, archive: str) -> dict:
         abs(runs["device"]["history"][0][k] - runs["host"]["history"][0][k]) / abs(runs["host"]["history"][0][k])
         for k in ("train_loss", "val_loss")
     )
-    want_launches = {"gat_stencil": TRAINER_EPOCHS * val_batches}
+    want_launches = {"gat_stencil": TRAINER_EPOCHS * val_batches, "gat_stencil_general": 0,
+                     **dict.fromkeys(OPT_IN, 0)}
 
     # a gathered batch against the host mirror, fp32
     dev_ds = DeviceResidentDataset(archive, "train", L_in, L_out, stride=strides["train"])
@@ -2063,7 +1445,7 @@ def device_data_phase(args, archive: str) -> dict:
     if not rel <= DEVICE_DATA_RTOL or not gather_err <= 1e-6 or not tf_same:
         raise RuntimeError(f"device data: losses {rel:.3e}, gather {gather_err:.3e}, time features {tf_same}")
     for mode, r in runs.items():
-        if gat_launches(r["launches"]) != want_launches or len(r["history"]) != TRAINER_EPOCHS:
+        if launched(r["launches"], *want_launches) != want_launches or len(r["history"]) != TRAINER_EPOCHS:
             raise RuntimeError(f"device data[{mode}]: launches {r['launches']}, want {want_launches}; {r['history']}")
     return {
         "strides": strides, "train_windows": len(dev_ds), "val_windows": val_windows, "val_batches": val_batches,
@@ -2156,11 +1538,13 @@ def export_phase(args, data_dir: str) -> dict:
         node_ops = artifact_ops(ep)
         del ep
         custom = {k: v for k, v in node_ops.items() if k.startswith("tec_mollm.")}
-        per_forward = {"gat_stencil": 1, **({"short_attention": layers, "fused_mlp": layers} if ref == "fused" else {})}
-        want_nodes = {"tec_mollm.gat_stencil": 1, **({"tec_mollm.short_attention": layers,
-                                                       "tec_mollm.fused_ln_mlp": layers} if ref == "fused" else {})}
-        if label != "cpu_traced":  # traced on the card: the temporal op; on the CPU: the plain blocks
-            per_forward[TEMPORAL], want_nodes["tec_mollm.temporal_conv"] = 1, 1
+        fused = layers if ref == "fused" else 0
+        # traced on the card: the temporal op; on the CPU: the plain blocks
+        temporal_op = int(label != "cpu_traced")
+        per_forward = {"gat_stencil": 1, "gat_stencil_general": 0, "short_attention": fused, "fused_mlp": fused,
+                       "temporal_conv": temporal_op}
+        want_nodes = {"tec_mollm.gat_stencil": 1, "tec_mollm.short_attention": fused,
+                      "tec_mollm.fused_ln_mlp": fused, "tec_mollm.temporal_conv": temporal_op}
         service = ForecastService(cfg, data_dir, artifact=art, max_batch=BATCH)
         try:
             served = serve_http(service)
@@ -2190,9 +1574,9 @@ def export_phase(args, data_dir: str) -> dict:
             f"{forwards} forwards, launches {served['launches']} (want {want}); max |artifact - checkpoint| "
             f"{diff:.3e} scaled (tol {EXPORT_TOL_SCALED}); finite {finite}"
         )
-        if custom != want_nodes or node_ops.get("aten.roll", 0):
+        if {k: custom.get(k, 0) for k in want_nodes} != want_nodes or node_ops.get("aten.roll", 0):
             failures.append(f"{label}: op nodes {custom}, roll {node_ops.get('aten.roll', 0)}, want {want_nodes}")
-        if served["launches"] != want or not forwards:
+        if launched(served["launches"], *want) != want or not forwards:
             failures.append(f"{label}: launches {served['launches']} in {forwards} forwards, want {want}")
         if not diff <= EXPORT_TOL_SCALED or not finite or health["source"] != "artifact":
             failures.append(f"{label}: artifact vs checkpoint {diff}, finite {finite}, source {health['source']}")
@@ -2206,7 +1590,8 @@ def export_phase(args, data_dir: str) -> dict:
     cli_counts = ops.launch_counts()
     cli_stats = json.loads(stdout.getvalue().strip().splitlines()[-1])
     log(f"serve --artifact --bench {SERVE_CLI_BENCH}: {cli_stats}; launches {cli_counts}")
-    if cli_counts != {"gat_stencil": SERVE_CLI_BENCH + 1, TEMPORAL: SERVE_CLI_BENCH + 1} or cli_stats.get("source") != "artifact":
+    want_cli = {"gat_stencil": SERVE_CLI_BENCH + 1, "gat_stencil_general": 0, "temporal_conv": SERVE_CLI_BENCH + 1}
+    if launched(cli_counts, *want_cli) != want_cli or cli_stats.get("source") != "artifact":
         failures.append(f"serve CLI: launches {cli_counts}, stats {cli_stats}")
     if failures:
         raise RuntimeError(f"export phase: {failures}")
@@ -2452,12 +1837,12 @@ def data_parallel_phase(args, data_dir: str, trainer: dict) -> dict:
     )
     if a["backend"] != "nccl" or len(a["history"]) != TRAINER_EPOCHS or not rel_a <= RESUME_RTOL:
         raise RuntimeError(f"ddp[a]: backend {a['backend']}, history {a['history']}, distance {rel_a}")
-    if a["launches"].get("gat_stencil", 0) != TRAINER_EPOCHS * val_batches or set(gat_launches(a["launches"])) - {"gat_stencil"}:
-        raise RuntimeError(f"ddp[a]: launches {a['launches']}, want gat_stencil = {TRAINER_EPOCHS * val_batches}")
+    want_a = {"gat_stencil": TRAINER_EPOCHS * val_batches, "gat_stencil_general": 0, **dict.fromkeys(OPT_IN, 0)}
+    if launched(a["launches"], *want_a) != want_a:
+        raise RuntimeError(f"ddp[a]: launches {a['launches']}, want {want_a}")
 
     # --- (b) DDP_RANKS gloo ranks on the one card, fp32 and no dropout, against one process ---
-    m = dataclasses.replace(cfg.model, gat_dropout=0.0, lora_dropout=0.0, llm_dropout=0.0, head_dropout=0.0,
-                            post_llm_dropout=0.0)
+    m = dataclasses.replace(cfg.model, **NO_DROPOUT)
     fp32 = dataclasses.replace(cfg, model=m, train=dataclasses.replace(cfg.train, bf16=False))
     cfg_path = os.path.join(ddp_dir, "fp32.json")
     with open(cfg_path, "w") as f:
@@ -2503,7 +1888,8 @@ def data_parallel_phase(args, data_dir: str, trainer: dict) -> dict:
         raise RuntimeError(f"ddp[b]: the ranks report different losses {losses}")
     if not (rel_b <= DDP_RTOL and mae_b <= DDP_MAE_RTOL):
         raise RuntimeError(f"ddp[b]: losses {rel_b:.3e} or MAE {mae_b:.3e} from one process")
-    if gat_b != want_gat or any(set(gat_launches(r["launches"])) - {"gat_stencil"} for r in ranks):
+    if gat_b != want_gat or any(
+            any(launched(r["launches"], "gat_stencil_general", *OPT_IN).values()) for r in ranks):
         raise RuntimeError(f"ddp[b]: launches {[r['launches'] for r in ranks]}, want gat_stencil {want_gat}")
     if counts_1.get("gat_stencil", 0) != TRAINER_EPOCHS * val_batches + val_batches:
         raise RuntimeError(f"ddp[b]: the one-process run launched {counts_1}")
@@ -2601,7 +1987,7 @@ def check_tp_ranks(name: str, ranks: list[dict], hist_1: list[dict], val_1: dict
     if any(r["c_attn_shape"] != [768, 3 * 768 // TP_RANKS] for r in ranks):
         raise RuntimeError(f"tp[{name}]: c_attn slices {[r['c_attn_shape'] for r in ranks]}")
     if gat != [want_val] * len(ranks) or gat_eval != [want_eval] * len(ranks) or any(
-            set(gat_launches(r["launches"])) - {"gat_stencil"} for r in ranks):
+            any(launched(r["launches"], "gat_stencil_general", *OPT_IN).values()) for r in ranks):
         raise RuntimeError(f"tp[{name}]: launches {[(r['launches'], r['launches_eval']) for r in ranks]}")
     return {"max_rel_loss_diff": rel, "val_mae_by_horizon_max_rel_diff": mae, "gat_launches_by_rank": gat,
             "eval_gat_launches_by_rank": gat_eval,
@@ -2780,7 +2166,6 @@ def eval_phase(args, graph, data_dir: str) -> dict:
     from tec_mollm_tpu_torch import ops, predict, test
     from tec_mollm_tpu_torch.config import operational_config
     from tec_mollm_tpu_torch.data.dataset import SlidingWindowDataset
-    from tec_mollm_tpu_torch.data.scaler import StandardScaler
     from tec_mollm_tpu_torch.evaluation import harness
     from tec_mollm_tpu_torch.models import TECMoLLM
     from tec_mollm_tpu_torch.serving import ForecastService
@@ -2814,7 +2199,7 @@ def eval_phase(args, graph, data_dir: str) -> dict:
         "--checkpoint", "latest", "--rollout-steps", str(EVAL_ROLLOUT_STEPS),
         "--rollout-windows", str(EVAL_ROLLOUT_WINDOWS), "--output-dir", point_dir]))
     header, rows = read_csv(os.path.join(point_dir, "evaluation_results.csv"))
-    want_counts = {"gat_stencil": eval_batches + chunks}
+    want_counts = {"gat_stencil": eval_batches + chunks, "gat_stencil_general": 0, **dict.fromkeys(OPT_IN, 0)}
     finite = all(np.isfinite(r).all() for r in rows.values())
     log(
         f"eval[point]: {ckpt} ({cfg.model.num_nodes} nodes, bf16 {cfg.train.bf16}), {len(test_ds)} test windows in "
@@ -2825,7 +2210,8 @@ def eval_phase(args, graph, data_dir: str) -> dict:
     )
     if list(rows) != ["TEC-MoLLM", "HistoricalAverage"] or not finite or len(test_ds) < 64:
         raise RuntimeError(f"eval[point]: rows {list(rows)}, finite {finite}, {len(test_ds)} windows")
-    if not os.path.exists(os.path.join(point_dir, "rollout_results.csv")) or gat_launches(counts_point) != want_counts:
+    if (not os.path.exists(os.path.join(point_dir, "rollout_results.csv"))
+            or launched(counts_point, *want_counts) != want_counts):
         raise RuntimeError(f"eval[point]: launches {counts_point}, want {want_counts}, or no rollout_results.csv")
 
     # the same evaluation with the GAT on its plain path: same weights, same batches
@@ -2848,22 +2234,10 @@ def eval_phase(args, graph, data_dir: str) -> dict:
               for k in ("mae_avg", "rmse_avg", "mae_by_horizon", "rmse_by_horizon"))
     log(f"eval[point] through the GAT kernel vs the plain GAT: MAE/RMSE largest relative difference {rel:.3e} "
         f"(tol {VAL_RTOL}); plain launches {plain_counts}")
-    if gat_launches(plain_counts) or not rel <= VAL_RTOL:
+    if any(launched(plain_counts, *GAT).values()) or not rel <= VAL_RTOL:
         raise RuntimeError(f"eval[point]: kernel vs plain GAT {rel:.3e}, plain launches {plain_counts}")
 
-    # --- the eval loop timed on a warm executor, then profiled ---
-    state = harness.load_params_for_eval(cfg, ckpt)
-    scaler = StandardScaler.load(os.path.join(data_dir, "target_scaler.npz"))
-    ex = harness.EvalExecutor(cfg, graph, state, batch)
-    ex.stream_metrics(test_ds, scaler)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ex.stream_metrics(test_ds, scaler)
-    torch.cuda.synchronize()
-    stream_s = time.perf_counter() - t0
-    prof = profile_call(lambda: ex.stream_metrics(test_ds, scaler))
-    busy = prof["device_ms"] / (stream_s * 1e3)
-    del ex
+    # --- the rollout timed, then profiled ---
     rollout_dir = os.path.join(out, "rollout")
     harness.run_rollout_eval(cfg, data_dir, ckpt, EVAL_ROLLOUT_STEPS, EVAL_ROLLOUT_WINDOWS, output_dir=rollout_dir)
     torch.cuda.synchronize()
@@ -2877,21 +2251,13 @@ def eval_phase(args, graph, data_dir: str) -> dict:
     rollout_kernel_ms = sum(r["ms"] for r in prof_rollout["top"] if not r["name"].startswith("Memcpy"))
     prof_rollout["top"] = prof_rollout["top"][:12]
     timing = {
-        "eval_windows_per_s": len(test_ds) / stream_s, "eval_ms_per_batch": stream_s * 1e3 / eval_batches,
-        "eval_device_busy_share_unprofiled_wall": busy, "profile_eval": prof,
         "rollout_s": rollout_s, "rollout_kernel_ms_per_chunk": rollout_kernel_ms / chunks,
         "profile_rollout": prof_rollout,
     }
     log(
-        f"eval timing: {len(test_ds)} windows in {stream_s * 1e3:.1f} ms on a warm executor = "
-        f"{timing['eval_windows_per_s']:.1f} windows/s, {timing['eval_ms_per_batch']:.2f} ms a batch of {batch}; "
-        f"device {prof['device_ms']:.2f} ms = busy {busy:.2%} of the unprofiled wall ({prof['device_busy_share']:.2%} "
-        f"under the profiler); rollout eval {rollout_s * 1e3:.1f} ms (checkpoint load and model build included), "
-        f"its kernels {timing['rollout_kernel_ms_per_chunk']:.2f} ms a chunk of {point['rollout']['num_windows']} "
-        "windows"
+        f"eval timing: rollout eval {rollout_s * 1e3:.1f} ms (checkpoint load and model build included), its "
+        f"kernels {timing['rollout_kernel_ms_per_chunk']:.2f} ms a chunk of {point['rollout']['num_windows']} windows"
     )
-    for row in prof["top"][:8]:
-        log(f"  {row['ms']:8.3f} ms x{row['calls']:<4d} {row['name']}")
 
     # --- 2. the same weights as a reference .pth: DDP prefixes, no config.json beside ---
     ref_dir = os.path.join(data_dir, "reference")
@@ -2964,8 +2330,9 @@ def eval_phase(args, graph, data_dir: str) -> dict:
         raise RuntimeError(f"eval[operational]: adaptive run wrote {q_csvs}")
     if bands_diff is None or not bands_diff <= BANDS_TOL_TECU:
         raise RuntimeError(f"eval[operational]: service vs predict conformal bands {bands_diff}")
-    if set(gat_launches(launches)) != {"gat_stencil"}:
-        raise RuntimeError(f"eval: launches {launches}, want the GAT kernel alone beside the temporal kernel")
+    gat = launched(launches, *GAT)
+    if not gat["gat_stencil"] or gat["gat_stencil_general"]:
+        raise RuntimeError(f"eval: launches {launches}, want the GAT kernel's tiled form alone")
     phase_s = time.perf_counter() - phase_t0
     log(f"eval phase: {phase_s:.1f} s; launches over its CLI and service runs {launches}")
     return {
@@ -3175,229 +2542,37 @@ def pretrain_phase(args, graph) -> dict:
     return out
 
 
-def simulate_sarima(steps: int, nodes: int, season: int, coeffs: tuple, seed: int) -> np.ndarray:
-    """(steps, nodes) drawn from SARIMA(1,1,1)x(1,1,1,season) with the given
-    (phi, Phi, theta, Theta): the SARMA recursion on unit innovations, then
-    (1-B) and (1-B^s) integrated (the JAX test's simulator, over all nodes)."""
-    phi, sphi, theta, stheta = coeffs
-    eps = np.random.default_rng(seed).normal(0, 1, (steps, nodes))
-    y = np.zeros((steps, nodes))
-    for t in range(steps):
-        y[t] = eps[t]
-        if t >= 1:
-            y[t] += phi * y[t - 1] + theta * eps[t - 1]
-        if t >= season:
-            y[t] += sphi * y[t - season] + stheta * eps[t - season]
-        if t >= season + 1:
-            y[t] += -phi * sphi * y[t - season - 1] + theta * stheta * eps[t - season - 1]
-    x1 = np.cumsum(y, axis=0)
-    x = np.zeros_like(x1)
-    for t in range(steps):
-        x[t] = x1[t] + (x[t - season] if t >= season else 0.0)
-    return x
-
-
-def sarima_kernel_checks(args) -> dict:
-    """Phase 14 (a)'s kernels: the three against their plain versions on a
-    simulated (SARIMA_T, 2911) series, the fit's two also at SARIMA_EDGES and
-    twice on the same inputs, 3 Adam steps kernel against plain, and their
-    times. Returns the series, its scaled difference y and the forecast
-    windows for the fit, and what failed."""
-    import torch
-
-    from tec_mollm_tpu_torch.config import Config
-    from tec_mollm_tpu_torch.models import sarima
-    from tec_mollm_tpu_torch.ops import sarima as sops
-
-    dev = torch.device("cuda")
-    cfg = Config().resolved()
-    n, s, L_in, L_out = cfg.model.num_nodes, SARIMA_SEASON, cfg.train.L_in, cfg.train.L_out
-    series = simulate_sarima(SARIMA_T, n, s, SARIMA_TRUTH, args.seed)
-    y = sarima.scaled_difference(series, s, dev)
-    steps_t = y.shape[0]
-    raw = torch.randn(4, n, generator=torch.Generator(device=dev).manual_seed(args.seed), device=dev) * 0.5
-    coeffs = (0.99 * torch.tanh(raw)).contiguous()
-    scale = 2.0 / ((steps_t - s - 1) * n)
-    starts = np.linspace(0, SARIMA_T - L_in, SARIMA_BATCH).astype(np.int64)
-    wins = torch.tensor(np.stack([series[a : a + L_in] for a in starts]), dtype=torch.float32, device=dev)
-
-    def rel(got, want) -> tuple[float, float]:
-        # largest difference, and over the largest magnitude (the difference itself where want is all 0)
-        diff, top = float((got - want).abs().max()), float(want.abs().max())
-        return diff, diff / top if top > 0 else diff
-
-    e_k, part_k = sops.css_forward(y, coeffs, s)
-    e_p, part_p = sops.css_forward_reference(y, coeffs, s)
-    g_k = sops.css_backward(y, e_k, coeffs, s, scale)
-    g_p = sops.css_backward_reference(y, e_p, coeffs, s, scale)
-    f_k, f_p = sops.forecast(wins, coeffs, L_out, s), sops.forecast_reference(wins, coeffs, L_out, s)
-    (loss_k, graw_k), (loss_p, graw_p) = sops.css_loss_and_grad(raw, y, s), sops.css_loss_and_grad_reference(raw, y, s)
-    torch.cuda.synchronize()
-    errs = {"e": rel(e_k, e_p), "partial": rel(part_k, part_p), "grad": rel(g_k, g_p), "forecast": rel(f_k, f_p),
-            "loss": rel(loss_k, loss_p), "grad_raw": rel(graw_k, graw_p)}
-    raw3_k = sarima.adam_fit(y, s, 3)
-    raw3_p = sarima.adam_fit(y, s, 3, loss_and_grad=sops.css_loss_and_grad_reference)
-    adam_err = float((raw3_k - raw3_p).abs().max())
-    log(
-        f"sarima: y ({steps_t}, {n}) fp32, season {s}; kernel vs plain, largest difference / largest magnitude: "
-        + ", ".join(f"{k} {r:.3e}" for k, (_, r) in errs.items())
-        + f" (tol {SARIMA_RTOL}); raw after 3 Adam steps differ by {adam_err:.3e} (tol {SARIMA_ADAM_ATOL})"
-    )
-    failures = [k for k, (_, r) in errs.items() if not r <= SARIMA_RTOL]
-    if not adam_err <= SARIMA_ADAM_ATOL:
-        failures.append("adam")
-
-    # the fit kernels at the edge shapes, and two launches on the same inputs
-    # give the same bits (the flagship's too)
-    edges = []
-    for t_e, n_e, s_e in SARIMA_EDGES:
-        ye, ce = y[:t_e, :n_e].contiguous(), coeffs[:, :n_e].contiguous()
-        sc = 2.0 / (max(t_e - s_e - 1, 1) * n_e)
-        (e1, p1), (e2, p2) = sops.css_forward(ye, ce, s_e), sops.css_forward(ye, ce, s_e)
-        ep, pp = sops.css_forward_reference(ye, ce, s_e)
-        g1, g2 = sops.css_backward(ye, ep, ce, s_e, sc), sops.css_backward(ye, ep, ce, s_e, sc)
-        gp = sops.css_backward_reference(ye, ep, ce, s_e, sc)
-        torch.cuda.synchronize()
-        edge = {"shape": (t_e, n_e, s_e), "e": rel(e1, ep), "partial": rel(p1, pp), "grad": rel(g1, gp),
-                "same_bits": bool(torch.equal(e1, e2) and torch.equal(p1, p2) and torch.equal(g1, g2)),
-                "partial_zero": bool(t_e < s_e + 1 and not p1.any() and not g1.any())}
-        log(f"sarima edge (T {t_e}, N {n_e}, s {s_e}): kernel vs plain e {edge['e'][1]:.3e}, partial "
-            f"{edge['partial'][1]:.3e}, grad {edge['grad'][1]:.3e} (tol {SARIMA_RTOL}); two launches the same "
-            f"bits {edge['same_bits']}" + (f"; T < s + 1: partial and grad 0 {edge['partial_zero']}"
-                                           if t_e < s_e + 1 else ""))
-        bad = [k for k in ("e", "partial", "grad") if not edge[k][1] <= SARIMA_RTOL]
-        if bad or not edge["same_bits"] or (t_e < s_e + 1 and not edge["partial_zero"]):
-            failures.append(f"edge {edge['shape']}: {bad}, same bits {edge['same_bits']}")
-        edges.append(edge)
-    # the forecast at its edge shapes: windows of the series, as many nodes
-    forecast_edges = []
-    for b_e, l_e, n_e, s_e, h_e in SARIMA_FORECAST_EDGES:
-        at = np.linspace(0, SARIMA_T - l_e, b_e).astype(np.int64)
-        xe = torch.tensor(np.stack([series[a : a + l_e, :n_e] for a in at]), dtype=torch.float32, device=dev)
-        ce = coeffs[:, :n_e].contiguous()
-        f1, f2 = sops.forecast(xe, ce, h_e, s_e), sops.forecast(xe, ce, h_e, s_e)
-        fp = sops.forecast_reference(xe, ce, h_e, s_e)
-        torch.cuda.synchronize()
-        edge = {"shape": (b_e, l_e, n_e, s_e, h_e), "forecast": rel(f1, fp), "same_bits": bool(torch.equal(f1, f2)),
-                "finite": bool(f1.isfinite().all()), "plan": forecast_plan_of(l_e, s_e, h_e)}
-        log(f"sarima forecast edge (windows {b_e}, L {l_e}, N {n_e}, s {s_e}, horizon {h_e}): kernel vs plain "
-            f"{edge['forecast'][1]:.3e} (tol {SARIMA_RTOL}); two launches the same bits {edge['same_bits']}; "
-            f"plan {edge['plan']}")
-        if not (edge["forecast"][1] <= SARIMA_RTOL and edge["same_bits"] and edge["finite"]):
-            failures.append(f"forecast edge {edge['shape']}: {edge['forecast'][1]:.3e}, same bits {edge['same_bits']}")
-        forecast_edges.append(edge)
-    e_again, part_again = sops.css_forward(y, coeffs, s)
-    g_again = sops.css_backward(y, e_k, coeffs, s, scale)
-    f_again = sops.forecast(wins, coeffs, L_out, s)
-    same_bits = bool(torch.equal(e_again, e_k) and torch.equal(part_again, part_k) and torch.equal(g_again, g_k)
-                     and torch.equal(f_again, f_k))
-    log(f"sarima: flagship, two launches the same bits (the three kernels): {same_bits}; the forecast's plan "
-        f"{forecast_plan_of(L_in, s, L_out)}")
-    if not same_bits:
-        failures.append("flagship: two launches differ")
-
-    # the kernels' entries of the kernels line: times (also through their
-    # bare C entries), bounds (bytes: each input read once, each
-    # output written once)
-    arr = steps_t * n * 4
-    bare_calls = {sops.FORWARD: sarima_bare_entry(y, coeffs, s),
-                  sops.BACKWARD: sarima_bare_entry(y, coeffs, s, e_k, scale),
-                  sops.FORECAST: forecast_bare_entry(wins, coeffs, L_out, s)}
-    entries = []
-    for name, shape, fn, plain, bytes_moved, flops, err in (
-        (sops.FORWARD, f"y ({steps_t},{n}) fp32, coeffs (4,{n}) -> e, partial",
-         lambda: sops.css_forward(y, coeffs, s), lambda: sops.css_forward_reference(y, coeffs, s),
-         2 * arr + 20 * n, 14 * steps_t * n, errs["e"]),
-        (sops.BACKWARD, f"y, e ({steps_t},{n}) fp32, coeffs (4,{n}) -> grad (4,{n})",
-         lambda: sops.css_backward(y, e_k, coeffs, s, scale),
-         lambda: sops.css_backward_reference(y, e_k, coeffs, s, scale), 2 * arr + 32 * n, 20 * steps_t * n,
-         errs["grad"]),
-        (sops.FORECAST, f"windows ({SARIMA_BATCH},{L_in},{n}) fp32 -> ({SARIMA_BATCH},{L_out},{n})",
-         lambda: sops.forecast(wins, coeffs, L_out, s), lambda: sops.forecast_reference(wins, coeffs, L_out, s),
-         SARIMA_BATCH * (L_in + L_out) * n * 4 + 16 * n, SARIMA_BATCH * n * (16 * L_in + 16 * L_out), errs["forecast"]),
-    ):
-        e = {"name": name, "route": "cuda", "source": "tec_mollm_tpu_torch/csrc/sarima.cu",
-             "replaces": "tec_mollm_tpu/models/sarima.py:61", "shape": shape, "bytes": bytes_moved, "flops": flops,
-             "max_abs_err": err[0], "max_rel_err": err[1], "tol_rel": SARIMA_RTOL,
-             "ms": time_ms(fn, REPS), "plain_ms": time_ms(plain, 1, runs=2), "library_ms": None}
-        e["bound_ms"], e["bound_by"] = bound(bytes_moved, flops, PEAK_FLOPS["fp32"])
-        bare = ""
-        if name in bare_calls:
-            e["bare_ms"] = time_ms(bare_calls[name], REPS)
-            bare = f" (bare {e['bare_ms']:.4f} ms, the bound {e['bound_ms'] / e['bare_ms']:.1%} of it)"
-        if name == sops.FORECAST:
-            e["device_ms"], seen = kernel_device_ms(bare_calls[name], DEVICE_REPS, "forecast_")
-            bare += "; " + device_note(e["device_ms"], seen, DEVICE_REPS, e["bound_ms"])
-        log(f"kernel {name}: {shape}: max_abs {err[0]:.3e} max_rel {err[1]:.3e}; kernel {e['ms']:.4f} ms{bare}, "
-            f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
-        entries.append(e)
-    entries[-1]["large"] = forecast_large(series, coeffs, L_in, L_out, s, failures)
-    step_ms = time_ms(lambda: sops.css_loss_and_grad(raw, y, s), REPS)
-
-    return {"series": series, "y": y, "wins": wins, "L_out": L_out, "entries": entries, "errors": errs,
-            "adam_err": adam_err, "edges": edges, "forecast_edges": forecast_edges, "same_bits": same_bits,
-            "step_ms": step_ms, "failures": failures}
-
-
-def forecast_large(series, coeffs, L_in: int, L_out: int, s: int, failures: list) -> dict:
-    """The forecast at SARIMA_FORECAST_LARGE windows of the series: against
-    its plain version, then timed through the wrapper, the bare C entry and
-    on the device's clock, beside its bytes bound."""
-    import torch
-
-    from tec_mollm_tpu_torch.ops import sarima as sops
-
-    n = series.shape[1]
-    starts = np.linspace(0, SARIMA_T - L_in, SARIMA_FORECAST_LARGE).astype(np.int64)
-    wins = torch.tensor(np.stack([series[a : a + L_in] for a in starts]), dtype=torch.float32, device="cuda")
-    got, want = sops.forecast(wins, coeffs, L_out, s), sops.forecast_reference(wins, coeffs, L_out, s)
-    err = float((got - want).abs().max()) / float(want.abs().max())
-    del want
-    bytes_moved = SARIMA_FORECAST_LARGE * (L_in + L_out) * n * 4 + 16 * n
-    bare = forecast_bare_entry(wins, coeffs, L_out, s)
-    out = {"windows": SARIMA_FORECAST_LARGE, "max_rel_err": err, "bytes": bytes_moved,
-           "bound_ms": bytes_moved / PEAK_BYTES * 1e3, "ms": time_ms(lambda: sops.forecast(wins, coeffs, L_out, s), 5),
-           "bare_ms": time_ms(bare, 5)}
-    out["device_ms"], seen = kernel_device_ms(bare, DEVICE_REPS, "forecast_")
-    log(f"kernel sarima_forecast at {SARIMA_FORECAST_LARGE} windows ({bytes_moved / 1e6:.1f} MB): kernel vs plain "
-        f"{err:.3e} (tol {SARIMA_RTOL}); {out['ms']:.4f} ms, bare {out['bare_ms']:.4f}; bound {out['bound_ms']:.4f} "
-        f"ms; " + device_note(out["device_ms"], seen, DEVICE_REPS, out["bound_ms"]))
-    if not err <= SARIMA_RTOL:
-        failures.append(f"forecast at {SARIMA_FORECAST_LARGE} windows: {err:.3e}")
-    return out
-
-
-def sarima_fit(checks: dict) -> dict:
-    """Phase 14 (a)'s main path: the full fit of SARIMA_FIT_STEPS steps
-    through the kernels on sarima_kernel_checks' series and one forecast
-    batch, launches counted from zero; then SARIMA_PROFILE_STEPS warm fit
-    steps timed and as many profiled. Appends what failed to
-    checks["failures"]."""
+def sarima_fit(inputs: dict) -> dict:
+    """Phase 14 (a)'s main path on sarima_inputs' series: one fit step's loss
+    and gradient timed back to back, the full fit of SARIMA_FIT_STEPS steps
+    through the kernels and one forecast batch, launches counted from zero;
+    then SARIMA_PROFILE_STEPS warm fit steps timed and as many profiled.
+    What failed goes under "failures"."""
     import torch
 
     from tec_mollm_tpu_torch import ops
     from tec_mollm_tpu_torch.models import sarima
     from tec_mollm_tpu_torch.ops import sarima as sops
 
-    s, y, n = SARIMA_SEASON, checks["y"], checks["y"].shape[1]
-    step_ms, failures = checks["step_ms"], checks["failures"]
+    s, y, n = inputs["season"], inputs["y"], inputs["y"].shape[1]
+    step_ms = time_ms(lambda: sops.css_loss_and_grad(inputs["raw"], y, s), REPS)
+    failures = []
     ops.reset_counts()
     t0 = time.perf_counter()
-    params = sarima.fit_sarima(checks["series"], season=s, steps=SARIMA_FIT_STEPS, device=torch.device("cuda"))
+    params = sarima.fit_sarima(inputs["series"], season=s, steps=SARIMA_FIT_STEPS, device=torch.device("cuda"))
     fit_wall = time.perf_counter() - t0
-    preds = sarima.forecast_windows(params, checks["wins"], checks["L_out"], season=s)
+    preds = sarima.forecast_windows(params, inputs["wins"], inputs["horizon"], season=s)
     torch.cuda.synchronize()
     fit_counts = ops.launch_counts()
     phi_mean = float(params.phi.mean())
     log(
         f"sarima: fit of {SARIMA_FIT_STEPS} Adam steps on ({SARIMA_T}, {n}): {fit_wall:.3f} s, "
         f"{fit_wall / SARIMA_FIT_STEPS * 1e3:.3f} ms a step (loss and gradient alone, back to back, {step_ms:.4f} "
-        f"ms a call, {step_ms / (fit_wall / SARIMA_FIT_STEPS * 1e3):.2%} of the step); forecast "
-        f"{checks['entries'][2]['ms']:.4f} ms a batch of {SARIMA_BATCH}; phi mean {phi_mean:.4f} "
+        f"ms a call, {step_ms / (fit_wall / SARIMA_FIT_STEPS * 1e3):.2%} of the step); phi mean {phi_mean:.4f} "
         f"(truth {SARIMA_TRUTH[0]} +- {SARIMA_PHI_TOL}); launches {fit_counts}"
     )
     want = {sops.FORWARD: SARIMA_FIT_STEPS, sops.BACKWARD: SARIMA_FIT_STEPS, sops.FORECAST: 1}
-    if fit_counts != want:
+    if launched(fit_counts, *want) != want:
         failures.append(f"fit launches {fit_counts}, want {want}")
     if not abs(phi_mean - SARIMA_TRUTH[0]) <= SARIMA_PHI_TOL or not bool(preds.isfinite().all()):
         failures.append(f"fit: phi mean {phi_mean}, or a forecast not finite")
@@ -3421,15 +2596,16 @@ def sarima_fit(checks: dict) -> dict:
         f"{seen} (of {SARIMA_PROFILE_STEPS} each); top "
         + "; ".join(f"{r['name'][:60]} x{r['calls']} {r['ms']:.3f} ms" for r in prof["top"])
     )
-    return {"fit_wall_s": fit_wall, "fit_ms_a_step": fit_wall / SARIMA_FIT_STEPS * 1e3, "phi_mean": phi_mean,
-            "fit_launches": fit_counts, "warm_step_ms": warm_step_ms, "device_step_ms": device_step_ms,
-            "warm_step_busy_share": device_step_ms / warm_step_ms, "fit_profile": prof}
+    return {"loss_and_grad_ms": step_ms, "fit_wall_s": fit_wall, "fit_ms_a_step": fit_wall / SARIMA_FIT_STEPS * 1e3,
+            "phi_mean": phi_mean, "fit_launches": fit_counts, "warm_step_ms": warm_step_ms,
+            "device_step_ms": device_step_ms, "warm_step_busy_share": device_step_ms / warm_step_ms,
+            "fit_profile": prof, "failures": failures}
 
 
 def sarima_phase(args, data_dir: str) -> dict:
-    """The SARIMA baseline at flagship width (phase 14 (a)): the kernel checks
-    (sarima_kernel_checks), the full fit through the kernels (sarima_fit),
-    and the test CLI with --baseline sarima on phase 8's checkpoint and data."""
+    """The SARIMA baseline at flagship width (phase 14 (a)): the full fit
+    through the kernels (sarima_fit), and the test CLI with --baseline sarima
+    on phase 8's checkpoint and data."""
     import torch
 
     from tec_mollm_tpu_torch import ops, test
@@ -3441,9 +2617,8 @@ def sarima_phase(args, data_dir: str) -> dict:
     phase_t0 = time.perf_counter()
     cfg = Config().resolved()
     s, L_in, L_out = SARIMA_SEASON, cfg.train.L_in, cfg.train.L_out
-    checks = sarima_kernel_checks(args)
-    fit = sarima_fit(checks)
-    failures = checks["failures"]
+    fit = sarima_fit(sarima_inputs(args.seed, torch.device("cuda")))
+    failures = fit.pop("failures")
     launches = dict(fit["fit_launches"])
 
     work, out = os.path.join(data_dir, "work"), os.path.join(data_dir, "eval", "sarima")
@@ -3468,18 +2643,14 @@ def sarima_phase(args, data_dir: str) -> dict:
     )
     if list(rows) != ["TEC-MoLLM", "HistoricalAverage", "SARIMA"] or not finite:
         failures.append(f"test CLI rows {list(rows)}, finite {finite}")
-    if (cli_counts.get(sops.FORWARD), cli_counts.get(sops.BACKWARD), cli_counts.get(sops.FORECAST)) != (
-            cli_steps, cli_steps, batches):
-        failures.append(f"test CLI launches {cli_counts}")
+    want = {sops.FORWARD: cli_steps, sops.BACKWARD: cli_steps, sops.FORECAST: batches}
+    if launched(cli_counts, *want) != want:
+        failures.append(f"test CLI launches {cli_counts}, want {want}")
     if failures:
         raise RuntimeError(f"sarima: {failures}")
     return {
-        "entries": checks["entries"], "launches": launches, "errors": checks["errors"],
-        "adam_3_steps_max_abs": checks["adam_err"], "edges": checks["edges"],
-        "forecast_edges": checks["forecast_edges"], "same_bits": checks["same_bits"],
-        "loss_and_grad_ms": checks["step_ms"], "forecast_ms_a_batch": checks["entries"][2]["ms"], **fit,
-        "cli_wall_s": cli_wall, "cli_launches": cli_counts, "cli_results": res["results"],
-        "wall_s": time.perf_counter() - phase_t0,
+        "launches": launches, **fit, "cli_wall_s": cli_wall, "cli_launches": cli_counts,
+        "cli_results": res["results"], "wall_s": time.perf_counter() - phase_t0,
     }
 
 
@@ -3503,8 +2674,7 @@ def arms_phase(args) -> dict:
     ref = None
     for name, (kw, policy) in ARMS.items():
         cfg = bench.bench_config("default", remat_policy=policy)
-        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, gat_dropout=0.0, lora_dropout=0.0, llm_dropout=0.0, head_dropout=0.0, post_llm_dropout=0.0))
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **NO_DROPOUT))
         if ref is None:
             m = cfg.model
             _, graph_pair = graph_inputs(build_graph(*grid_coordinates(m.grid_h, m.grid_w)), dev)
@@ -3577,6 +2747,151 @@ def ablation_phase(args, data_dir: str) -> dict:
     return out
 
 
+def dsv2_processed_dir(path: str, cfg) -> None:
+    """A seeded processed dir at the configuration's grid: DSV2_WINDOWS
+    windows of train, val and test, graph.npz and target_scaler.npz."""
+    from tec_mollm_tpu_torch.data import StandardScaler
+    from tec_mollm_tpu_torch.data.synthetic import synthetic_processed_split
+    from tec_mollm_tpu_torch.graph import build_graph, grid_coordinates
+
+    os.makedirs(path, exist_ok=True)
+    m = cfg.model
+    for seed, (split, n) in enumerate(zip(("train", "val", "test"), DSV2_WINDOWS)):
+        np.savez(os.path.join(path, f"{split}_set.npz"),
+                 **synthetic_processed_split(n, cfg.train.L_in, cfg.train.L_out, m.num_nodes, seed=seed))
+    build_graph(*grid_coordinates(m.grid_h, m.grid_w)).save(os.path.join(path, "graph.npz"))
+    StandardScaler(np.array([TARGET_MEAN]), np.array([TARGET_SCALE])).save(os.path.join(path, "target_scaler.npz"))
+
+
+def dsv2_reference_loss(params: dict, batch: dict, config: dict, device) -> float:
+    """The plain reference's Huber loss (float32) on a batch, at ``params``."""
+    import torch
+
+    from benchmark.reference import deepseek_v2 as rd
+    from benchmark.reference import model as ref
+
+    dims = rd.Dims.of(config)
+    delta = config["train"]["huber_delta"]
+    with torch.no_grad():
+        x, tf, y = (torch.as_tensor(batch[k], device=device) for k in ("x", "time_features", "y"))
+        pred = rd.forward(params, x.float(), tf.long(), ref.Graph(config, device), dims, ref.Precision())
+        err = (pred - y.float().transpose(1, 2)[..., None]).abs()
+        quad = err.clamp(max=delta)
+        return float((0.5 * quad * quad + delta * (err - quad)).mean())
+
+
+def dsv2_trainer_steps(cfg, config: dict, proc: str, work: str, device) -> dict:
+    """Trainer's first two macro steps from the cell's seeded weights, each
+    step's loss beside the reference's on the same rows and on the program's
+    weights of that step."""
+    import torch
+
+    from benchmark import harness
+    from benchmark.drivers import forecast_moe
+    from tec_mollm_tpu_torch.data import SlidingWindowDataset
+    from tec_mollm_tpu_torch.graph import GraphData
+    from tec_mollm_tpu_torch.training.trainer import Trainer
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t = cfg.train
+    ds = SlidingWindowDataset.from_dir(proc, "train", t.L_in, t.L_out, stride=1)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, ds, None, GraphData.load(os.path.join(proc, "graph.npz")), None, workdir=work,
+                      run_name="steps", device=device)
+    cell, _, traffic = harness.load(DSV2_CELL)
+    weights = forecast_moe.seeded_weights(harness.Ctx(DSV2_CELL, cell, config, traffic, DSV2_WEIGHT_SEED, device,
+                                                      work))
+    trainer.set_params(weights)
+    built = time.perf_counter() - t0
+    steps = []
+    for k, batch in enumerate(trainer.train_loader.iter_from(0)):
+        if k == 2:
+            break
+        params = dict(weights)
+        params.update({n: p.detach().float() for n, p in trainer.state.trainable().items()})
+        want = dsv2_reference_loss(params, batch, config, device)
+        sync()
+        s0 = time.perf_counter()
+        _, out = trainer._train_step(trainer.state, trainer._put(batch), trainer.graph)
+        got = float(out["loss"].detach())
+        sync()
+        steps.append({"loss": got, "reference_loss": want, "gap": abs(got - want) / abs(want),
+                      "grad_norm": float(out["grad_norm"]), "step_s": time.perf_counter() - s0})
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    del trainer, weights
+    return {"steps": steps, "build_s": built, "peak_bytes": peak}
+
+
+def dsv2_clis(config_path: str, proc: str, work: str, cpu: bool) -> dict:
+    """The train CLI for one epoch on the configuration file, then the test
+    and serve CLIs on the run it wrote; each one's wall."""
+    import contextlib
+    import io
+
+    from tec_mollm_tpu_torch import serve as serve_cli
+    from tec_mollm_tpu_torch import test as test_cli
+    from tec_mollm_tpu_torch import train as train_cli
+
+    out = {}
+    flag = ["--cpu"] if cpu else []
+    t0 = time.perf_counter()
+    history = train_cli.main(flag + ["--config", config_path, "--data-dir", proc, "--workdir", work, "--run-name",
+                                     "cli", "--epochs", "1"])
+    out["train"] = {"s": time.perf_counter() - t0, "history": history}
+    results = os.path.join(work, "results")
+    t0 = time.perf_counter()
+    test_cli.main(flag + ["--data-dir", proc, "--workdir", work, "--checkpoint", "latest", "--output-dir", results])
+    with open(os.path.join(results, "evaluation_results.csv")) as f:
+        out["test"] = {"s": time.perf_counter() - t0, "csv": f.read().splitlines()[:4]}
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.main(flag + ["--data-dir", proc, "--workdir", work, "--bench", "4"])
+    out["serve"] = {"s": time.perf_counter() - t0, "bench": json.loads(buf.getvalue().strip().splitlines()[-1])}
+    return out
+
+
+def dsv2_phase(device: str = "cuda", overrides: dict | None = None) -> dict:
+    """Phase 15: TEC-MoLLM on the DeepSeek-V2-Lite backbone at its published
+    widths through the port's entry points (see the module docstring).
+    ``device="cpu"`` with ``overrides`` of sizes (benchmark/tests/tiny.json)
+    rehearses it on the CPU."""
+    import torch
+
+    from benchmark import harness
+    from tec_mollm_tpu_torch.config import Config
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    _, config, _ = harness.load(DSV2_CELL, overrides)
+    config = harness.merge(config, {"model": NO_DROPOUT, "train": {"epochs": 1, "train_stride": 1}})
+    cfg = Config.from_dict({k: config[k] for k in ("model", "train", "data")}).resolved()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="tec_dsv2_") as work:
+        proc = os.path.join(work, "proc")
+        dsv2_processed_dir(proc, cfg)
+        config_path = os.path.join(work, "dsv2_lite.json")
+        with open(config_path, "w") as f:
+            f.write(cfg.to_json())
+        out["trainer"] = dsv2_trainer_steps(cfg, config, proc, os.path.join(work, "steps"), dev)
+        out.update(dsv2_clis(config_path, proc, os.path.join(work, "cli"), dev.type == "cpu"))
+    out["wall_s"] = time.perf_counter() - t0
+    steps = out["trainer"]["steps"]
+    gaps = ", ".join(format(s["gap"], ".3e") for s in steps)
+    log(
+        f"dsv2: Trainer steps' losses {[round(s['loss'], 6) for s in steps]} against the reference's "
+        f"{[round(s['reference_loss'], 6) for s in steps]} (relative gaps {gaps}, limit {DSV2_LOSS_GAP}); "
+        f"train CLI {out['train']['s']:.1f} s, test CLI {out['test']['s']:.1f} s, "
+        f"serve CLI {out['serve']['s']:.1f} s ({out['serve']['bench']}); phase {out['wall_s']:.1f} s"
+    )
+    if not all(s["gap"] < DSV2_LOSS_GAP for s in steps):
+        raise RuntimeError(f"dsv2: Trainer losses off the reference's: {steps}")
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--seed", type=int, default=0)
@@ -3610,77 +2925,46 @@ def main() -> int:
 
     t0 = time.perf_counter()
     lib = _build.build()
-    build_s = time.perf_counter() - t0
-    log(f"build: {lib} in {build_s:.1f} s")
+    results["build_s"] = time.perf_counter() - t0
+    log(f"build: {lib} in {results['build_s']:.1f} s")
     ptxas = (lib.parent / "ptxas.log").read_text() if (lib.parent / "ptxas.log").exists() else ""
     for line in ptxas_summary(ptxas):
         log(f"  {line}")
-    results["gat_ptxas"] = ptxas_entries(ptxas, "gat_stencil.cu")
-    for k in results["gat_ptxas"]:
-        log(f"  gat_stencil {k['entry']}: {k.get('registers')} registers, {k.get('spill_store_bytes')} bytes "
-            f"spilled, {k.get('static_smem_bytes')} bytes static smem")
-    results["sarima_ptxas"] = ptxas_entries(ptxas, "sarima.cu")
-    for k in results["sarima_ptxas"]:
-        if "css_" in k["entry"] or "forecast_" in k["entry"]:  # dynamic shared memory: phase 14 prints it
-            log(f"  sarima {k['entry']}: {k.get('registers')} registers, {k.get('spill_store_bytes')} bytes "
-                f"spilled, {k.get('static_smem_bytes')} bytes static smem")
-    results["temporal_ptxas"] = ptxas_entries(ptxas, "temporal_conv.cu")
-    for k in results["temporal_ptxas"]:
-        log(f"  temporal_conv {k['entry']}: {k.get('registers')} registers, {k.get('spill_store_bytes')} bytes "
-            f"spilled")
-    results["build_s"] = build_s
     results["ptxas"] = ptxas
+    for source in ("gat_stencil.cu", "sarima.cu", "temporal_conv.cu"):
+        for k in ptxas_entries(ptxas, source):
+            log(f"  {source} {k['entry']}: {k.get('registers')} registers, {k.get('spill_store_bytes')} bytes "
+                f"spilled, {k.get('static_smem_bytes')} bytes static smem")
 
     lat, lon = grid_coordinates(41, 71)
     graph = build_graph(lat, lon, distance_threshold_km=150.0)
-    entries = check_kernels(args, graph, results)
-    results["kernels"] = entries
+    table = kernel_table(kernel_cases(graph, args.seed))
+    results["kernels"] = table
     with tempfile.TemporaryDirectory(prefix="tec_smoke_") as data_dir:
-        paths = serve_phase(args, graph, data_dir, results)
-        results["serve"] = paths
-        train = train_phase(args)
-        results["train"] = train
-        trainer = trainer_phase(args, graph, data_dir, train["windows_per_s"])
-        results["trainer"] = trainer
-        prep = preprocess_phase(args, data_dir)
-        results["preprocess"] = prep
-        device_data = device_data_phase(args, prep["plain"]["dir"])
-        results["device_data"] = device_data
-        export = export_phase(args, data_dir)
-        results["export"] = export
-        evaluation = eval_phase(args, graph, data_dir)
-        results["eval"] = evaluation
-        ddp = data_parallel_phase(args, data_dir, trainer)
-        results["data_parallel"] = ddp
-        tp = tensor_parallel_phase(args, data_dir, ddp)
-        results["tensor_parallel"] = tp
-        ablation = ablation_phase(args, data_dir)
-        results["ablation"] = ablation
-        entries += ablation["sarima"]["entries"]
-    pretrain = pretrain_phase(args, graph)
-    results["pretrain"] = pretrain
-    runs = [p["launches"] for p in paths.values()] + [
-        train["launches"], trainer["launches"], trainer["launches_1x22"], device_data["launches"], export["launches"],
-        evaluation["launches"], ddp["launches"], tp["launches"], ablation["launches"], pretrain["launches"]]
-    for e in entries:
-        # launches over the main-path runs (both serve cells, the train steps,
-        # the trainer's run A, its 1 x 22 serve, the --device-data trainer, the
-        # artifacts' services, the eval phase's CLI and service runs, the
-        # data- and tensor-parallel ranks' runs, phase 14's SARIMA fit, test
-        # CLI and arm steps, and the pretrain steps), each counted from zero
-        # (a rank's in its own process)
-        e["launches"] = sum(r.get(e["name"], 0) for r in runs)
-        e["launches_export"] = export["launches"].get(e["name"], 0)
-        e["launches_device_data"] = device_data["launches"].get(e["name"], 0)
-        e["launches_eval"] = evaluation["launches"].get(e["name"], 0)
-        e["launches_ddp"] = ddp["launches"].get(e["name"], 0)
-        e["launches_tp"] = tp["launches"].get(e["name"], 0)
-        e["launches_ablation"] = ablation["launches"].get(e["name"], 0)
-        e["launches_per_forward_fused"] = paths["fused"]["launches"].get(e["name"], 0) / paths["fused"]["forwards"]
-        e["launches_per_train_step"] = train["launches_per_step"].get(e["name"], 0)
-        e["launches_trainer_run"] = trainer["launches"].get(e["name"], 0)
-        e["launches_per_pretrain_step"] = pretrain["launches_per_step"].get(e["name"], 0)
-    missing = [e["name"] for e in entries if e["launches"] == 0]
+        results["serve"] = serve = serve_phase(args, graph, data_dir)
+        results["train"] = train = train_phase(args)
+        results["trainer"] = trainer = trainer_phase(args, graph, data_dir, train["windows_per_s"])
+        results["preprocess"] = prep = preprocess_phase(args, data_dir)
+        results["device_data"] = device_data = device_data_phase(args, prep["plain"]["dir"])
+        results["export"] = export = export_phase(args, data_dir)
+        results["eval"] = evaluation = eval_phase(args, graph, data_dir)
+        results["data_parallel"] = ddp = data_parallel_phase(args, data_dir, trainer)
+        results["tensor_parallel"] = tp = tensor_parallel_phase(args, data_dir, ddp)
+        results["ablation"] = ablation = ablation_phase(args, data_dir)
+    results["pretrain"] = pretrain = pretrain_phase(args, graph)
+    results["dsv2"] = dsv2_phase()
+    # each kernel's launches over the main-path runs, each counted from zero
+    # (a rank's in its own process)
+    runs = {
+        "serve": collections.Counter(serve["default"]["launches"]) + collections.Counter(serve["fused"]["launches"]),
+        "train_step": train["launches"], "trainer_run_a": trainer["launches"], "trainer_1x22": trainer["launches_1x22"],
+        "device_data": device_data["launches"], "export": export["launches"], "eval": evaluation["launches"],
+        "ddp": ddp["launches"], "tp": tp["launches"], "ablation": ablation["launches"], "pretrain": pretrain["launches"],
+    }
+    names = list(dict.fromkeys(row["name"] for row in table))
+    results["launches"] = {run: launched(counts, *names) for run, counts in runs.items()}
+    totals = {name: sum(counts[name] for counts in results["launches"].values()) for name in names}
+    missing = [name for name, total in totals.items() if not total]
     if missing:
         raise RuntimeError(f"kernels never launched on a main path: {missing}")
     results["card"] = card
@@ -3688,11 +2972,9 @@ def main() -> int:
     with open(args.out, "w") as f:
         json.dump(results, f, indent=2, default=str)
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)  # the card's name and power limit, as nvidia-smi gives them
-    print(json.dumps({"kernels": [{k: e.get(k) for k in keys} for e in entries]}))
+    print(json.dumps({"kernels": table, "launches": results["launches"]}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

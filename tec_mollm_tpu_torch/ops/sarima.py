@@ -34,8 +34,9 @@ sequential versions. The kernels take seasons up to ``MAX_SEASON``.
 Their bound on this card is bytes (a fit step at T = 1987, N = 2911 moves
 92.6 MB, 27.6 us at 3.35 TB/s; ``PERF.md`` has their times). The plain
 versions compute the same math vectorised over nodes (and windows) with a
-Python loop over time: the CPU's path, and what ``chip_smoke.py`` holds the
-kernels against. A CUDA tensor launches the kernel or raises.
+Python loop over time: the CPU's path, and what the ``cuda`` cases of
+``tests/test_torch_sarima.py`` hold the kernels against. A CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations

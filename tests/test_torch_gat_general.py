@@ -7,10 +7,11 @@ mirror of the general CUDA kernel's decomposition (gat_stencil_general_mirror:
 node tiles and their windows, the k1/k2 split of leaky-ReLU in log2 units, the
 lazily rescaled online softmax, reads outside the window) against the plain
 version, also where the span overflows the window and where shifts pass N;
-and the kernel's plan (general_plan). chip_smoke.py holds the kernel itself to
-the plain version on the card. fp32 tolerances are the other GAT parity
-tests': the order of fp32 sums (about 1e-6 relative at these sizes); bf16
-in and out may differ by one bf16 rounding of the output (2^-8 relative)."""
+and the kernel's plan (general_plan). tests/test_torch_gat_stencil_card.py
+holds the kernel itself to the plain version on the card. fp32 tolerances
+are the other GAT parity tests': the order of fp32 sums (about 1e-6
+relative at these sizes); bf16 in and out may differ by one bf16 rounding of
+the output (2^-8 relative)."""
 
 import jax.numpy as jnp
 import numpy as np

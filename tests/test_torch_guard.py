@@ -9,6 +9,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "tec_mollm_tpu_torch"
+TESTS = ROOT / "tests"
+# a test file with cases for the card, which runs it without tests/conftest.py
+CUDA_CASES = re.compile(r"^(@pytest\.mark\.cuda|pytestmark = pytest\.mark\.cuda)", re.M)
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -35,10 +38,14 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_no_source_names_jax_or_the_jax_package():
+    """The port, chip_smoke.py, and what the card runs with --noconftest:
+    card_cases.py, tests/torch_card.py and every test file with cuda cases."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax)\b|tec_mollm_tpu\.", re.M)
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    card_tests = [f for f in sorted(TESTS.glob("test_*.py")) if CUDA_CASES.search(f.read_text())]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "card_cases.py", TESTS / "torch_card.py"]
+    files += card_tests
     hits = [f"{f.relative_to(ROOT)}: {m.group(0)!r}" for f in files for m in pattern.finditer(f.read_text())]
-    assert len(files) > 20
+    assert len(files) > 20 and len(card_tests) >= 6, card_tests
     assert not hits, hits
 
 

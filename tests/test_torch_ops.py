@@ -3,8 +3,9 @@
 The Pallas kernels run in interpret mode on the CPU, as tests/test_ops.py runs
 them; the port's wrappers take their plain version for CPU tensors. The CUDA
 kernels themselves are held against these plain versions on the card by
-chip_smoke.py. fp32 tolerances cover the order of fp32 sums (about 1e-6
-relative at these sizes)."""
+the ``cuda`` cases of their own test files (tests/test_torch_*_card.py).
+fp32 tolerances cover the order of fp32 sums (about 1e-6 relative at these
+sizes)."""
 
 import jax
 import jax.numpy as jnp

@@ -1,5 +1,5 @@
 """PyTorch port: the batched SARIMA baseline on its own (models/sarima.py,
-ops/sarima.py), on the CPU.
+ops/sarima.py), on the CPU and, in its ``cuda`` cases, on the card.
 
 * The hand adjoint of the plain version (``css_backward_reference``) against
   torch autograd through the plain forward loop, within 1e-5 (both fp32,
@@ -18,7 +18,19 @@ ops/sarima.py), on the CPU.
 * ``sarima_baseline`` (statsmodels' SARIMAX) raises ``ImportError`` here, as
   JAX's does; ``create_features_and_targets`` is the two calls it wraps.
 
+On the card (marked ``cuda``, skipped without one; there: ``python -m pytest
+tests/test_torch_sarima.py -m cuda --noconftest``, as tests/conftest.py
+imports JAX): the three kernels of csrc/sarima.cu against their plain
+versions on card_cases.py's simulated flagship series (sarima_inputs), with
+the loss and gradient through them and 3 Adam steps; the fit's kernels at
+``FIT_EDGES`` and the forecast at ``FORECAST_EDGES`` (its launch plan from
+the C entry equal to ``forecast_plan``), each twice for the same bits; and
+the forecast at card_cases.SARIMA_FORECAST_LARGE windows.
+
 The parity with the JAX package is tests/test_torch_sarima_jax.py."""
+
+import ctypes
+import functools
 
 import numpy as np
 import pytest
@@ -28,8 +40,11 @@ from tec_mollm_tpu_torch.data.features import build_split_tensors, create_featur
 from tec_mollm_tpu_torch.data.hdf5_io import load_and_split_data
 from tec_mollm_tpu_torch.data.synthetic import write_synthetic_hdf5
 from tec_mollm_tpu_torch.models import baselines
-from tec_mollm_tpu_torch.models.sarima import SarimaParams, fit_sarima, forecast_windows
+from tec_mollm_tpu_torch.models.sarima import SarimaParams, adam_fit, fit_sarima, forecast_windows
+from tec_mollm_tpu_torch.ops import _build
 from tec_mollm_tpu_torch.ops import sarima as ops
+import card_cases as cases
+from torch_card import card  # noqa: F401 (card: a fixture)
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -106,7 +121,7 @@ def test_chunked_mirror_is_the_sequential_recursion(season, steps, nodes, chunk)
 
 
 # (windows, L, N, season, horizon): the compile-time form's shape, the
-# chip_smoke.py forecast edges at a few nodes (a node count below a warp at
+# card's forecast edges (FORECAST_EDGES) at a few nodes (a node count below a warp at
 # season 1, the shortest window, season 23, seasons 302 and 528), and a window
 # far longer than 2 (s + 1)
 FORECAST_CASES = [
@@ -235,3 +250,111 @@ def test_create_features_and_targets_is_the_two_steps(tmp_path):
         assert set(got[split]) == set(want[split])
         for k in want[split]:
             np.testing.assert_array_equal(got[split][k], want[split][k], err_msg=f"{split}/{k}")
+
+
+# ---------------------------------------------------------------- the card
+# The kernels against their plain versions: each output's largest difference
+# over its largest magnitude within card_cases.SARIMA_RTOL; the raw parameters
+# after 3 Adam steps within ADAM_ATOL. A step moves a raw parameter by lr * m /
+# (sqrt(v) + eps), about lr = 0.05 where its gradient is large; where a node's gradient
+# is near eps = 1e-8 (the loss is a mean over 2911 nodes, so a gradient is
+# ~1e-4 at most), a gradient difference d moves the step by up to lr * d /
+# (4 eps), about 4e-4 for d = 1e-6 of the largest gradient: three steps stay
+# within 1e-3, where a wrong gradient moves the parameters by ~lr.
+ADAM_ATOL = 1e-3
+# the fit kernels' edge shapes (T, N, season): the test CLI's 94-step fit, a
+# node count below one tile at season 1, the CLI's largest season at L_in 48,
+# and T below season + 1 (no loss term)
+FIT_EDGES = [(94, 2911, 12), (1987, 37, 1), (500, 2911, 23), (10, 2911, 12)]
+# the forecast's edge shapes (windows, L, N, season, horizon): the eval CLI's
+# last partial batch (91 test windows), one window (the flagship's L, season
+# and horizon), a node count below a warp at season 1, the shortest window at
+# season 12, the CLI's largest season at L_in 48, and seasons 302 and 528 (one
+# warp a block: its rings fill shared memory)
+FORECAST_EDGES = [(27, 48, 2911, 12, 12), (1, 48, 2911, 12, 12), (5, 4, 37, 1, 3), (8, 26, 2911, 12, 12),
+                  (8, 48, 2911, 23, 12), (2, 606, 64, 302, 12), (2, 1060, 64, 528, 12)]
+
+
+@functools.cache
+def _flagship(device) -> dict:
+    """card_cases.sarima_inputs: the simulated (2000, 2911) series, y, coefficients, 64 windows."""
+    return cases.sarima_inputs(0, device)
+
+
+def _c_plan(length: int, season: int, horizon: int) -> ops.ForecastPlan:
+    """The forecast's launch plan for a call, from the C entry sarima_forecast_plan."""
+    out = (ctypes.c_longlong * len(ops.ForecastPlan._fields))()
+    fn = _build.function("sarima_forecast_plan", ops.FORECAST_PLAN_ARGTYPES)
+    _build.check("sarima_forecast_plan", fn(length, season, horizon, ctypes.cast(out, ctypes.c_void_p)))
+    return ops.ForecastPlan(*out)
+
+
+@pytest.mark.cuda
+def test_card_kernels_match_the_plain_versions_at_the_flagship(card):
+    """The three kernels and the loss and gradient through them, on the
+    simulated series at season 12; two launches on the same inputs give the
+    same bits."""
+    f = _flagship(card)
+    y, coeffs, s, scale, wins, horizon = (f[k] for k in ("y", "coeffs", "season", "scale", "wins", "horizon"))
+    e, partial = ops.css_forward(y, coeffs, s)
+    e_p, partial_p = ops.css_forward_reference(y, coeffs, s)
+    grad = ops.css_backward(y, e, coeffs, s, scale)
+    fc = ops.forecast(wins, coeffs, horizon, s)
+    (loss, grad_raw), (loss_p, grad_raw_p) = (ops.css_loss_and_grad(f["raw"], y, s),
+                                              ops.css_loss_and_grad_reference(f["raw"], y, s))
+    for name, got, want in (("e", e, e_p), ("partial", partial, partial_p),
+                            ("grad", grad, ops.css_backward_reference(y, e_p, coeffs, s, scale)),
+                            ("forecast", fc, ops.forecast_reference(wins, coeffs, horizon, s)),
+                            ("loss", loss, loss_p), ("grad_raw", grad_raw, grad_raw_p)):
+        assert _rel(got, want) <= cases.SARIMA_RTOL, name
+    again = (*ops.css_forward(y, coeffs, s), ops.css_backward(y, e, coeffs, s, scale),
+             ops.forecast(wins, coeffs, horizon, s))
+    assert all(torch.equal(a, b) for a, b in zip(again, (e, partial, grad, fc)))
+
+
+@pytest.mark.cuda
+def test_card_adam_steps_through_the_kernels(card):
+    f = _flagship(card)
+    got = adam_fit(f["y"], f["season"], 3)
+    want = adam_fit(f["y"], f["season"], 3, loss_and_grad=ops.css_loss_and_grad_reference)
+    assert float((got - want).abs().max()) <= ADAM_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps, nodes, season", FIT_EDGES)
+def test_card_fit_kernels_at_the_edges(card, steps, nodes, season):
+    """Slices of the flagship's y and coefficients, twice for the same bits;
+    below season + 1 steps no term: partial and gradient 0."""
+    f = _flagship(card)
+    y, coeffs = f["y"][:steps, :nodes].contiguous(), f["coeffs"][:, :nodes].contiguous()
+    scale = 2.0 / (max(steps - season - 1, 1) * nodes)
+    (e, partial), (e2, partial2) = ops.css_forward(y, coeffs, season), ops.css_forward(y, coeffs, season)
+    e_p, partial_p = ops.css_forward_reference(y, coeffs, season)
+    grad, grad2 = ops.css_backward(y, e_p, coeffs, season, scale), ops.css_backward(y, e_p, coeffs, season, scale)
+    assert _rel(e, e_p) <= cases.SARIMA_RTOL and _rel(partial, partial_p) <= cases.SARIMA_RTOL
+    assert _rel(grad, ops.css_backward_reference(y, e_p, coeffs, season, scale)) <= cases.SARIMA_RTOL
+    assert torch.equal(e, e2) and torch.equal(partial, partial2) and torch.equal(grad, grad2)
+    if steps < season + 1:
+        assert not partial.any() and not grad.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("windows, length, nodes, season, horizon", FORECAST_EDGES)
+def test_card_forecast_at_the_edges(card, windows, length, nodes, season, horizon):
+    """Windows of the flagship series, twice for the same bits; the C entry
+    plans the launch as ops/sarima.py:forecast_plan does."""
+    f = _flagship(card)
+    x = cases.sarima_windows(f["series"][:, :nodes], windows, length, card)
+    coeffs = f["coeffs"][:, :nodes].contiguous()
+    got, again = ops.forecast(x, coeffs, horizon, season), ops.forecast(x, coeffs, horizon, season)
+    assert _rel(got, ops.forecast_reference(x, coeffs, horizon, season)) <= cases.SARIMA_RTOL
+    assert torch.equal(got, again) and bool(got.isfinite().all())
+    assert _c_plan(length, season, horizon) == ops.forecast_plan(length, season, horizon)
+
+
+@pytest.mark.cuda
+def test_card_forecast_at_many_windows(card):
+    f = _flagship(card)
+    wins = cases.sarima_windows(f["series"], cases.SARIMA_FORECAST_LARGE, f["L_in"], card)
+    got = ops.forecast(wins, f["coeffs"], f["horizon"], f["season"])
+    assert _rel(got, ops.forecast_reference(wins, f["coeffs"], f["horizon"], f["season"])) <= cases.SARIMA_RTOL

@@ -12,8 +12,9 @@ shape function and an export that holds the op. The JAX block's parity is in
 On the card (marked ``cuda``, skipped without one; there: ``python -m pytest
 tests/test_torch_temporal_kernel.py -m cuda --noconftest``, as tests/conftest.py
 imports JAX, which the card machine lacks): the kernel against the mirror
-at the flagship eval batch and at a ragged count, the same bits twice, one
-launch a call, and a whole ``TECMoLLM`` eval forward against the plain path."""
+at the flagship eval and serve batches and at a ragged count, the same bits
+twice, one launch a call, and a whole ``TECMoLLM`` eval forward against the
+plain path."""
 
 import dataclasses
 import importlib
@@ -27,6 +28,7 @@ from tec_mollm_tpu_torch.models.temporal import MultiScaleConvBlock, TemporalEnc
 from tec_mollm_tpu_torch.ops import _build
 from tec_mollm_tpu_torch.serving.export import artifact_ops
 from tec_mollm_tpu_torch.utils import profiler
+from torch_card import card  # noqa: F401 (a fixture)
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # ops.temporal_conv is the function; the module by its path
@@ -296,15 +298,6 @@ def test_model_eval_forward_through_the_op(op_on_cpu, monkeypatch):
 
 # ---------------------------------------------------------------- the card
 
-@pytest.fixture
-def card():
-    """The CUDA device; skips without one (decided here, not at import)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: run `python -m pytest tests/test_torch_temporal_kernel.py -m cuda --noconftest` on one")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
 def _card_inputs(card, b: int, n: int, seed: int):
     enc = _encoder(seed=seed).to(card)
     w, p = tc.pack_blocks(enc.conv_embedder.embedder, torch.bfloat16)
@@ -315,10 +308,11 @@ def _card_inputs(card, b: int, n: int, seed: int):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b, n", [(16, 2944), (1, 2911 + 5)])
+@pytest.mark.parametrize("b, n", [(16, 2944), (8, 2944), (1, 2911 + 5)])
 def test_kernel_matches_the_mirror(card, b, n):
     """The flagship eval batch (16 windows x 2,944 padded nodes = 47,104
-    sequences) and a ragged count (a last block with 4 live sequences of 8):
+    sequences), the serve batch (8 windows) and a ragged count (a last block
+    with 4 live sequences of 8):
     |kernel - mirror| <= 1e-2 + 1e-2 |mirror|. Both accumulate in fp32 and
     round to bf16 at the same places; they differ in the order of the fp32
     sums (and the GELU's erf, within 1.2e-7), so an activation may round one
