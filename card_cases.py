@@ -92,6 +92,11 @@ GAT_SMALL_GRID = (6, 8)
 # padded nodes x 3 patches), "window" one window's rows, "ragged" a row count
 # that no tile divides
 MLP_ROWS = {"path": BATCH * PADDED_NODES * 3, "window": PADDED_NODES * 3, "ragged": 1000}
+# add + LayerNorm cases: rows by label; "eval" is the eval batch's residual
+# stream (16 windows x 2944 padded nodes x 3 patches), "path" the serve
+# batch's (8 windows), "ragged" a row count that leaves the last wave's warps
+# uneven
+LN_ROWS = {"eval": 2 * BATCH * PADDED_NODES * 3, "path": BATCH * PADDED_NODES * 3, "ragged": 2911 * 3 + 5}
 # the SARIMA kernels' series: its steps (the eval harness's fit_window), the
 # season and the forecast batch (the harness's); AR-dominated (the JAX
 # package's recovery case)
@@ -187,6 +192,24 @@ def mlp_inputs(rows: int, device, seed: int) -> tuple:
     f32 = torch.float32
     return (rand(rows, d), 1.0 + rand(d, std=0.1, dtype=f32), rand(d, std=0.1, dtype=f32), rand(d, dh, std=0.02),
             rand(dh, std=0.02, dtype=f32), rand(dh, d, std=0.02), rand(d, std=0.02, dtype=f32))
+
+
+def ln_inputs(rows: int, device, seed: int, d: int | None = None) -> tuple:
+    """(x, delta, w, b) of the add + LayerNorm at ``rows`` rows of width ``d``
+    (the flagship's d_llm by default): the residual stream and a block's
+    output bf16, the LayerNorm's affine fp32 as the model keeps it."""
+    import torch
+
+    from tec_mollm_tpu_torch.config import Config
+
+    d = d or Config().resolved().model.d_llm
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device=device) * std).to(dtype)
+
+    return (rand(rows, d, std=2.0) + 0.5, rand(rows, d), 1.0 + rand(d, std=0.1, dtype=torch.float32),
+            rand(d, std=0.1, dtype=torch.float32))
 
 
 def flash_views(b: int, t: int, hd: int, dtype, device, seed: int, pad: int = 0) -> tuple:
@@ -367,6 +390,30 @@ def temporal_bare_entry(x, wpack, params):
 
     def call():
         _build.check(tc.NAME, fn(*args))
+        return out
+
+    return call
+
+
+def ln_bare_entry(x, delta, w, b, eps: float = 1e-5):
+    """A call of the add + LayerNorm kernel's C entry with its arguments
+    marshalled once, into a fresh (2, rows, d) output (h alone, (1, rows, d),
+    without ``delta``): the wrapper's launch without its checks and Python.
+    x, delta contiguous bf16, w, b fp32. Not counted."""
+    import torch
+
+    from tec_mollm_tpu_torch.ops import _build
+
+    al = importlib.import_module("tec_mollm_tpu_torch.ops.add_layernorm")  # ops.add_layernorm is the function
+    d = x.shape[-1]
+    out = torch.empty((1 if delta is None else 2, *x.shape), dtype=x.dtype, device=x.device)
+    fn = _build.function("add_layernorm_forward", al.ARGTYPES)
+    args = (x.data_ptr(), None if delta is None else delta.data_ptr(), w.data_ptr(), b.data_ptr(),
+            None if delta is None else out[0].data_ptr(), out[-1].data_ptr(), x.numel() // d, d, eps,
+            _build.stream_handle(x.device))
+
+    def call():
+        _build.check(al.NAME, fn(*args))
         return out
 
     return call

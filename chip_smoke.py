@@ -12,7 +12,8 @@ its own test file, run on the card with ``python -m pytest <file> -m cuda
 short_attention.cu by tests/test_torch_short_attention_card.py, fused_mlp.cu
 by tests/test_torch_fused_mlp_card.py, flash_attention.cu by
 tests/test_torch_flash_attention_card.py, temporal_conv.cu by
-tests/test_torch_temporal_kernel.py and sarima.cu by tests/test_torch_sarima.py.
+tests/test_torch_temporal_kernel.py, add_layernorm.cu by
+tests/test_torch_add_layernorm.py and sarima.cu by tests/test_torch_sarima.py.
 They and this script's kernel table take their shapes and inputs from
 card_cases.py. This script runs what needs the whole program, and times the
 kernels at their main-path shapes after holding each to its plain version
@@ -128,7 +129,8 @@ Phases (any failure exits non-zero):
      --batch-size 8, and a default artifact traced on the CPU for both
      platforms and moved to the card: its export and load wall and .pt2 size;
      its op nodes (tec_mollm.gat_stencil once, tec_mollm.temporal_conv once
-     where traced on the card, tec_mollm.short_attention and
+     and tec_mollm.add_layernorm 2 L + 1 times, L + 1 in a fused one, where
+     traced on the card, tec_mollm.short_attention and
      tec_mollm.fused_ln_mlp once per block in a fused one, no aten.roll); 16
      HTTP requests through ForecastService(artifact=...) against the
      checkpoint service of the same flags, within EXPORT_TOL_SCALED, with
@@ -227,10 +229,10 @@ from typing import Callable, NamedTuple
 import numpy as np
 
 from card_cases import (BATCH, DROPOUT, DROPOUT_SEED, FLASH_CASES, FLASH_HEADS, GAT, GAT_CASES, GAT_GENERAL_CASES,
-                        MLP_ROWS, PADDED_NODES, SARIMA_BATCH, SARIMA_FORECAST_LARGE, SARIMA_RTOL, SARIMA_SEASON,
-                        SARIMA_T, SARIMA_TRUTH, TOL, attention_inputs, flash_bare_entry, flash_views,
-                        forecast_bare_entry, gat_bare_entry, gat_inputs, launched, mlp_inputs, sarima_bare_entry,
-                        sarima_inputs, sarima_windows, temporal_bare_entry)
+                        LN_ROWS, MLP_ROWS, PADDED_NODES, SARIMA_BATCH, SARIMA_FORECAST_LARGE, SARIMA_RTOL,
+                        SARIMA_SEASON, SARIMA_T, SARIMA_TRUTH, TOL, attention_inputs, flash_bare_entry, flash_views,
+                        forecast_bare_entry, gat_bare_entry, gat_inputs, launched, ln_bare_entry, ln_inputs,
+                        mlp_inputs, sarima_bare_entry, sarima_inputs, sarima_windows, temporal_bare_entry)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 PEAK_BYTES = 3.35e12
@@ -653,6 +655,35 @@ def temporal_case() -> KernelCase:
         want=lambda: tc.temporal_conv_mirror(x, wpack, params))
 
 
+def ln_cases(seed: int) -> list[KernelCase]:
+    """The add + LayerNorm with a residual at the eval and serve batches'
+    residual streams; the plain version is the path the backbone runs
+    without it (the add, then lean_layernorm), the library call the add and
+    F.layer_norm on the bf16-cast affine."""
+    import torch
+
+    from tec_mollm_tpu_torch import ops
+
+    cases = []
+    for label in ("eval", "path"):
+        rows = LN_ROWS[label]
+        x, delta, w, b = ln_inputs(rows, torch.device("cuda"), seed)
+        d = x.shape[-1]
+        w16, b16 = w.bfloat16(), b.bfloat16()
+        cases.append(KernelCase(
+            "add_layernorm", label, f"x, delta ({rows},{d}) bf16, w, b ({d},) fp32 -> s, h ({rows},{d})",
+            wrapper=lambda x=x, delta=delta, w=w, b=b: ops.add_layernorm(x, delta, w, b),
+            bare=ln_bare_entry(x, delta, w, b),
+            plain=lambda x=x, delta=delta, w=w, b=b: ops.add_layernorm_mirror(x, delta, w, b),
+            library=lambda x=x, delta=delta, w16=w16, b16=b16, d=d: torch.nn.functional.layer_norm(
+                x + delta, (d,), w16, b16, 1e-5),
+            # x and delta read, s and h written once, the affine read once; per
+            # element the add, two sums, the subtract and multiply, the affine
+            bytes=4 * rows * d * 2 + 2 * d * 4, flops=8 * rows * d, peak=PEAK_FLOPS["fp32"],
+            kernels=("add_layernorm_kernel",)))
+    return cases
+
+
 def sarima_cases(seed: int) -> list[KernelCase]:
     """The SARIMA fit's two kernels on the flagship series (sarima_inputs) and
     its forecast at SARIMA_BATCH and at SARIMA_FORECAST_LARGE windows; bytes:
@@ -708,6 +739,7 @@ def kernel_cases(graph, seed: int):
     yield mlp_case(seed)
     yield flash_case(seed)
     yield temporal_case()
+    yield from ln_cases(seed)
     yield from sarima_cases(seed)
 
 
@@ -1509,17 +1541,18 @@ def export_phase(args, data_dir: str) -> dict:
             reference[path] = serve_http(service)
         finally:
             service.close()
-    # traced on the CPU, an artifact holds the plain conv blocks (the temporal
-    # kernel takes CUDA tensors): its reference runs the same blocks
-    from tec_mollm_tpu_torch.models import temporal
+    # traced on the CPU, an artifact holds the plain conv blocks and
+    # LayerNorms (the temporal and add + LayerNorm kernels take CUDA tensors):
+    # its reference runs the same
+    from tec_mollm_tpu_torch.models import gpt2, temporal
 
-    devices, temporal.KERNEL_DEVICES = temporal.KERNEL_DEVICES, ()
+    devices, temporal.KERNEL_DEVICES, gpt2.KERNEL_DEVICES = temporal.KERNEL_DEVICES, (), ()
     service = ForecastService(cfg, data_dir, checkpoint=best, max_batch=BATCH)
     try:
         reference["plain_blocks"] = serve_http(service)
     finally:
         service.close()
-        temporal.KERNEL_DEVICES = devices
+        temporal.KERNEL_DEVICES = gpt2.KERNEL_DEVICES = devices
 
     cases = {
         "default": ([], "default"), "default_b8": (["--batch-size", str(BATCH)], "default"),
@@ -1539,12 +1572,15 @@ def export_phase(args, data_dir: str) -> dict:
         del ep
         custom = {k: v for k, v in node_ops.items() if k.startswith("tec_mollm.")}
         fused = layers if ref == "fused" else 0
-        # traced on the card: the temporal op; on the CPU: the plain blocks
+        # traced on the card: the temporal and add + LayerNorm ops (2 L + 1,
+        # or L + 1 beside the fused MLP); on the CPU: the plain blocks and norms
         temporal_op = int(label != "cpu_traced")
+        norms = temporal_op * (layers + 1 if ref == "fused" else 2 * layers + 1)
         per_forward = {"gat_stencil": 1, "gat_stencil_general": 0, "short_attention": fused, "fused_mlp": fused,
-                       "temporal_conv": temporal_op}
+                       "temporal_conv": temporal_op, "add_layernorm": norms}
         want_nodes = {"tec_mollm.gat_stencil": 1, "tec_mollm.short_attention": fused,
-                      "tec_mollm.fused_ln_mlp": fused, "tec_mollm.temporal_conv": temporal_op}
+                      "tec_mollm.fused_ln_mlp": fused, "tec_mollm.temporal_conv": temporal_op,
+                      "tec_mollm.add_layernorm": norms}
         service = ForecastService(cfg, data_dir, artifact=art, max_batch=BATCH)
         try:
             served = serve_http(service)

@@ -18,6 +18,11 @@ Paths, as in the JAX package:
   through the einsum branch, and the port's pretrains through the kernel);
 * ``use_fused_mlp=True`` sends ln_2 -> MLP -> residual of an eval call to the
   fused kernel, whose LayerNorm is two-pass (as ``ops/fused_mlp.py`` is);
+* on eval calls on the card, ``GPT2Backbone`` runs every lean LayerNorm with
+  the residual add before it as one CUDA kernel (``ops/add_layernorm.py``: the
+  same arithmetic, one read and one write of each row) wherever
+  ``GPT2Backbone.norm_kernel_refusal`` finds nothing against it; each call
+  counts ``llm.ln.kernel`` in the tracer;
 * ``remat=True`` recomputes each block in the backward under a named policy
   (``REMAT_POLICIES``, the JAX backbone's): None, 'full' and
   'nothing_saveable' save nothing and recompute the whole block;
@@ -49,13 +54,18 @@ from torch.utils.checkpoint import (
 from tec_mollm_tpu_torch.config import ModelConfig
 from tec_mollm_tpu_torch.models.deepseek_v2 import DeepSeekV2Backbone
 from tec_mollm_tpu_torch.models.lora import LoRADense
+from tec_mollm_tpu_torch.ops.add_layernorm import add_layernorm, add_layernorm_takes, lean_layernorm
 from tec_mollm_tpu_torch.ops.flash_attention import flash_attention
 from tec_mollm_tpu_torch.ops.fused_mlp import fused_ln_mlp
 from tec_mollm_tpu_torch.ops.short_attention import short_causal_attention
 from tec_mollm_tpu_torch.parallel.tensor_parallel import fold_model_rank, split_dropout
+from tec_mollm_tpu_torch.utils.profiler import count
 
 # Sequences up to this length use the unrolled attention (or the kernel).
 UNROLL_MAX_SEQ = 8
+# the devices whose tensors take the add + LayerNorm kernel on eval calls (its
+# op runs the plain mirror on a CPU tensor, which a test reaches by adding "cpu")
+KERNEL_DEVICES = ("cuda",)
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
 
@@ -74,14 +84,6 @@ REMAT_POLICIES = {
     "dots_saveable": _dots_saveable,
     "nothing_saveable": None,
 }
-
-
-def lean_layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5):
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = xf.square().mean(dim=-1, keepdim=True) - mean.square()
-    norm = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
-    return norm * w.to(x.dtype) + b.to(x.dtype)
 
 
 def fp32_layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5):
@@ -204,16 +206,20 @@ class GPT2Block(nn.Module):
         self.ln_2 = nn.LayerNorm(d, eps=1e-5)
         self.mlp = GPT2MLP(d, cfg.llm_mlp_ratio)
 
+    def fused_mlp(self, x: torch.Tensor) -> torch.Tensor:
+        """x + MLP(ln_2(x)) through the fused LN -> MLP -> residual kernel."""
+        d = x.shape[-1]
+        fc, proj = self.mlp.c_fc, self.mlp.c_proj
+        out = fused_ln_mlp(
+            x.reshape(-1, d), self.ln_2.weight, self.ln_2.bias,
+            fc.weight, fc.bias, proj.weight, proj.bias, self.ln_2.eps,
+        )
+        return out.reshape(x.shape)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm(x, self.ln_1.weight, self.ln_1.bias, self.ln_1.eps))
         if self.use_fused_mlp and not self.training:
-            d = x.shape[-1]
-            fc, proj = self.mlp.c_fc, self.mlp.c_proj
-            out = fused_ln_mlp(
-                x.reshape(-1, d), self.ln_2.weight, self.ln_2.bias,
-                fc.weight, fc.bias, proj.weight, proj.bias, self.ln_2.eps,
-            )
-            return out.reshape(x.shape)
+            return self.fused_mlp(x)
         h = self.norm(x, self.ln_2.weight, self.ln_2.bias, self.ln_2.eps)
         return x + F.dropout(self.mlp(h), self.dropout, self.training)
 
@@ -233,6 +239,7 @@ class GPT2Backbone(nn.Module):
     ):
         super().__init__()
         self.dropout = cfg.llm_dropout
+        self.lean_ln = lean_ln
         self.norm = lean_layernorm if lean_ln else fp32_layernorm
         # recompute each block's activations in the backward under the named
         # policy (the JAX model's remat_llm and remat_policy); the checkpoint
@@ -266,10 +273,50 @@ class GPT2Backbone(nn.Module):
         nn.init.ones_(self.ln_f.weight)
         nn.init.zeros_(self.ln_f.bias)
 
+    def norm_kernel_refusal(self, x: torch.Tensor) -> str | None:
+        """None when this call's LayerNorms and residual adds run the add +
+        LayerNorm kernel, else why the plain ones run them: the kernel takes
+        eval calls on the card that need no gradient, with the lean
+        LayerNorm, at the dtype and width ``add_layernorm_takes`` accepts."""
+        if x.device.type not in KERNEL_DEVICES:
+            return f"a {x.device.type} tensor: the kernel runs on the card"
+        if self.training:
+            return "train mode: the training forward and its backward stay with autograd"
+        if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in self.parameters())):
+            return "an input requires grad under grad mode: the kernel has no backward"
+        if not self.lean_ln:
+            return "lean_ln=False: the fp32 LayerNorms are another algorithm"
+        return add_layernorm_takes(x.shape[-1], x.dtype)
+
+    def _add_norm(self, x: torch.Tensor, delta: torch.Tensor | None, ln: nn.LayerNorm):
+        count("llm.ln.kernel")
+        return add_layernorm(x, delta, ln.weight, ln.bias, ln.eps)
+
+    def _kernel_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The eval loop on the add + LayerNorm kernel, carrying the residual
+        stream x and its normalised rows h from block to block: block 0's ln_1
+        alone, then in each block the attention's residual add with ln_2 and
+        the MLP's with the next block's ln_1 (ln_f after the last). A block on
+        the fused MLP kernel keeps its own ln_2 and MLP residual, and the next
+        norm takes no residual."""
+        norms = [block.ln_1 for block in self.h] + [self.ln_f]
+        h = self._add_norm(x, None, norms[0])
+        for block, ln_next in zip(self.h, norms[1:]):
+            a = block.attn(h)
+            if block.use_fused_mlp:
+                x = block.fused_mlp(x + a)
+                h = self._add_norm(x, None, ln_next)
+            else:
+                x, h = self._add_norm(x, a, block.ln_2)
+                x, h = self._add_norm(x, block.mlp(h), ln_next)
+        return h
+
     def forward(self, inputs_embeds: torch.Tensor) -> torch.Tensor:
         t = inputs_embeds.shape[1]
         dt = inputs_embeds.dtype
         x = F.dropout(inputs_embeds + self.wpe.weight[:t].to(dt)[None], self.dropout, self.training)
+        if self.norm_kernel_refusal(x) is None:
+            return self._kernel_forward(x)
         for block in self.h:
             if self.remat and torch.is_grad_enabled():
                 x = checkpoint(block, x, use_reentrant=False, context_fn=self.context_fn)

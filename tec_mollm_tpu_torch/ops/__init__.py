@@ -4,6 +4,7 @@
 """
 
 from tec_mollm_tpu_torch.ops._build import launch_counts, reset_counts
+from tec_mollm_tpu_torch.ops.add_layernorm import add_layernorm, add_layernorm_mirror
 from tec_mollm_tpu_torch.ops.flash_attention import (
     FLASH_MIN_SEQ,
     flash_attention,
@@ -22,6 +23,8 @@ from tec_mollm_tpu_torch.ops.short_attention import (
 from tec_mollm_tpu_torch.ops.temporal_conv import temporal_conv, temporal_conv_mirror
 
 __all__ = [
+    "add_layernorm",
+    "add_layernorm_mirror",
     "FLASH_MIN_SEQ",
     "flash_attention",
     "flash_attention_forward",
